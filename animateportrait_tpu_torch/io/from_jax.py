@@ -260,3 +260,108 @@ def pos_state_dict(variables: Tree, num_layers: int = 2
     for ours, idx in (("out_l0", 0), ("out_l1", 2), ("out_l2", 4)):
         _dense(sd, f"out.{idx}", p[ours])
     return sd
+
+
+def _mtcnn(variables: Tree, convs, denses, prelus, heads
+           ) -> dict[str, torch.Tensor]:
+    p = variables["params"]
+    sd: dict = {}
+    for i in convs:
+        _conv2d(sd, f"features.conv{i}", p[f"conv{i}"])
+    for i in denses:
+        _dense(sd, f"features.conv{i}", p[f"conv{i}"])
+    for i in prelus:
+        sd[f"features.prelu{i}.weight"] = _t(p[f"prelu{i}"]["alpha"])
+    for name in heads:
+        (_conv2d if np.ndim(p[name]["kernel"]) == 4 else _dense)(
+            sd, name, p[name])
+    return sd
+
+
+def pnet_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
+    """Inverse of ``load_pnet_params`` (keys of the reference pnet.npy)."""
+    return _mtcnn(variables, (1, 2, 3), (), (1, 2, 3), ("conv4_1", "conv4_2"))
+
+
+def rnet_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
+    """Inverse of ``load_rnet_params``."""
+    return _mtcnn(variables, (1, 2, 3), (4,), (1, 2, 3, 4),
+                  ("conv5_1", "conv5_2"))
+
+
+def onet_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
+    """Inverse of ``load_onet_params``."""
+    return _mtcnn(variables, (1, 2, 3, 4), (5,), (1, 2, 3, 4, 5),
+                  ("conv6_1", "conv6_2", "conv6_3"))
+
+
+def photo2cartoon_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
+    """Inverse of ``load_photo2cartoon_params`` (the ``genA2B`` keys; the
+    reference's per-channel vectors are (1, C) or (1, C, 1, 1))."""
+    p = variables["params"]
+    sd: dict = {}
+
+    def vec(name, a, *shape):
+        sd[name] = _t(np.asarray(a).reshape(*shape))
+
+    def block(theirs, ours):
+        for j in (1, 2, 3):
+            _conv2d(sd, f"{theirs}.ConvBlock{j}.3", ours[f"conv{j}"])
+
+    def hourglass(theirs, ours):
+        hg = ours["hg"]
+        for i in range(1, 5):
+            for j in (1, 2):
+                block(f"{theirs}.HG.0.ConvBlock{i}_{j}", hg[f"conv{i}_{j}"])
+        for i in range(5, 10):
+            block(f"{theirs}.HG.0.ConvBlock{i}", hg[f"conv{i}"])
+        block(f"{theirs}.HG.1", ours["hg_conv"])
+        _conv2d(sd, f"{theirs}.HG.2", ours["hg_conv1x1"])
+        for j in (1, 2, 3):
+            if f"conv{j}" in ours:
+                _conv2d(sd, f"{theirs}.Conv{j}", ours[f"conv{j}"])
+
+    def soft_adalin(theirs, ours):
+        vec(f"{theirs}.w_gamma", ours["w_gamma"], 1, -1)
+        vec(f"{theirs}.w_beta", ours["w_beta"], 1, -1)
+        for head in ("gamma", "beta"):
+            _dense(sd, f"{theirs}.c_{head}.0", ours[f"c_{head}_0"])
+            _dense(sd, f"{theirs}.c_{head}.2", ours[f"c_{head}_1"])
+            _dense(sd, f"{theirs}.s_{head}", ours[f"s_{head}"])
+        vec(f"{theirs}.norm.rho", ours["norm"]["rho"], 1, -1, 1, 1)
+
+    _conv2d(sd, "ConvBlock1.1", p["conv_in"])
+    for i in range(1, 5):
+        hourglass(f"HourGlass{i}", p[f"hourglass{i}"])
+    _conv2d(sd, "DownBlock1.1", p["down1"])
+    _conv2d(sd, "DownBlock2.1", p["down2"])
+    for i in range(1, 5):
+        _conv2d(sd, f"EncodeBlock{i}.conv_block.1", p[f"encode{i}"]["conv1"])
+        _conv2d(sd, f"EncodeBlock{i}.conv_block.5", p[f"encode{i}"]["conv2"])
+    for fc in ("gap_fc", "gmp_fc"):
+        sd[f"{fc}.weight"] = _t(np.asarray(p[f"{fc}_kernel"]).T)
+        sd[f"{fc}.bias"] = _t(p[f"{fc}_bias"])
+    _conv2d(sd, "conv1x1", p["conv1x1"])
+    _dense(sd, "FC.0", p["fc0"])
+    _dense(sd, "FC.2", p["fc1"])
+    for i in range(1, 5):
+        d = p[f"decode{i}"]
+        _conv2d(sd, f"DecodeBlock{i}.conv1", d["conv1"])
+        _conv2d(sd, f"DecodeBlock{i}.conv2", d["conv2"])
+        soft_adalin(f"DecodeBlock{i}.norm1", d["norm1"])
+        soft_adalin(f"DecodeBlock{i}.norm2", d["norm2"])
+    for i in (1, 2):
+        _conv2d(sd, f"UpBlock{i}.2", p[f"up{i}"])
+        for k in ("rho", "gamma", "beta"):
+            vec(f"UpBlock{i}.3.{k}", p[f"up{i}_lin"][k], 1, -1, 1, 1)
+    _conv2d(sd, "ConvBlock2.1", p["conv_out"])
+    return sd
+
+
+def voice_encoder_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
+    """Inverse of ``load_voice_encoder_params`` (resemblyzer keys)."""
+    p = variables["params"]
+    sd: dict = {}
+    _lstm(sd, "lstm.", p["lstm"], 3)
+    _dense(sd, "linear", p["linear"])
+    return sd

@@ -1,4 +1,5 @@
-"""Face alignment: the reference's crop and the 5-point landmark fallback.
+"""Face detection and alignment: the reference's crop and the 5-point
+landmark fallback.
 Port of ``animateportrait_tpu/pipeline/align.py`` without OpenCV: the
 bicubic resize is ``utils.image.resize_bicubic``.
 
@@ -75,10 +76,16 @@ def estimate_landmarks_from_5pt(five_pts: np.ndarray,
     return np.concatenate([out2d, z[:, None]], axis=1)
 
 
-def detect_and_align(img_bgr: np.ndarray, detector, out_size: int = 512):
-    """Detect on RGB, align, and map the 5 points into the aligned crop.
-    Returns (aligned BGR, five_pts (5, 2))."""
-    boxes, lms = detector(img_bgr[:, :, ::-1].astype(np.float32))
+def detect(img_bgr: np.ndarray, detector):
+    """Run ``detector`` (an ``MTCNNDetector`` or anything with its call
+    signature) on the RGB float image: (boxes (k, 5), landmarks (k, 10))."""
+    return detector(img_bgr[:, :, ::-1].astype(np.float32))
+
+
+def align_detections(img_bgr: np.ndarray, boxes: np.ndarray,
+                     lms: np.ndarray, out_size: int = 512):
+    """Align on the largest detected face and map its 5 points into the
+    aligned crop. Returns (aligned BGR, five_pts (5, 2))."""
     if len(boxes) == 0:
         raise ValueError("no face detected")
     aligned, (scale, ox, oy), k = align_face(img_bgr, boxes, out_size)
@@ -87,3 +94,8 @@ def detect_and_align(img_bgr: np.ndarray, detector, out_size: int = 512):
     five[:, 0] = (five[:, 0] - ox) * scale
     five[:, 1] = (five[:, 1] - oy) * scale
     return aligned, five
+
+
+def detect_and_align(img_bgr: np.ndarray, detector, out_size: int = 512):
+    """``detect`` then ``align_detections``."""
+    return align_detections(img_bgr, *detect(img_bgr, detector), out_size)

@@ -4,7 +4,7 @@ of ``animateportrait_tpu/pipeline/audio.py``.
 The host keeps the WAV IO, the -20 dBFS gain, the 30 Hz high-pass and the
 dither (numpy/scipy). The device runs the rest: |STFT| through kernel K1,
 the mel/dB scaling, the f0 tracker with its normalization and one-hot
-code, and AutoVC over 512-frame chunks.
+code, the speaker encoder when there is one, and AutoVC over chunks.
 """
 from __future__ import annotations
 
@@ -16,6 +16,8 @@ import torch
 
 from animateportrait_tpu.utils import assets
 from animateportrait_tpu_torch.models.autovc import AutoVCGenerator
+from animateportrait_tpu_torch.models.speaker_encoder import (
+    VoiceEncoder, get_spk_emb)
 from animateportrait_tpu_torch.ops.f0 import track_f0
 from animateportrait_tpu_torch.ops.spectral import (
     mel_filterbank, quantize_f0_onehot, speaker_normalize_f0)
@@ -128,19 +130,25 @@ class AudioFeatures:
 class AudioPipeline:
     """WAV -> AutoVC-normalized features, in chunks like the reference.
 
-    The speaker encoder is not ported yet: the source speaker embedding is
-    zero, as in the JAX pipeline without voice-encoder weights (AutoVC
-    conditions on the target Obama embedding either way).
+    The source speaker embedding comes from ``voice_encoder`` when one is
+    given, and is zero otherwise, as in the JAX pipeline without
+    voice-encoder weights (AutoVC conditions on the target Obama embedding
+    either way).
     """
 
-    def __init__(self, autovc: AutoVCGenerator, chunk: int = 4096,
-                 device: torch.device | str = "cpu"):
+    def __init__(self, autovc: AutoVCGenerator,
+                 voice_encoder: VoiceEncoder | None = None,
+                 chunk: int = 4096, device: torch.device | str = "cpu"):
         self.device = torch.device(device)
         self.autovc = autovc.to(self.device).eval()
+        self.voice_encoder = (None if voice_encoder is None
+                              else voice_encoder.to(self.device).eval())
         self.chunk = chunk
 
     def speaker_embedding(self, wav: np.ndarray) -> np.ndarray:
-        return np.zeros(256, np.float32)
+        if self.voice_encoder is None:
+            return np.zeros(256, np.float32)
+        return get_spk_emb(self.voice_encoder, wav)
 
     def __call__(self, wav: np.ndarray, gender: str = "F") -> AudioFeatures:
         wav = normalize_dbfs(wav)

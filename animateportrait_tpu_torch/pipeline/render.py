@@ -1,9 +1,10 @@
-"""Landmark dot images + the Module2 inference renderer, drawing style.
-Port of ``animateportrait_tpu/pipeline/render.py:Module2Renderer``
+"""Landmark dot images + the Module2 inference renderer, drawing and cartoon
+styles. Port of ``animateportrait_tpu/pipeline/render.py:Module2Renderer``
 (reference: Module2/models/geomcgt_ifw_test_model.py:276-302).
 
-Once per photo: the MODNet matte, the static stylization at 512 px, and
-the generator's frame-invariant ``encode_static``. Per frame batch, on the
+Once per photo: the MODNet matte, the static stylization (the drawing net
+at 512 px, or Photo2Cartoon at 256 px), and the generator's
+frame-invariant ``encode_static``. Per frame batch, on the
 device: the exact griddata-linear motion grid from a host Delaunay, the
 landmark dot images, FlowUnet's intrinsic flow, the generator's
 ``decode``, the warped-matte blend and the uint8 conversion; each batch's
@@ -20,6 +21,8 @@ from animateportrait_tpu_torch.models.flowunet import (
 from animateportrait_tpu_torch.models.gan import (
     ResnetStyle2Generator, TridentGeneratorFullIFW)
 from animateportrait_tpu_torch.models.modnet import MODNet
+from animateportrait_tpu_torch.models.photo2cartoon import (
+    Photo2CartoonGenerator)
 from animateportrait_tpu_torch.ops.tps import (
     linear_motion_grid, triangulate_frames)
 
@@ -49,23 +52,36 @@ def landmark_dot_images(lm68: torch.Tensor, size: int) -> torch.Tensor:
 
 
 class Module2Renderer:
-    """Photo + per-frame target landmarks -> drawing-style frames.
+    """Photo + per-frame target landmarks -> stylized frames.
 
-    The nets come in as modules of this package; they are moved to
-    ``device`` and put in eval mode. Only the uint8 output of the
-    benchmarked configuration (and fp32 in [-1, 1] for tests) is offered.
+    ``style`` "drawing" takes the static drawing net ``static_g`` and a
+    1-channel generator; "cartoon" takes ``cartoon_g`` and a 3-channel
+    generator. The nets come in as modules of this package; they are moved
+    to ``device`` and put in eval mode. Only the uint8 output of the
+    CLI (and fp32 in [-1, 1] for tests) is offered.
     """
 
     def __init__(self, generator: TridentGeneratorFullIFW, flowunet: FlowUnet,
-                 modnet: MODNet, static_g: ResnetStyle2Generator,
+                 modnet: MODNet,
+                 static_g: ResnetStyle2Generator | None = None,
                  frame_batch: int = 8,
                  output_uint8: bool = False,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cpu",
+                 style: str = "drawing",
+                 cartoon_g: Photo2CartoonGenerator | None = None):
+        static = {"drawing": ("static_g", static_g),
+                  "cartoon": ("cartoon_g", cartoon_g)}
+        if style not in static:
+            raise ValueError(f"Module2Renderer: unknown style {style!r}")
+        if static[style][1] is None:
+            raise ValueError(f"Module2Renderer: style {style!r} needs "
+                             f"{static[style][0]}")
         self.device = torch.device(device)
+        self.style = style
         self.g = generator.to(self.device).eval()
         self.flowunet = flowunet.to(self.device).eval()
         self.modnet = modnet.to(self.device).eval()
-        self.static_g = static_g.to(self.device).eval()
+        self.static_net = static[style][1].to(self.device).eval()
         self.frame_batch = frame_batch
         self.output_uint8 = output_uint8
 
@@ -74,13 +90,19 @@ class Module2Renderer:
         static stylization at 256)."""
         cs = CROP_SIZE
         mask = (self.modnet(photo) > 0.5).float()
-        photo_512 = F.interpolate(photo, size=(512, 512), mode="bilinear",
-                                  align_corners=False)
-        style = torch.tensor([0.0, 1.0, 0.0], device=photo.device)
-        style = style[None, :, None, None].expand(1, 3, 128, 128)
-        fake_static = F.interpolate(self.static_g(photo_512, style),
-                                    size=(cs, cs), mode="bilinear",
-                                    align_corners=False)
+        if self.style == "drawing":
+            photo_512 = F.interpolate(photo, size=(512, 512), mode="bilinear",
+                                      align_corners=False)
+            style = torch.tensor([0.0, 1.0, 0.0], device=photo.device)
+            style = style[None, :, None, None].expand(1, 3, 128, 128)
+            fake_static = F.interpolate(self.static_net(photo_512, style),
+                                        size=(cs, cs), mode="bilinear",
+                                        align_corners=False)
+        else:
+            # Photo2Cartoon.inference2 takes the photo through a truncating
+            # uint8 round trip first (photo2cartoon.py:585-589)
+            q = torch.floor(torch.clamp((photo + 1.0) * 127.5, 0, 255))
+            fake_static, _, _ = self.static_net(q / 127.5 - 1.0)
         photo_fore = ((photo / 2 + 0.5) * mask + 1 - mask) * 2 - 1
         return photo_fore, mask, fake_static
 
@@ -117,7 +139,8 @@ class Module2Renderer:
                  tb_lm68s: np.ndarray,
                  motions: np.ndarray | None = None) -> np.ndarray:
         """photo (256, 256, 3) in [-1, 1]; a_lm68 (68, 2); tb_lm68s
-        (T, 68, 2) -> frames (T, 256, 256, 1), fp32 in [-1, 1] or uint8.
+        (T, 68, 2) -> frames (T, 256, 256, nc), fp32 in [-1, 1] or uint8;
+        nc is 1 for drawing, 3 for cartoon.
 
         motions: optional (T, 256, 256, 2) grids that replace the
         Delaunay-linear ones (the reference's griddata grids)."""

@@ -1,7 +1,10 @@
 """Inputs and weights for smoke runs of the slice (no checkpoints needed):
 the fixed-box stub detector and the synthetic speech WAV that the JAX
-package's ``bench.py:bench_e2e`` uses, and seeded random weights."""
+package's ``bench.py:bench_e2e`` uses, seeded random weights, and seeded
+random MTCNN weights biased to detect faces."""
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -62,12 +65,15 @@ def init_random_(module: nn.Module, generator: torch.Generator
     return module
 
 
-def full_width_nets(seed: int = 0) -> dict[str, nn.Module]:
+def full_width_nets(seed: int = 0, style: str = "drawing"
+                    ) -> dict[str, nn.Module]:
     """The slice's nets at full width with seeded random weights, on the
-    CPU: AutoVC, both landmark branches, the trident generator
-    (output_nc 1, ngf 64, 9 blocks, div 3, disp 3), FlowUnet, MODNet and
-    the drawing-style static net — the configuration ``bench.py:bench_e2e``
-    times."""
+    CPU: AutoVC, both landmark branches, the trident generator (ngf 64,
+    9 blocks, div 3, disp 3; output_nc 1 for drawing, 3 for cartoon),
+    FlowUnet, MODNet, the static net of the style (the drawing net,
+    ``static_g``, or Photo2Cartoon ngf 32, ``photo2cartoon``) and the
+    speaker encoder. With style "drawing" these are the nets of the
+    configuration ``bench.py:bench_e2e`` times."""
     from animateportrait_tpu_torch.models.audio2landmark import (
         Audio2landmarkContent, Audio2landmarkPos)
     from animateportrait_tpu_torch.models.autovc import AutoVCGenerator
@@ -75,28 +81,70 @@ def full_width_nets(seed: int = 0) -> dict[str, nn.Module]:
     from animateportrait_tpu_torch.models.gan import (
         ResnetStyle2Generator, TridentGeneratorFullIFW)
     from animateportrait_tpu_torch.models.modnet import MODNet
+    from animateportrait_tpu_torch.models.photo2cartoon import (
+        Photo2CartoonGenerator)
+    from animateportrait_tpu_torch.models.speaker_encoder import VoiceEncoder
 
     g = torch.Generator().manual_seed(seed)
     nets = {
         "autovc": AutoVCGenerator(),
         "pos": Audio2landmarkPos(),
         "content": Audio2landmarkContent(),
-        "generator": TridentGeneratorFullIFW(output_nc=1, ngf=64, n_blocks=9,
-                                             div=3, disp=3),
+        "generator": TridentGeneratorFullIFW(
+            output_nc=1 if style == "drawing" else 3, ngf=64, n_blocks=9,
+            div=3, disp=3),
         "flowunet": FlowUnet(),
         "modnet": MODNet(),
-        "static_g": ResnetStyle2Generator(),
+        "voice_encoder": VoiceEncoder(),
     }
+    if style == "drawing":
+        nets["static_g"] = ResnetStyle2Generator()
+    else:
+        nets["photo2cartoon"] = Photo2CartoonGenerator(ngf=32)
     for net in nets.values():
         init_random_(net, g).eval()
     return nets
 
 
+# gain on the random weights of each MTCNN classifier head: it spreads the
+# face logit over about +-1 across an image. Without it every cell scores
+# within a few fp32 ulps of the next, score ties decide which boxes NMS
+# keeps, and two correct implementations keep different boxes.
+_MTCNN_HEAD_GAIN = 100.0
+
+
+def write_mtcnn_weights(directory: str, seed: int = 0,
+                        face_bias: float = 1.25) -> str:
+    """Seeded random ``pnet/rnet/onet.npy`` in the reference format (a
+    pickled {key: array} dict each) under ``directory``. Each classifier
+    head (``conv4_1``/``conv5_1``/``conv6_1``) gets its weights scaled by
+    ``_MTCNN_HEAD_GAIN`` and +face_bias on the face logit, -face_bias on
+    the other: random weights alone give p(face) ~ 0.5, under the
+    0.6/0.7/0.8 thresholds, and nothing would be detected."""
+    from animateportrait_tpu_torch.models.mtcnn import ONet, PNet, RNet
+
+    os.makedirs(directory, exist_ok=True)
+    g = torch.Generator().manual_seed(seed)
+    for name, net, head in (("pnet", PNet(), "conv4_1"),
+                            ("rnet", RNet(), "conv5_1"),
+                            ("onet", ONet(), "conv6_1")):
+        sd = {k: v.numpy().copy()
+              for k, v in init_random_(net, g).state_dict().items()}
+        sd[f"{head}.weight"] *= _MTCNN_HEAD_GAIN
+        sd[f"{head}.bias"] += np.float32([-face_bias, face_bias])
+        np.save(os.path.join(directory, f"{name}.npy"), sd,
+                allow_pickle=True)
+    return directory
+
+
 def build_pipeline(nets: dict[str, nn.Module], device: torch.device | str,
-                   frame_batch: int = 8, output_uint8: bool = True):
-    """The slice's ``TalkingPortraitPipeline`` on ``device``: stub
-    detector, ``AudioPipeline(chunk=512)`` without a voice encoder, default
-    landmark amplifiers, drawing-style renderer."""
+                   frame_batch: int = 8, output_uint8: bool = True,
+                   style: str = "drawing", detector=None):
+    """The slice's ``TalkingPortraitPipeline`` on ``device``: ``detector``
+    (the fixed-box stub when None), ``AudioPipeline(chunk=512)`` without a
+    voice encoder, default landmark amplifiers, and the renderer of
+    ``style`` (the static net ``nets["static_g"]`` for drawing,
+    ``nets["photo2cartoon"]`` for cartoon)."""
     from animateportrait_tpu_torch.pipeline.audio import AudioPipeline
     from animateportrait_tpu_torch.pipeline.end2end import (
         TalkingPortraitPipeline)
@@ -104,9 +152,10 @@ def build_pipeline(nets: dict[str, nn.Module], device: torch.device | str,
     from animateportrait_tpu_torch.pipeline.render import Module2Renderer
 
     return TalkingPortraitPipeline(
-        StubDetector(),
+        detector or StubDetector(),
         LandmarkPredictor(nets["pos"], nets["content"], device=device),
         AudioPipeline(nets["autovc"], chunk=512, device=device),
         Module2Renderer(nets["generator"], nets["flowunet"], nets["modnet"],
-                        nets["static_g"], frame_batch=frame_batch,
-                        output_uint8=output_uint8, device=device))
+                        nets.get("static_g"), frame_batch=frame_batch,
+                        output_uint8=output_uint8, device=device,
+                        style=style, cartoon_g=nets.get("photo2cartoon")))

@@ -18,7 +18,18 @@ Phases, each printing its own lines:
      version on those activations too;
   4. card against host: the audio stage and one 2-frame renderer batch with
      the same weights and inputs on the card and on the CPU (which runs the
-     plain versions).
+     plain versions);
+  5. the user's entry point on the card: ``cli.main`` with ``--exp
+     formal/cartoon --device cuda`` on a synthetic photo (PPM), a 6 s WAV
+     and a checkpoint directory that holds only seeded random MTCNN
+     weights, so every other net takes the CLI's random init. The launch
+     counters are zeroed just before it and must be positive after it; the
+     AVI is parsed back. A warm pass through the CLI's own pipeline builder
+     keeps the input of every Photo2Cartoon InstanceNorm, and K2 is held
+     against its plain version on those;
+  6. card against host for the modules phase 5 added to the path: the
+     MTCNN cascade, the Photo2Cartoon stylization, a 2-frame cartoon render
+     and the speaker embedding.
 
 Any failure raises, and the script exits non-zero without a result. The
 line before the last is the kernels' JSON record; the last line is
@@ -29,9 +40,12 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import statistics
 import subprocess
+import tempfile
 import time
+import wave
 
 import numpy as np
 import torch
@@ -43,7 +57,11 @@ K2_REPLACES = "animateportrait_tpu/ops/pallas_instnorm.py:126"
 K2_SHAPES = [(8, 128, 128, 128), (8, 256, 64, 64), (8, 8, 256, 256),
              (8, 16, 128, 128), (8, 16, 64, 64), (8, 64, 256, 256),
              (1, 64, 512, 512), (1, 128, 256, 256), (1, 256, 128, 128),
-             (1, 32, 256, 256)]
+             (1, 32, 256, 256),
+             # Photo2Cartoon (ngf 32) at 256 px: hourglass blocks of 32, 16
+             # and 8 channels from 256^2 down to 16^2, down blocks, encoder
+             (1, 8, 256, 256), (1, 16, 128, 128), (1, 32, 16, 16),
+             (1, 8, 16, 16), (1, 64, 128, 128), (1, 128, 64, 64)]
 K2_TIMED_SHAPE = (8, 256, 64, 64)    # 21 of the 29 launches per batch
 K1_TOL = dict(atol=2e-3, rtol=1e-3)  # 1024-term fp32 sums, as the JAX tests
 K2_ATOL = 1e-5                       # fp32 statistics over up to 262k pixels
@@ -179,9 +197,9 @@ def keep_instance_norm_inputs(nets) -> tuple[dict, list]:
     return kept, hooks
 
 
-def k2_on_path(kept: dict) -> float:
-    """K2 against its plain version on the activations the main path fed
-    each InstanceNorm; returns the largest |kernel - plain|."""
+def k2_on_path(kept: dict, tag: str) -> float:
+    """K2 against its plain version on the activations a path fed each
+    InstanceNorm; returns the largest |kernel - plain|."""
     from animateportrait_tpu_torch.ops.instnorm import (
         instance_norm, instance_norm_plain)
 
@@ -197,11 +215,11 @@ def k2_on_path(kept: dict) -> float:
             by_shape[k] = max(worst, (err, key, ratio,
                                       float(want.abs().max())))
     for (shape, relu), (err, key, ratio, top) in sorted(by_shape.items()):
-        say(f"[3] K2 on path activations {shape} relu={relu}: "
+        say(f"[{tag}] K2 on path activations {shape} relu={relu}: "
             f"max|kernel-plain|={err:.3e} (atol {K2_ATOL}) at {key}, "
             f"max |mean|/std there {ratio:.2f}, max |y| {top:.1f}")
     err, key, ratio, top = max(by_shape.values())
-    say(f"[3] K2 on path activations: {len(kept)} InstanceNorms, "
+    say(f"[{tag}] K2 on path activations: {len(kept)} InstanceNorms, "
         f"{len(by_shape)} shapes, max|kernel-plain|={err:.3e} at {key} "
         f"(max |y| there {top:.1f}; fp32 spacing at |y| = {top:.1f} is "
         f"{float(np.spacing(np.float32(top))):.2e})")
@@ -250,7 +268,7 @@ def phase3(dev: torch.device, nets) -> dict:
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
-    k2_err = k2_on_path(kept)
+    k2_err = k2_on_path(kept, "3")
     return {"launches": launches, "landmarks": out.landmarks,
             "k2_path_err": k2_err}
 
@@ -284,6 +302,152 @@ def phase4(dev: torch.device, nets, main: dict) -> None:
         raise AssertionError(f"render PSNR card vs host {p:.2f} dB < 40")
 
 
+def write_photo(path: str, size: int = 512) -> str:
+    """A synthetic 8-bit binary PPM: smooth colour ramps and a bright oval
+    with seeded noise."""
+    rng = np.random.default_rng(3)
+    y, x = np.mgrid[0:size, 0:size] / size
+    face = ((x - 0.5) ** 2 / 0.08 + (y - 0.5) ** 2 / 0.13) < 1
+    rgb = np.stack([90 + 120 * x, 70 + 100 * y, 110 + 60 * np.sin(6 * x * y)],
+                   -1) + 80 * face[..., None] + rng.normal(0, 6, (size, size,
+                                                                   3))
+    with open(path, "wb") as f:
+        f.write(f"P6\n{size} {size}\n255\n".encode())
+        f.write(np.clip(rgb, 0, 255).astype(np.uint8).tobytes())
+    return path
+
+
+def phase5(dev: torch.device) -> dict:
+    from animateportrait_tpu_torch import cli
+    from animateportrait_tpu_torch.ops.instnorm import instance_norm
+    from animateportrait_tpu_torch.ops.stft import stft_magnitude
+    from animateportrait_tpu_torch.pipeline.audio import load_wav
+    from animateportrait_tpu_torch.utils.image import read_image
+    from animateportrait_tpu_torch.utils.smoke import (
+        make_wav, write_mtcnn_weights)
+    from animateportrait_tpu_torch.utils.video import read_avi, write_wav
+
+    with tempfile.TemporaryDirectory() as tmp:
+        photo = write_photo(os.path.join(tmp, "portrait.ppm"))
+        wav_path = write_wav(os.path.join(tmp, "speech.wav"),
+                             make_wav(6.0, seed=3))
+        ckpt = os.path.join(tmp, "ckpt")
+        write_mtcnn_weights(os.path.join(ckpt, "mtcnn"), seed=0)
+        argv = ["--jpg", photo, "--audio", wav_path, "--exp",
+                "formal/cartoon", "--device", "cuda", "--frame_batch", "8",
+                "--ckpt_dir", ckpt, "--output", os.path.join(tmp, "out")]
+
+        # warm pass through the CLI's own builder, keeping the Photo2Cartoon
+        # InstanceNorm inputs
+        pipe = cli.build_pipeline(cli.build_argparser().parse_args(argv))
+        kept, hooks = keep_instance_norm_inputs(
+            {"photo2cartoon": pipe.renderer.static_net})
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            pipe(read_image(photo), load_wav(wav_path))
+        torch.cuda.synchronize()
+        say(f"[5] warm pass {time.perf_counter() - t0:.3f} s (keeps the "
+            f"Photo2Cartoon InstanceNorm inputs)")
+        for h in hooks:
+            h.remove()
+        del pipe
+
+        stft_magnitude.launches = 0
+        instance_norm.launches = 0
+        t0 = time.perf_counter()
+        res = cli.main(argv)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {"stft_magnitude": stft_magnitude.launches,
+                    "instance_norm": instance_norm.launches}
+        avi = read_avi(res.path)
+        with wave.open(wav_path, "rb") as w:
+            pcm = w.readframes(w.getnframes())
+
+    T = res.frames
+    piped = sum(res.stage_seconds.values())
+    stages = ", ".join(f"{k} {v:.3f} s" for k, v in res.stage_seconds.items())
+    say(f"[5] cli.main --exp formal/cartoon: {T} frames, pipeline + mux "
+        f"{piped:.3f} s = {T / piped:.2f} frames/s (smoke figure, not a "
+        f"benchmark); cli.main wall {dt:.3f} s with the random init of "
+        f"the nets; stages: {stages}")
+    say(f"[5] kernel launches in the CLI run: {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the CLI path never launched: "
+                             f"{launches}")
+    if avi["frames"].shape != (T, 256, 256, 3):
+        raise AssertionError(f"AVI frames {avi['frames'].shape}, expected "
+                             f"({T}, 256, 256, 3)")
+    if b"auds" not in avi["streams"] or avi["fps"] != 62.5:
+        raise AssertionError(f"AVI streams {avi['streams']} at "
+                             f"{avi.get('fps')} fps")
+    if avi["pcm"] != pcm[: len(avi["pcm"])] or len(avi["pcm"]) != min(
+            len(pcm), T * 512):
+        raise AssertionError("the AVI's PCM is not the WAV's")
+    say(f"[5] AVI parsed back: {T} frames of 256x256x3 at 62.5 fps, an auds "
+        f"stream, PCM equal to the WAV's first {len(avi['pcm']) // 2} "
+        f"samples")
+    return {"launches": launches, "k2_path_err": k2_on_path(kept, "5")}
+
+
+def phase6(dev: torch.device, landmarks: np.ndarray) -> None:
+    from animateportrait_tpu_torch.models import mtcnn
+    from animateportrait_tpu_torch.models.speaker_encoder import get_spk_emb
+    from animateportrait_tpu_torch.utils.image import read_image
+    from animateportrait_tpu_torch.utils.smoke import (
+        build_pipeline, full_width_nets, make_wav, write_mtcnn_weights)
+
+    cpu = torch.device("cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        d = write_mtcnn_weights(os.path.join(tmp, "mtcnn"), seed=0)
+        img = read_image(write_photo(os.path.join(tmp, "portrait.ppm")))
+        det = {}
+        for where in (dev, cpu):
+            detector = mtcnn.MTCNNDetector(
+                *(getattr(mtcnn, f"load_{n}")(os.path.join(d, f"{n}.npy"))
+                  for n in ("pnet", "rnet", "onet")), device=where)
+            det[where.type] = detector(img[:, :, ::-1].astype(np.float32))
+    (bc, lc), (bh, lh) = det["cuda"], det["cpu"]
+    if bc.shape != bh.shape or len(bc) == 0:
+        raise AssertionError(f"MTCNN found {len(bc)} faces on the card, "
+                             f"{len(bh)} on the host")
+    box_err = float(np.abs(bc[:, :4] - bh[:, :4]).max())
+    lm_err = float(np.abs(lc - lh).max())
+
+    nets = full_width_nets(seed=0, style="cartoon")
+    rng = np.random.default_rng(4)
+    photo = rng.uniform(-1, 1, (256, 256, 3)).astype(np.float32)
+    tb68 = (landmarks[:2, :, :2] * 0.5).astype(np.float32)
+    wav = make_wav(6.0, seed=2)
+    out = {}
+    for where in (dev, cpu):
+        pipe = build_pipeline(copy.deepcopy(nets), where, frame_batch=2,
+                              output_uint8=False, style="cartoon")
+        enc = copy.deepcopy(nets["voice_encoder"]).to(where).eval()
+        with torch.inference_mode():
+            x = torch.as_tensor(photo, device=where).permute(2, 0, 1)[None]
+            styl = pipe.renderer.static_net(x)[0].cpu().numpy()
+            frames = pipe.renderer(photo, tb68.mean(0), tb68)
+            emb = get_spk_emb(enc, wav)
+        out[where.type] = (styl, frames, emb)
+    (sc, fc, ec), (sh, fh, eh) = out["cuda"], out["cpu"]
+    p_styl, p_render = psnr(sc, sh, peak=2.0), psnr(fc, fh, peak=2.0)
+    emb_err = float(np.abs(ec - eh).max())
+    say(f"[6] card vs host: MTCNN {len(bc)} faces on both, boxes max|diff|="
+        f"{box_err:.3e} px, five points {lm_err:.3e} px (<= 1); "
+        f"Photo2Cartoon stylization PSNR={p_styl:.2f} dB (>= 40); 2-frame "
+        f"cartoon render PSNR={p_render:.2f} dB (>= 40); get_spk_emb "
+        f"max|diff|={emb_err:.3e} (<= 1e-4)")
+    if not (box_err <= 1.0 and lm_err <= 1.0):
+        raise AssertionError(f"MTCNN boxes/points differ between card and "
+                             f"host: {box_err}, {lm_err}")
+    if not (p_styl >= 40.0 and p_render >= 40.0):
+        raise AssertionError(f"cartoon PSNR card vs host: stylization "
+                             f"{p_styl:.2f} dB, render {p_render:.2f} dB")
+    if not emb_err <= 1e-4:
+        raise AssertionError(f"speaker embedding differs: {emb_err}")
+
+
 def main() -> None:
     phase0()
     dev = torch.device("cuda", 0)
@@ -298,14 +462,25 @@ def main() -> None:
     rec["instance_norm"]["max_abs_err"] = max(
         rec["instance_norm"]["max_abs_err"], main_run["k2_path_err"])
     phase4(dev, nets, main_run)
+    del nets
+    cli_run = phase5(dev)
+    rec["instance_norm"]["max_abs_err"] = max(
+        rec["instance_norm"]["max_abs_err"], cli_run["k2_path_err"])
+    phase6(dev, main_run["landmarks"])
     say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     sources = {"stft_magnitude": ("animateportrait_tpu_torch/csrc/stft.cu",
                                   K1_REPLACES),
                "instance_norm": ("animateportrait_tpu_torch/csrc/instnorm.cu",
                                  K2_REPLACES)}
+    # "launches": the user's entry point (phase 5, the cartoon CLI run);
+    # "launches_by_path" adds the drawing pipeline of phase 3
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": repl,
-         "launches": main_run["launches"][name], **rec[name]}
+         "launches": cli_run["launches"][name],
+         "launches_by_path": {
+             "cartoon_cli": cli_run["launches"][name],
+             "drawing_pipeline": main_run["launches"][name]},
+         **rec[name]}
         for name, (src, repl) in sources.items()]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

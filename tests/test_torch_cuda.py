@@ -1,6 +1,8 @@
 """Card-only tests of the port's CUDA kernels: each kernel against its plain
-PyTorch version, the wrappers' checks and launch counters, and one small
-renderer run on the card against the CPU. They skip without a CUDA device.
+PyTorch version, the wrappers' checks and launch counters, and small runs
+on the card against the CPU: the renderer (drawing and cartoon), the MTCNN
+cascade, Photo2Cartoon and the speaker embedding. They skip without a CUDA
+device.
 
 This file imports neither JAX nor the JAX package, so it runs where JAX is
 not installed; the repo's conftest imports JAX, so on such a machine run
@@ -133,3 +135,68 @@ def test_small_renderer_card_matches_host(cuda_device):
         with torch.inference_mode():
             outs.append(r(photo, a68, tb68))
     assert psnr(outs[0], outs[1]) >= 40.0
+
+
+# Photo2Cartoon (ngf 32) planes at 256 px, down to the 16x16 hourglass
+# bottom: 256 elements, one block each
+@pytest.mark.parametrize("shape", [(1, 8, 256, 256), (1, 16, 128, 128),
+                                   (1, 32, 16, 16), (1, 8, 16, 16),
+                                   (1, 64, 128, 128), (1, 128, 64, 64)])
+@pytest.mark.parametrize("relu", [False, True])
+def test_k2_kernel_at_photo2cartoon_shapes(cuda_device, shape, relu):
+    x = _act(shape, seed=1, offset=10.0).to(cuda_device)
+    with torch.inference_mode():
+        got = instnorm.instance_norm(x, relu=relu)
+        want = instnorm.instance_norm_plain(x, relu=relu)
+    assert maxdiff(got.cpu(), want.cpu()) <= K2_ATOL
+
+
+def test_mtcnn_card_matches_host(cuda_device, tmp_path):
+    import os
+
+    from animateportrait_tpu_torch.models import mtcnn
+    from animateportrait_tpu_torch.utils.smoke import write_mtcnn_weights
+
+    d = write_mtcnn_weights(str(tmp_path / "mtcnn"))
+    img = np.random.default_rng(6).uniform(0, 255, (200, 180, 3)).astype(
+        np.float32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        det = mtcnn.MTCNNDetector(
+            *(getattr(mtcnn, f"load_{n}")(os.path.join(d, f"{n}.npy"))
+              for n in ("pnet", "rnet", "onet")), device=dev)
+        outs.append(det(img))
+    (bc, lc), (bh, lh) = outs
+    assert bc.shape == bh.shape and len(bc) > 0
+    # rounding in _to_square may move an edge by a pixel
+    assert maxdiff(bc[:, :4], bh[:, :4]) <= 1.0
+    assert maxdiff(lc, lh) <= 1.0
+
+
+def test_photo2cartoon_and_speaker_card_match_host(cuda_device):
+    import copy
+
+    from animateportrait_tpu_torch.models.photo2cartoon import (
+        Photo2CartoonGenerator)
+    from animateportrait_tpu_torch.models.speaker_encoder import (
+        VoiceEncoder, get_spk_emb)
+    from animateportrait_tpu_torch.utils.smoke import init_random_, make_wav
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(0)
+    p2c = init_random_(Photo2CartoonGenerator(ngf=8), g).eval()
+    enc = init_random_(VoiceEncoder(), g).eval()
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1, 1, (1, 3, 64, 64)).astype(np.float32))
+    wav = make_wav(2.0, seed=1)
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        with torch.inference_mode():
+            y = copy.deepcopy(p2c).to(dev)(x.to(dev))[0].cpu()
+            e = get_spk_emb(copy.deepcopy(enc).to(dev), wav)
+        outs.append((y, e))
+    assert psnr(outs[0][0], outs[1][0]) >= 40.0
+    assert maxdiff(outs[0][1], outs[1][1]) <= 1e-4

@@ -2,8 +2,9 @@
 versions against the JAX package (XLA path and the Pallas kernel in
 interpret mode) and the wrappers' dispatch rules on the CPU; the kernels
 themselves are tested on the card by tests/test_torch_cuda.py. Also checks
-that the port and chip_smoke.py import nothing of JAX or Flax, and of the
-JAX package only its numpy-only asset loader."""
+that the port and chip_smoke.py import nothing of JAX or Flax, nor OpenCV,
+PIL or torchvision (the card machine has none of them), and of the JAX
+package only its numpy-only asset loader."""
 import os
 import subprocess
 import sys
@@ -166,7 +167,7 @@ def test_kernel_sources_and_build_key():
 
 _NO_JAX = r"""
 import importlib, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "flax")
+BLOCKED = ("jax", "jaxlib", "flax", "cv2", "PIL", "torchvision")
 # the one module of the JAX package the port may import (numpy only), and
 # the two package __init__ files on its way
 ALLOWED = ("animateportrait_tpu", "animateportrait_tpu.utils",
@@ -186,6 +187,7 @@ for m in mods:
 import chip_smoke
 assert not any(blocked(k) for k in sys.modules)
 assert "animateportrait_tpu.utils.assets" in sys.modules
+assert "animateportrait_tpu_torch.cli" in mods
 print(len(mods))
 """
 
@@ -194,7 +196,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 26
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -1,9 +1,19 @@
 """Shared helpers for the tests of the PyTorch port (tests/test_torch_*.py):
-layout conversions, differences, PSNR, and the fixture that skips the
-card-only tests on a machine without a CUDA device."""
+layout conversions, differences, PSNR, the fixture that skips the
+card-only tests on a machine without a CUDA device, and the thread count
+of a pytest-xdist worker."""
+import os
+
 import numpy as np
 import pytest
 import torch
+
+# Each pytest-xdist worker is a process of its own, and torch starts one
+# intra-op thread per core in each: six workers on eight cores then run ~50
+# spinning OpenMP threads, and the port's end-to-end tests took up to eight
+# times as long as alone.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(2)
 
 
 def nchw(x: np.ndarray) -> torch.Tensor:
