@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled by ``nvcc`` into one shared library with a plain
-C interface and loaded with ``ctypes``: no PyTorch headers are compiled, so
-a build takes seconds. The library goes under ``build/torch_kernels/`` next
+Each source is compiled by its own ``nvcc`` process, all started together,
+and the objects are linked into one shared library with a plain C
+interface, loaded with ``ctypes``: no PyTorch headers are compiled, so a
+build takes seconds. The library goes under ``build/torch_kernels/`` next
 to the package, in a directory named by a hash of the sources and flags, so
 an edited source rebuilds and an unchanged one loads what is there.
 
@@ -27,7 +28,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "torch_kernels"
 SOURCES = ("stft.cu", "instnorm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 LIB_NAME = "libap_kernels.so"
 
 _lock = threading.Lock()
@@ -36,7 +38,7 @@ build_seconds: float | None = None   # wall time of this process's build
 
 
 def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
@@ -61,28 +63,40 @@ def build() -> pathlib.Path:
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name, then rename: a concurrent process
+    # build under temporary names, then rename: a concurrent process
     # either sees no library or a complete one
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(CSRC_DIR / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib_path)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        objs = [os.path.join(tmp_dir, s + ".o") for s in SOURCES]
+        jobs = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, str(CSRC_DIR / s)]
+                for s, o in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in jobs]
+        tmp = os.path.join(tmp_dir, LIB_NAME)
+        log, failed = [], []
+        for cmd, proc in zip(jobs, procs):
+            log += [" ".join(cmd), proc.communicate()[0]]
+            if proc.returncode != 0:
+                failed.append(proc.returncode)
+        if not failed:
+            link = [_nvcc(), *LINK_FLAGS, "-o", tmp, *objs]
+            proc = subprocess.run(link, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            log += [" ".join(link), proc.stdout]
+            if proc.returncode != 0:
+                failed.append(proc.returncode)
+        (out_dir / "nvcc.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed}):\n" + "\n".join(log))
+        os.replace(tmp, lib_path)
     return lib_path
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ap_stft_magnitude.argtypes = [p, i, p, p, p, i, p]
+    lib.ap_stft_magnitude.argtypes = [p, i, p, i, p]
     lib.ap_stft_magnitude.restype = i
-    lib.ap_instance_norm.argtypes = [p, p, i, i, f, i, p]
+    lib.ap_instance_norm.argtypes = [p, p, i, i, f, i, i, p]
     lib.ap_instance_norm.restype = i
     return lib
 

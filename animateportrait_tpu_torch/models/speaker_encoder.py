@@ -18,6 +18,8 @@ import torch.nn.functional as F
 
 from animateportrait_tpu_torch.ops.spectral import (
     mel_filterbank, stft_magnitude)
+from animateportrait_tpu_torch.utils.device import (
+    DEFAULT_DEVICE, resolve_device)
 
 MEL_N_CHANNELS = 40
 MEL_WINDOW_STEP = 160
@@ -42,8 +44,10 @@ class VoiceEncoder(nn.Module):
 
 
 def wav_to_mel40(wav: np.ndarray, sr: int = 16000,
-                 device: torch.device | str = "cpu") -> torch.Tensor:
+                 device: torch.device | str = DEFAULT_DEVICE
+                 ) -> torch.Tensor:
     """resemblyzer's front end: (T, 40) power mel on ``device``."""
+    device = resolve_device(device)
     fb = mel_filterbank(sr=sr, n_fft=MEL_N_FFT, n_mels=MEL_N_CHANNELS,
                         fmin=0.0, fmax=sr / 2)
     mag = stft_magnitude(torch.as_tensor(wav, dtype=torch.float32,

@@ -2,10 +2,11 @@
 
 Port of ``animateportrait_tpu/ops/pallas_stft.py`` (TPU kernel
 ``_stft_kernel`` under ``stft_magnitude_pallas``). On a CUDA tensor the
-wrapper launches ``csrc/stft.cu``, which reads the unpadded signal with
-reflected indices and never writes the frame matrix; see that source for
-the design and what bounds it. On a CPU tensor it takes the plain version,
-``ops.spectral.stft_magnitude`` (framing + matmul).
+wrapper launches ``csrc/stft.cu``: a real 1024-point FFT per frame in
+shared memory, over the unpadded signal read through reflected indices; no
+frame matrix and no DFT basis reach device memory. See that source for the
+design and what bounds it. On a CPU tensor it takes the plain version,
+``ops.spectral.stft_magnitude`` (framing + matmul with the DFT basis).
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 
 from animateportrait_tpu_torch import kernels
 from animateportrait_tpu_torch.ops.spectral import (
-    dft_basis, stft_magnitude as stft_magnitude_plain)
+    stft_magnitude as stft_magnitude_plain)
 
 N_FFT = 1024
 HOP = 256
@@ -42,15 +43,13 @@ def stft_magnitude(x: torch.Tensor, n_fft: int = N_FFT,
     if x.device.index != torch.cuda.current_device():
         raise ValueError(f"stft_magnitude: {x.device} is not the current "
                          "CUDA device")
-    # the (1024, 513) window-folded basis, ~4 MB, uploaded once per device
-    cos_b, sin_b = dft_basis(N_FFT, x.device)
     n_frames = n // HOP + 1
     out = torch.empty((n_frames, N_FFT // 2 + 1), dtype=torch.float32,
                       device=x.device)
     lib = kernels.library()
     err = lib.ap_stft_magnitude(
-        x.data_ptr(), n, cos_b.data_ptr(), sin_b.data_ptr(), out.data_ptr(),
-        n_frames, torch.cuda.current_stream().cuda_stream)
+        x.data_ptr(), n, out.data_ptr(), n_frames,
+        torch.cuda.current_stream().cuda_stream)
     kernels.check(err, "ap_stft_magnitude")
     stft_magnitude.launches += 1
     return out

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from animateportrait_tpu.utils import assets
+from animateportrait_tpu_torch.utils import assets
 from animateportrait_tpu_torch.utils.image import resize_bicubic
 
 # canonical 5-point positions inside the 68-point face: eye centres,

@@ -14,7 +14,6 @@ import wave
 import numpy as np
 import torch
 
-from animateportrait_tpu.utils import assets
 from animateportrait_tpu_torch.models.autovc import AutoVCGenerator
 from animateportrait_tpu_torch.models.speaker_encoder import (
     VoiceEncoder, get_spk_emb)
@@ -22,6 +21,9 @@ from animateportrait_tpu_torch.ops.f0 import track_f0
 from animateportrait_tpu_torch.ops.spectral import (
     mel_filterbank, quantize_f0_onehot, speaker_normalize_f0)
 from animateportrait_tpu_torch.ops.stft import stft_magnitude
+from animateportrait_tpu_torch.utils import assets
+from animateportrait_tpu_torch.utils.device import (
+    DEFAULT_DEVICE, resolve_device)
 
 SR = 16000
 HOP = 256
@@ -108,13 +110,13 @@ def condition_signal(wav: np.ndarray, seed: int = 0) -> np.ndarray:
 
 
 def extract_frontend(wav: np.ndarray, gender: str = "F", seed: int = 0,
-                     device: torch.device | str = "cpu"
+                     device: torch.device | str = DEFAULT_DEVICE
                      ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """extract_f0_func_audiofile (extract_f0_func.py:95-127). Returns
     (S (T, 80), f0_norm (T,), f0_onehot (T, 257))."""
     lo, hi = (50.0, 250.0) if gender == "M" else (100.0, 600.0)
     w = torch.as_tensor(condition_signal(wav, seed),
-                        dtype=torch.float32).to(device)
+                        dtype=torch.float32).to(resolve_device(device))
     packed = frontend(w, lo, hi).cpu().numpy()
     return packed[:, :80], packed[:, 80].copy(), packed[:, 81:]
 
@@ -138,8 +140,8 @@ class AudioPipeline:
 
     def __init__(self, autovc: AutoVCGenerator,
                  voice_encoder: VoiceEncoder | None = None,
-                 chunk: int = 4096, device: torch.device | str = "cpu"):
-        self.device = torch.device(device)
+                 chunk: int = 4096, device: torch.device | str = DEFAULT_DEVICE):
+        self.device = resolve_device(device)
         self.autovc = autovc.to(self.device).eval()
         self.voice_encoder = (None if voice_encoder is None
                               else voice_encoder.to(self.device).eval())

@@ -18,7 +18,6 @@ import time
 import numpy as np
 import torch
 
-from animateportrait_tpu.utils import assets
 from animateportrait_tpu_torch.ops import geometry
 from animateportrait_tpu_torch.pipeline.align import (
     align_detections, detect, estimate_landmarks_from_5pt)
@@ -27,6 +26,7 @@ from animateportrait_tpu_torch.pipeline.audio import (
 from animateportrait_tpu_torch.pipeline.landmark import (
     LandmarkPredictor, sliding_windows)
 from animateportrait_tpu_torch.pipeline.render import Module2Renderer
+from animateportrait_tpu_torch.utils import assets
 from animateportrait_tpu_torch.utils.image import resize_bicubic
 
 FPS = 62.5  # 16000 Hz / 256-sample hop

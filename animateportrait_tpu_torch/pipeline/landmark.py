@@ -16,6 +16,8 @@ from animateportrait_tpu_torch.models.audio2landmark import (
     Audio2landmarkContent, Audio2landmarkPos)
 from animateportrait_tpu_torch.ops.filters import savgol_filter
 from animateportrait_tpu_torch.ops.geometry import area_of_signed_polygon
+from animateportrait_tpu_torch.utils.device import (
+    DEFAULT_DEVICE, resolve_device)
 
 SEG_BS = 512
 NUM_WINDOW_FRAMES = 18
@@ -131,8 +133,8 @@ class LandmarkPredictor:
     def __init__(self, pos: Audio2landmarkPos, content: Audio2landmarkContent,
                  amp_pos: float = 0.5, amp_lip_x: float = 2.0,
                  amp_lip_y: float = 2.0, emb_coef: float = 3.0,
-                 device: torch.device | str = "cpu"):
-        self.device = torch.device(device)
+                 device: torch.device | str = DEFAULT_DEVICE):
+        self.device = resolve_device(device)
         self.pos = pos.to(self.device).eval()
         self.content = content.to(self.device).eval()
         self.amp_pos = amp_pos

@@ -25,6 +25,8 @@ from animateportrait_tpu_torch.models.photo2cartoon import (
     Photo2CartoonGenerator)
 from animateportrait_tpu_torch.ops.tps import (
     linear_motion_grid, triangulate_frames)
+from animateportrait_tpu_torch.utils.device import (
+    DEFAULT_DEVICE, resolve_device)
 
 CROP_SIZE = 256   # the renderer's frame size (the reference's load_size)
 # Per-row half-widths of cv2.circle(radius=3, filled) for row offsets
@@ -66,7 +68,7 @@ class Module2Renderer:
                  static_g: ResnetStyle2Generator | None = None,
                  frame_batch: int = 8,
                  output_uint8: bool = False,
-                 device: torch.device | str = "cpu",
+                 device: torch.device | str = DEFAULT_DEVICE,
                  style: str = "drawing",
                  cartoon_g: Photo2CartoonGenerator | None = None):
         static = {"drawing": ("static_g", static_g),
@@ -76,7 +78,7 @@ class Module2Renderer:
         if static[style][1] is None:
             raise ValueError(f"Module2Renderer: style {style!r} needs "
                              f"{static[style][0]}")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.style = style
         self.g = generator.to(self.device).eval()
         self.flowunet = flowunet.to(self.device).eval()

@@ -8,14 +8,21 @@ Phases, each printing its own lines:
   0. device and precision: the card's name and power limit, versions, TF32
      off for matmuls and convs;
   1. build the hand-written kernels from ``animateportrait_tpu_torch/csrc``;
-  2. each kernel against its plain PyTorch version at the slice's shapes,
-     with both times (CUDA events, median of 25 runs);
+  2. each kernel against its plain PyTorch version at the main path's
+     shapes (and K2's streaming branch), with the device time of the
+     kernel, of the plain version and of the one PyTorch call that computes
+     the same function (``library_ms``), the bound for the same work, and
+     the share of it the kernel reaches. A time is one CUDA-event pair
+     around N >= 50 back-to-back calls (>= 1 ms) after a warm-up, divided
+     by N (``utils/kernel_bench.py:device_ms``);
   3. the main path: the full-width photo + speech -> frames pipeline with
      seeded random weights, a warm pass and a timed pass; the kernels'
      launch counters are zeroed just before the timed pass and must be
      positive after it. The warm pass keeps the first input of every
      InstanceNorm of the nets, and K2 is then held against its plain
-     version on those activations too;
+     version on those activations too. K2's device time per photo and per
+     8-frame batch of the renderer: summed from a ``torch.profiler`` trace,
+     and as launches x the per-shape time;
   4. card against host: the audio stage and one 2-frame renderer batch with
      the same weights and inputs on the card and on the CPU (which runs the
      plain versions);
@@ -26,7 +33,8 @@ Phases, each printing its own lines:
      counters are zeroed just before it and must be positive after it; the
      AVI is parsed back. A warm pass through the CLI's own pipeline builder
      keeps the input of every Photo2Cartoon InstanceNorm, and K2 is held
-     against its plain version on those;
+     against its plain version on those; K2's time per photo and per batch
+     as in phase 3;
   6. card against host for the modules phase 5 added to the path: the
      MTCNN cascade, the Photo2Cartoon stylization, a 2-frame cartoon render
      and the speaker embedding.
@@ -41,7 +49,6 @@ from __future__ import annotations
 import copy
 import json
 import os
-import statistics
 import subprocess
 import tempfile
 import time
@@ -52,39 +59,15 @@ import torch
 
 K1_REPLACES = "animateportrait_tpu/ops/pallas_stft.py:42"
 K2_REPLACES = "animateportrait_tpu/ops/pallas_instnorm.py:126"
-# InstanceNorm shapes (NCHW) of the slice: one 8-frame batch of the trident
-# generator decode, then the once-per-photo style2 / encode_static planes
-K2_SHAPES = [(8, 128, 128, 128), (8, 256, 64, 64), (8, 8, 256, 256),
-             (8, 16, 128, 128), (8, 16, 64, 64), (8, 64, 256, 256),
-             (1, 64, 512, 512), (1, 128, 256, 256), (1, 256, 128, 128),
-             (1, 32, 256, 256),
-             # Photo2Cartoon (ngf 32) at 256 px: hourglass blocks of 32, 16
-             # and 8 channels from 256^2 down to 16^2, down blocks, encoder
-             (1, 8, 256, 256), (1, 16, 128, 128), (1, 32, 16, 16),
-             (1, 8, 16, 16), (1, 64, 128, 128), (1, 128, 64, 64)]
-K2_TIMED_SHAPE = (8, 256, 64, 64)    # 21 of the 29 launches per batch
+# the shape K2's headline numbers in the JSON line come from: 23 of the 29
+# launches per batch (every main-path shape is in its "by_shape" list)
+K2_TIMED_SHAPE = (8, 256, 64, 64)
 K1_TOL = dict(atol=2e-3, rtol=1e-3)  # 1024-term fp32 sums, as the JAX tests
 K2_ATOL = 1e-5                       # fp32 statistics over up to 262k pixels
 
 
 def say(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_ms(fn, reps: int = 25) -> float:
-    """Median device time of ``fn`` in ms over ``reps`` runs, after a warm
-    run, each bracketed by CUDA events."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def psnr(a: np.ndarray, b: np.ndarray, peak: float) -> float:
@@ -122,62 +105,89 @@ def phase1() -> None:
             say(f"[1] ptxas: {line.strip()}")
 
 
+def timed(fn_kernel, fn_plain, fn_library, work) -> dict:
+    """Device times of a kernel, its plain version and the library call on
+    the same inputs, with the bound for the same work (bytes, operations)
+    and the share of it the kernel reaches."""
+    from animateportrait_tpu_torch.utils.kernel_bench import bound, device_ms
+
+    ms = device_ms(fn_kernel)
+    bound_ms, bound_by = bound(*work)
+    return dict(ms=ms, plain_ms=device_ms(fn_plain),
+                library_ms=device_ms(fn_library), bound_ms=bound_ms,
+                bound_by=bound_by, share_of_bound=bound_ms / ms)
+
+
 def phase2(dev: torch.device) -> dict[str, dict]:
     from animateportrait_tpu_torch.ops.instnorm import (
-        instance_norm, instance_norm_plain)
+        cluster_size, instance_norm, instance_norm_plain)
     from animateportrait_tpu_torch.ops.spectral import (
         stft_magnitude as stft_plain)
     from animateportrait_tpu_torch.ops.stft import stft_magnitude
     from animateportrait_tpu_torch.pipeline.audio import (
         condition_signal, normalize_dbfs)
+    from animateportrait_tpu_torch.utils.kernel_bench import (
+        K2_SHAPES, K2_STREAM_SHAPE, instance_norm_library, k1_work, k2_input,
+        k2_work, stft_library)
     from animateportrait_tpu_torch.utils.smoke import make_wav
 
     rec = {}
     with torch.inference_mode():
         w = torch.as_tensor(condition_signal(normalize_dbfs(make_wav(6.0, 1))),
                             dtype=torch.float32, device=dev)
-        got, want = stft_magnitude(w), stft_plain(w)
+        got, want, lib = stft_magnitude(w), stft_plain(w), stft_library(w)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
+        lib_err = float((lib - want).abs().max())
         ok = torch.allclose(got, want, **K1_TOL)
-        ms = cuda_ms(lambda: stft_magnitude(w))
-        plain_ms = cuda_ms(lambda: stft_plain(w))
+        t = timed(lambda: stft_magnitude(w), lambda: stft_plain(w),
+                  lambda: stft_library(w), k1_work(w.shape[0]))
         say(f"[2] K1 stft_magnitude n={w.shape[0]} -> {tuple(got.shape)}: "
             f"max|kernel-plain|={err:.3e} (atol {K1_TOL['atol']}, rtol "
-            f"{K1_TOL['rtol']}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"{K1_TOL['rtol']}), max|library-plain|={lib_err:.3e}; kernel "
+            f"{t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, library "
+            f"{t['library_ms']:.5f} ms, bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']}), {100 * t['share_of_bound']:.1f}% of bound")
         if not ok:
             raise AssertionError(f"K1 disagrees with its plain version: {err}")
-        rec["stft_magnitude"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        rec["stft_magnitude"] = dict(max_abs_err=err, **t)
 
-        g = torch.Generator(device=dev).manual_seed(0)
         worst = 0.0
-        for shape in K2_SHAPES:
-            n, c = shape[:2]
-            # per-channel scales in [1, 2) and offsets ~N(0, 10^2): means up
-            # to tens of standard deviations, where an unshifted one-pass
-            # variance would lose ~3 digits to cancellation
-            x = (torch.randn(shape, generator=g, device=dev)
-                 * (1 + torch.rand((n, c, 1, 1), generator=g, device=dev))
-                 + 10 * torch.randn((n, c, 1, 1), generator=g, device=dev))
+        by_shape = []
+        for shape in K2_SHAPES + [K2_STREAM_SHAPE]:
+            # means up to tens of standard deviations, where an unshifted
+            # one-pass variance would lose ~3 digits to cancellation
+            x = k2_input(shape, dev)
+            cluster = cluster_size(shape[2] * shape[3])
             for relu in (False, True):
                 got = instance_norm(x, relu=relu)
                 want = instance_norm_plain(x, relu=relu)
                 torch.cuda.synchronize()
                 err = float((got - want).abs().max())
                 worst = max(worst, err)
-                ms = cuda_ms(lambda: instance_norm(x, relu=relu))
-                plain_ms = cuda_ms(lambda: instance_norm_plain(x, relu=relu))
                 say(f"[2] K2 instance_norm {shape} relu={relu}: "
-                    f"max|kernel-plain|={err:.3e} (atol {K2_ATOL}) "
-                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                    f"max|kernel-plain|={err:.3e} (atol {K2_ATOL}), "
+                    f"{cluster} CTA(s) per plane (0: streaming)")
                 if err > K2_ATOL:
                     raise AssertionError(
                         f"K2 disagrees with its plain version at {shape}: "
                         f"{err}")
-                if shape == K2_TIMED_SHAPE and relu:
-                    rec["instance_norm"] = dict(ms=ms, plain_ms=plain_ms)
+            lib_err = float((instance_norm_library(x)
+                             - instance_norm_plain(x)).abs().max())
+            # timed without the ReLU, as the library call computes it
+            t = timed(lambda: instance_norm(x), lambda: instance_norm_plain(x),
+                      lambda: instance_norm_library(x), k2_work(shape))
+            t.update(shape=list(shape), cluster=cluster)
+            by_shape.append(t)
+            say(f"[2] K2 instance_norm {shape}: kernel {t['ms']:.5f} ms, "
+                f"plain {t['plain_ms']:.5f} ms, library {t['library_ms']:.5f} "
+                f"ms (max|library-plain|={lib_err:.1e}), bound "
+                f"{t['bound_ms']:.5f} ms ({t['bound_by']}), "
+                f"{100 * t['share_of_bound']:.1f}% of bound")
+            if shape == K2_TIMED_SHAPE:
+                rec["instance_norm"] = dict(t)
             del x
-        rec["instance_norm"]["max_abs_err"] = worst
+        rec["instance_norm"].update(max_abs_err=worst, by_shape=by_shape)
     return rec
 
 
@@ -229,6 +239,99 @@ def k2_on_path(kept: dict, tag: str) -> float:
     return err
 
 
+def k2_time_on_path(renderer, landmarks: np.ndarray, tag: str) -> dict:
+    """K2's device time in a renderer, per photo (the static nets and
+    encode_static) and per frame batch, each part run once after a warm-up:
+    summed from a ``torch.profiler`` trace of the part (0 where CUPTI gives
+    no device time), and as its launches x each shape's ``device_ms``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from animateportrait_tpu_torch.nn import InstanceNorm2d
+    from animateportrait_tpu_torch.ops.instnorm import instance_norm
+    from animateportrait_tpu_torch.ops.tps import triangulate_frames
+    from animateportrait_tpu_torch.pipeline.render import (
+        CROP_SIZE, landmark_dot_images)
+    from animateportrait_tpu_torch.utils.kernel_bench import (
+        K2_BATCH_MIX, device_ms, k2_input)
+
+    dev, fb = renderer.device, renderer.frame_batch
+    tb68 = (landmarks[:fb, :, :2] * 0.5).astype(np.float32)
+    photo = torch.as_tensor(np.random.default_rng(5).uniform(
+        -1, 1, (1, 3, CROP_SIZE, CROP_SIZE)), dtype=torch.float32, device=dev)
+    a68 = torch.as_tensor(tb68.mean(0), device=dev)[None]
+    lm = torch.as_tensor(tb68, device=dev)
+    tris = torch.as_tensor(triangulate_frames(tb68, CROP_SIZE), device=dev)
+    state = {}
+
+    def per_photo():
+        fore, mask, static = renderer.prepare(photo)
+        cache = renderer.g.encode_static(fore,
+                                         landmark_dot_images(a68, CROP_SIZE))
+        state["args"] = (cache, mask, static)
+
+    def per_batch():
+        renderer.frames(*state["args"], a68, lm, None, tris)
+
+    norms = [m for net in (renderer.g, renderer.flowunet, renderer.modnet,
+                           renderer.static_net)
+             for m in net.modules() if isinstance(m, InstanceNorm2d)]
+    out = {}
+    with torch.inference_mode():
+        per_photo()
+        per_batch()
+        torch.cuda.synchronize()
+        for part, fn in (("photo", per_photo), ("batch", per_batch)):
+            counts = {}
+
+            def count(mod, args):
+                key = (tuple(args[0].shape), mod.relu)
+                counts[key] = counts.get(key, 0) + 1
+
+            hooks = [m.register_forward_pre_hook(count) for m in norms]
+            launches0 = instance_norm.launches
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            launches = instance_norm.launches - launches0
+            for h in hooks:
+                h.remove()
+            k2_us = all_us = 0.0
+            for e in prof.key_averages():
+                if e.device_type != DeviceType.CUDA:
+                    continue
+                us = float(getattr(e, "self_device_time_total",
+                                   getattr(e, "self_cuda_time_total", 0.0)))
+                all_us += us
+                if "instance_norm" in e.key:
+                    k2_us += us
+            est = 0.0
+            for (shape, relu), n in counts.items():
+                x = k2_input(shape, dev)
+                est += n * device_ms(lambda: instance_norm(x, relu=relu))
+            mix = {}
+            for (shape, _), n in counts.items():
+                mix[shape] = mix.get(shape, 0) + n
+            out[part] = dict(launches=launches, profiled_ms=k2_us / 1e3,
+                             device_ms=all_us / 1e3, estimated_ms=est,
+                             launches_by_shape={str(s): n for s, n in
+                                                sorted(mix.items())})
+            say(f"[{tag}] K2 per {part}: {launches} launches, "
+                f"{len(counts)} shapes; profiled {k2_us / 1e3:.4f} ms of "
+                f"{all_us / 1e3:.4f} ms device time "
+                f"({100 * k2_us / max(all_us, 1e-9):.2f}%); launches x "
+                f"per-shape time {est:.4f} ms; by shape "
+                f"{out[part]['launches_by_shape']}")
+            if launches != sum(counts.values()):
+                raise AssertionError(f"K2 launches {launches} != the "
+                                     f"InstanceNorm calls {counts}")
+            if part == "batch" and mix != K2_BATCH_MIX:
+                raise AssertionError(f"K2's launches in a batch {mix} are "
+                                     f"not kernel_bench.K2_BATCH_MIX")
+    return out
+
+
 def phase3(dev: torch.device, nets) -> dict:
     from animateportrait_tpu_torch.ops.instnorm import instance_norm
     from animateportrait_tpu_torch.ops.stft import stft_magnitude
@@ -270,7 +373,8 @@ def phase3(dev: torch.device, nets) -> dict:
                              f"{launches}")
     k2_err = k2_on_path(kept, "3")
     return {"launches": launches, "landmarks": out.landmarks,
-            "k2_path_err": k2_err}
+            "k2_path_err": k2_err,
+            "k2_time": k2_time_on_path(pipe.renderer, out.landmarks, "3")}
 
 
 def phase4(dev: torch.device, nets, main: dict) -> None:
@@ -317,7 +421,7 @@ def write_photo(path: str, size: int = 512) -> str:
     return path
 
 
-def phase5(dev: torch.device) -> dict:
+def phase5(dev: torch.device, landmarks: np.ndarray) -> dict:
     from animateportrait_tpu_torch import cli
     from animateportrait_tpu_torch.ops.instnorm import instance_norm
     from animateportrait_tpu_torch.ops.stft import stft_magnitude
@@ -350,6 +454,7 @@ def phase5(dev: torch.device) -> dict:
             f"Photo2Cartoon InstanceNorm inputs)")
         for h in hooks:
             h.remove()
+        k2_time = k2_time_on_path(pipe.renderer, landmarks, "5")
         del pipe
 
         stft_magnitude.launches = 0
@@ -387,7 +492,8 @@ def phase5(dev: torch.device) -> dict:
     say(f"[5] AVI parsed back: {T} frames of 256x256x3 at 62.5 fps, an auds "
         f"stream, PCM equal to the WAV's first {len(avi['pcm']) // 2} "
         f"samples")
-    return {"launches": launches, "k2_path_err": k2_on_path(kept, "5")}
+    return {"launches": launches, "k2_path_err": k2_on_path(kept, "5"),
+            "k2_time": k2_time}
 
 
 def phase6(dev: torch.device, landmarks: np.ndarray) -> None:
@@ -463,7 +569,7 @@ def main() -> None:
         rec["instance_norm"]["max_abs_err"], main_run["k2_path_err"])
     phase4(dev, nets, main_run)
     del nets
-    cli_run = phase5(dev)
+    cli_run = phase5(dev, main_run["landmarks"])
     rec["instance_norm"]["max_abs_err"] = max(
         rec["instance_norm"]["max_abs_err"], cli_run["k2_path_err"])
     phase6(dev, main_run["landmarks"])
@@ -472,6 +578,9 @@ def main() -> None:
                                   K1_REPLACES),
                "instance_norm": ("animateportrait_tpu_torch/csrc/instnorm.cu",
                                  K2_REPLACES)}
+    rec["instance_norm"]["ms_by_path"] = {
+        "cartoon_cli": cli_run["k2_time"],
+        "drawing_pipeline": main_run["k2_time"]}
     # "launches": the user's entry point (phase 5, the cartoon CLI run);
     # "launches_by_path" adds the drawing pipeline of phase 3
     say(json.dumps({"kernels": [

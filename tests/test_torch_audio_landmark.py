@@ -139,7 +139,8 @@ def test_landmark_predictor_matches_jax():
         np.float32)
     ref = JPred(pos_v, cont_v)(windows, emb, face_id)
     with torch.no_grad():
-        got = LandmarkPredictor(pos, content)(windows, emb, face_id)
+        got = LandmarkPredictor(pos, content, device="cpu")(windows, emb,
+                                                           face_id)
     assert got.shape == ref.shape == (45, 204)
     assert maxdiff(got, ref) <= 1e-4
 
@@ -154,7 +155,7 @@ def test_audio_pipeline_matches_jax(gender):
     wav = make_wav(1.0, seed=4)
     ref = JAudio(v, chunk=512)(wav, gender)
     with torch.no_grad():
-        got = AudioPipeline(tm, chunk=512)(wav, gender)
+        got = AudioPipeline(tm, chunk=512, device="cpu")(wav, gender)
     assert got.mel_raw.shape == ref.mel_raw.shape == (63, 80)
     # the mel rests on |STFT| (atol 2e-3 on 1024-term sums) through a log:
     # bins at the -100 dB floor amplify the STFT's rounding

@@ -122,7 +122,7 @@ def cartoon_renderers():
     p2c = Photo2CartoonGenerator(ngf=8)
     p2c.load_state_dict(from_jax.photo2cartoon_state_dict(p2c_v))
     tr = Module2Renderer(gen, flow, mod, frame_batch=2, style="cartoon",
-                         cartoon_g=p2c)
+                         cartoon_g=p2c, device="cpu")
     return jr, tr
 
 
@@ -153,8 +153,8 @@ def test_renderer_needs_the_static_net_of_its_style():
     nets = (TridentGeneratorFullIFW(output_nc=3, ngf=4, n_blocks=1),
             FlowUnet(nf=4, num_scale=3, max_nf=64), MODNet())
     with pytest.raises(ValueError, match="needs cartoon_g"):
-        Module2Renderer(*nets, style="cartoon")
+        Module2Renderer(*nets, style="cartoon", device="cpu")
     with pytest.raises(ValueError, match="needs static_g"):
-        Module2Renderer(*nets)
+        Module2Renderer(*nets, device="cpu")
     with pytest.raises(ValueError, match="unknown style"):
-        Module2Renderer(*nets, style="sketch")
+        Module2Renderer(*nets, style="sketch", device="cpu")

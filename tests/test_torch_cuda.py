@@ -15,11 +15,13 @@ import torch
 
 from animateportrait_tpu_torch.ops import instnorm, stft
 from animateportrait_tpu_torch.ops.spectral import stft_magnitude as stft_plain
+from animateportrait_tpu_torch.utils.kernel_bench import (
+    K2_SHAPES, K2_STREAM_SHAPE, k2_input)
 from torch_port_helpers import cuda_device, maxdiff, psnr  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
-# 1024-term fp32 sums in another order than cuBLAS's (as the JAX tests)
+# an fp32 FFT against 1024-term fp32 sums by cuBLAS (as the JAX tests)
 K1_TOL = dict(atol=2e-3, rtol=1e-3)
 # fp32 statistics over up to 262144 pixels, summed in another order
 K2_ATOL = 1e-5
@@ -35,7 +37,9 @@ def _act(shape, seed=0, offset=0.5):
             + offset * torch.randn((n, c, 1, 1), generator=g))
 
 
-@pytest.mark.parametrize("n", [513, 16037, 96001])
+# 513 and 4095: every block touches a reflected edge; 96000 and 96001:
+# the 6 s clip (condition_signal appends one sample to 96000); 960000: 60 s
+@pytest.mark.parametrize("n", [513, 4095, 16037, 96000, 96001, 960000])
 def test_k1_kernel_matches_plain(cuda_device, n):
     x = (torch.randn(n, generator=torch.Generator().manual_seed(n)) * 0.3
          ).to(cuda_device)
@@ -59,6 +63,54 @@ def test_k2_kernel_matches_plain(cuda_device, shape, relu, offset):
         got = instnorm.instance_norm(x, relu=relu)
         want = instnorm.instance_norm_plain(x, relu=relu)
     assert maxdiff(got.cpu(), want.cpu()) <= K2_ATOL
+
+
+# every InstanceNorm shape of the main paths, and the streaming branch
+@pytest.mark.parametrize("shape", K2_SHAPES + [K2_STREAM_SHAPE])
+@pytest.mark.parametrize("relu", [False, True])
+def test_k2_kernel_at_main_path_shapes(cuda_device, shape, relu):
+    x = k2_input(shape, cuda_device)
+    with torch.inference_mode():
+        got = instnorm.instance_norm(x, relu=relu)
+        want = instnorm.instance_norm_plain(x, relu=relu)
+    assert maxdiff(got.cpu(), want.cpu()) <= K2_ATOL
+
+
+# one shape for each number of CTAs per plane the dispatcher picks at the
+# default budget (0: streaming), and a plane with hw % 4 != 0 split over a
+# cluster (scalar loads into shared memory)
+@pytest.mark.parametrize("shape,cluster", [
+    ((2, 3, 64, 64), 1), ((2, 4, 128, 192), 2), ((2, 4, 256, 256), 4),
+    ((1, 4, 512, 512), 8), ((1, 2, 1024, 1024), 0), ((1, 2, 257, 255), 4)])
+@pytest.mark.parametrize("relu", [False, True])
+def test_k2_every_cluster_size(cuda_device, shape, cluster, relu):
+    assert instnorm.cluster_size(shape[2] * shape[3]) == cluster
+    x = k2_input(shape, cuda_device, seed=3)
+    with torch.inference_mode():
+        got = instnorm.instance_norm(x, relu=relu)
+        want = instnorm.instance_norm_plain(x, relu=relu)
+    assert maxdiff(got.cpu(), want.cpu()) <= K2_ATOL
+
+
+# every cluster a 256^2 plane can take: 2 (128 KB slices), 4, 8 (32 KB)
+@pytest.mark.parametrize("cluster", [2, 4, 8])
+def test_k2_any_valid_cluster_gives_the_same_result(cuda_device, cluster):
+    x = k2_input((2, 8, 256, 256), cuda_device, seed=4)
+    y = torch.empty_like(x)
+    with torch.inference_mode():
+        instnorm._launch(x, y, 1e-5, True, cluster)
+    assert maxdiff(y.cpu(), instnorm.instance_norm_plain(x, relu=True)
+                   .cpu()) <= K2_ATOL
+
+
+# 3 CTAs, and slices over a CTA's shared memory (one CTA for 512^2)
+@pytest.mark.parametrize("cluster", [3, 16, -1, 1])
+def test_k2_refuses_a_cluster_it_cannot_run(cuda_device, cluster):
+    x = k2_input((1, 2, 512, 512), cuda_device)
+    before = instnorm.instance_norm.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        instnorm._launch(x, torch.empty_like(x), 1e-5, False, cluster)
+    assert instnorm.instance_norm.launches == before
 
 
 def test_k2_unaligned_input_takes_scalar_loads(cuda_device):

@@ -3,8 +3,8 @@ versions against the JAX package (XLA path and the Pallas kernel in
 interpret mode) and the wrappers' dispatch rules on the CPU; the kernels
 themselves are tested on the card by tests/test_torch_cuda.py. Also checks
 that the port and chip_smoke.py import nothing of JAX or Flax, nor OpenCV,
-PIL or torchvision (the card machine has none of them), and of the JAX
-package only its numpy-only asset loader."""
+PIL or torchvision (the card machine has none of them), and no module of
+the JAX package at all."""
 import os
 import subprocess
 import sys
@@ -21,6 +21,8 @@ from animateportrait_tpu.ops.pallas_stft import stft_magnitude_pallas
 from animateportrait_tpu.ops.spectral import stft_magnitude as jax_stft
 from animateportrait_tpu_torch.ops import instnorm, stft
 from animateportrait_tpu_torch.ops.spectral import stft_magnitude as stft_plain
+from animateportrait_tpu_torch.utils.kernel_bench import (
+    K2_SHAPES, K2_STREAM_SHAPE)
 from torch_port_helpers import maxdiff
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -165,16 +167,72 @@ def test_kernel_sources_and_build_key():
     assert kernels.BUILD_ROOT.parts[-2:] == ("build", "torch_kernels")
 
 
+def test_kernel_sources_compute_without_library_kernels():
+    from animateportrait_tpu_torch import kernels
+
+    k1 = (kernels.CSRC_DIR / "stft.cu").read_text()
+    k2 = (kernels.CSRC_DIR / "instnorm.cu").read_text()
+    code = [line.split("//")[0] for line in (k1 + k2).splitlines()]
+    code = "\n".join(code).lower()
+    for name in ("cufft", "cudnn", "cublas", "basis"):
+        assert name not in code
+    # K1 runs the FFT's butterflies; K2 stages planes by TMA bulk copies
+    # and splits large ones over a thread block cluster
+    assert "radix4_stage" in k1 and "sincospif" in k1
+    for token in ("cp.async.bulk.shared::cluster", "mbarrier",
+                  "cudaLaunchAttributeClusterDimension", "map_shared_rank"):
+        assert token in k2
+
+
+@pytest.mark.parametrize("shape", K2_SHAPES)
+def test_k2_stages_every_main_path_plane_in_shared_memory(shape):
+    hw = shape[2] * shape[3]
+    k = instnorm.cluster_size(hw)
+    assert k in (1, 2, 4, 8)
+    slice_bytes = 4 * instnorm.slice_elems(hw, k)
+    assert k * instnorm.slice_elems(hw, k) >= hw
+    assert instnorm.slice_elems(hw, k) % 4 == 0
+    # within the budget, or 8 CTAs' slices within the hardware's limit
+    assert slice_bytes <= instnorm.SLICE_BYTES or (
+        k == 8 and slice_bytes <= instnorm.MAX_SLICE_BYTES)
+    # the smallest cluster that fits: half as many CTAs would not
+    if k > 1:
+        assert 4 * instnorm.slice_elems(hw, k // 2) > instnorm.SLICE_BYTES
+
+
+def test_k2_cluster_sizes_and_streaming():
+    assert instnorm.cluster_size(64 * 64) == 1
+    assert instnorm.cluster_size(128 * 192) == 2
+    assert instnorm.cluster_size(256 * 256) == 4
+    assert instnorm.cluster_size(256 * 256, 128 * 1024) == 2
+    assert instnorm.cluster_size(512 * 512) == 8
+    assert instnorm.cluster_size(1024 * 1024) == 0   # K2_STREAM_SHAPE
+    assert instnorm.cluster_size(K2_STREAM_SHAPE[2] * K2_STREAM_SHAPE[3]) == 0
+
+
+def test_kernel_bounds():
+    from animateportrait_tpu_torch.utils import kernel_bench as kb
+
+    # K1 on the 6 s clip: 0.38 MB in, 0.77 MB out, ~10 MFLOP of FFT
+    nbytes, flops = kb.k1_work(96001)
+    assert nbytes == 4 * 96001 + 4 * 376 * 513
+    assert 9e6 < flops < 11e6
+    ms, by = kb.bound(nbytes, flops)
+    assert by == "bytes" and abs(ms - nbytes / 3.35e9) < 1e-12
+    # K2 at (8, 64, 256, 256): one read and one write, 80.1 us
+    ms, by = kb.bound(*kb.k2_work((8, 64, 256, 256)))
+    assert by == "bytes" and abs(ms - 0.0801) < 1e-4
+    # a function with more operations than bytes is bound by operations
+    assert kb.bound(1, 1e9)[1] == "operations"
+
+
 _NO_JAX = r"""
 import importlib, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "flax", "cv2", "PIL", "torchvision")
-# the one module of the JAX package the port may import (numpy only), and
-# the two package __init__ files on its way
-ALLOWED = ("animateportrait_tpu", "animateportrait_tpu.utils",
-           "animateportrait_tpu.utils.assets")
+# every module of the JAX package is blocked, even one that is numpy only
+BLOCKED = ("jax", "jaxlib", "flax", "cv2", "PIL", "torchvision",
+           "animateportrait_tpu")
 def blocked(name):
-    return name.split(".")[0] in BLOCKED or (
-        name.split(".")[0] == "animateportrait_tpu" and name not in ALLOWED)
+    return name.split(".")[0] in BLOCKED
 class Block:
     def find_spec(self, name, path=None, target=None):
         if blocked(name):
@@ -186,7 +244,8 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke
 assert not any(blocked(k) for k in sys.modules)
-assert "animateportrait_tpu.utils.assets" in sys.modules
+assert not any(k.split(".")[0] == "animateportrait_tpu" for k in sys.modules)
+assert "animateportrait_tpu_torch.utils.assets" in sys.modules
 assert "animateportrait_tpu_torch.cli" in mods
 print(len(mods))
 """

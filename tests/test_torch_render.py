@@ -64,7 +64,8 @@ def renderers():
     mod.load_state_dict(from_jax.modnet_state_dict(mod_v))
     static = ResnetStyle2Generator(ngf=8, n_blocks=2)
     static.load_state_dict(from_jax.style2_state_dict(static_v, 2))
-    tr = Module2Renderer(gen, flow, mod, static, frame_batch=2)
+    tr = Module2Renderer(gen, flow, mod, static, frame_batch=2,
+                         device="cpu")
     return jr, tr
 
 
