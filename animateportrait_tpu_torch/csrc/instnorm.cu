@@ -1,4 +1,5 @@
-// K2: fused InstanceNorm (+ optional ReLU), forward only, for Hopper (sm_90a).
+// K2: fused InstanceNorm (+ optional ReLU), forward, for Hopper (sm_90a).
+// Its backward is K2b (instnorm_bwd.cu).
 //
 // Replaces the Pallas TPU kernel `_kernel`, launched by `_pallas_forward`
 // (custom-vjp entry `instance_norm_fused`) in
@@ -41,6 +42,12 @@
 // - A plane over 8 CTAs' shared memory (~1.8 MB, on no path of the port)
 //   takes the streaming branch of the same entry point: one block per plane
 //   and three sweeps over device memory (mean, shifted sums, normalize).
+//
+// - Given a stats buffer (training), rank 0 of each plane also writes the
+//   plane's k, m and rstd = rsqrt(var + eps) there, (planes, 3) fp32, for
+//   K2b, which then recomputes each pre-ReLU output bit for bit, so its
+//   ReLU mask is this forward's; the inference path passes null and writes
+//   nothing more.
 //
 // What bounds it on this card: memory. Each element is read once and
 // written once and costs a handful of flops, so the bound is
@@ -132,7 +139,8 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 template <bool kBulk, bool kCluster>
 __global__ void __launch_bounds__(512)
 instance_norm_smem_kernel(const float* __restrict__ x, float* __restrict__ y,
-                          int hw, int slice, float eps, int relu) {
+                          float* __restrict__ stats, int hw, int slice,
+                          float eps, int relu) {
   extern __shared__ __align__(128) float buf[];
   __shared__ __align__(8) uint64_t bars[kMaxChunks];
   __shared__ float part[3];                   // this CTA's s0, s1, s2
@@ -250,6 +258,11 @@ instance_norm_smem_kernel(const float* __restrict__ x, float* __restrict__ y,
   const float var = fmaxf(t2 / cnt - mean * mean, 0.f);
   const float inv = rsqrtf(var + eps);
   const bool r = relu != 0;
+  if (stats != nullptr && rank == 0 && tid == 0) {
+    stats[3 * plane] = kmean;
+    stats[3 * plane + 1] = mean;
+    stats[3 * plane + 2] = inv;
+  }
 
   // 3. normalize from shared memory, coalesced float4 stores to y (a bulk
   // store of each normalized chunk was 2-19% slower at every shape)
@@ -277,7 +290,8 @@ instance_norm_smem_kernel(const float* __restrict__ x, float* __restrict__ y,
 // plane, three sweeps over device memory, float4 loads where aligned.
 template <bool kVec>
 __global__ void instance_norm_stream_kernel(const float* __restrict__ x,
-                                            float* __restrict__ y, int hw,
+                                            float* __restrict__ y,
+                                            float* __restrict__ stats, int hw,
                                             float eps, int relu) {
   const size_t offset = static_cast<size_t>(blockIdx.x) * hw;
   const float* xp = x + offset;
@@ -320,6 +334,11 @@ __global__ void instance_norm_stream_kernel(const float* __restrict__ x,
   const float var = fmaxf(s2 / cnt - mean * mean, 0.f);
   const float inv = rsqrtf(var + eps);
   const bool r = relu != 0;
+  if (stats != nullptr && threadIdx.x == 0) {
+    stats[3 * blockIdx.x] = k;
+    stats[3 * blockIdx.x + 1] = mean;
+    stats[3 * blockIdx.x + 2] = inv;
+  }
 
   if (kVec) {
     float4* y4 = reinterpret_cast<float4*>(yp);
@@ -340,8 +359,8 @@ __global__ void instance_norm_stream_kernel(const float* __restrict__ x,
 }
 
 template <bool kBulk, bool kCluster>
-cudaError_t launch_smem(const float* x, float* y, int planes, int hw,
-                        int cluster, int slice, float eps, int relu,
+cudaError_t launch_smem(const float* x, float* y, float* stats, int planes,
+                        int hw, int cluster, int slice, float eps, int relu,
                         cudaStream_t stream) {
   // raise the kernel's dynamic shared memory limit once per size
   static int limit = 48 * 1024;
@@ -369,18 +388,18 @@ cudaError_t launch_smem(const float* x, float* y, int planes, int hw,
   cfg.attrs = attr;
   cfg.numAttrs = kCluster ? 1 : 0;
   return cudaLaunchKernelEx(&cfg, instance_norm_smem_kernel<kBulk, kCluster>,
-                            x, y, hw, slice, eps, relu);
+                            x, y, stats, hw, slice, eps, relu);
 }
 
 template <bool kBulk>
-cudaError_t launch_smem(const float* x, float* y, int planes, int hw,
-                        int cluster, int slice, float eps, int relu,
+cudaError_t launch_smem(const float* x, float* y, float* stats, int planes,
+                        int hw, int cluster, int slice, float eps, int relu,
                         cudaStream_t stream) {
   return cluster > 1
-             ? launch_smem<kBulk, true>(x, y, planes, hw, cluster, slice,
-                                        eps, relu, stream)
-             : launch_smem<kBulk, false>(x, y, planes, hw, cluster, slice,
-                                         eps, relu, stream);
+             ? launch_smem<kBulk, true>(x, y, stats, planes, hw, cluster,
+                                        slice, eps, relu, stream)
+             : launch_smem<kBulk, false>(x, y, stats, planes, hw, cluster,
+                                         slice, eps, relu, stream);
 }
 
 }  // namespace
@@ -388,10 +407,11 @@ cudaError_t launch_smem(const float* x, float* y, int planes, int hw,
 // cluster: CTAs per plane, 1, 2, 4 or 8, whose slices must fit a CTA's
 // shared memory, or 0 for the streaming branch. The wrapper picks it
 // (ops/instnorm.py:cluster_size); anything else returns
-// cudaErrorInvalidValue and launches nothing.
-extern "C" int ap_instance_norm(const float* x, float* y, int planes,
-                                int hw, float eps, int relu, int cluster,
-                                cudaStream_t stream) {
+// cudaErrorInvalidValue and launches nothing. stats: null, or (planes, 3)
+// fp32 that receives each plane's k, m and rstd.
+extern "C" int ap_instance_norm(const float* x, float* y, float* stats,
+                                int planes, int hw, float eps, int relu,
+                                int cluster, cudaStream_t stream) {
   const bool aligned = (hw % 4 == 0) &&
                        (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
                        (reinterpret_cast<uintptr_t>(y) % 16 == 0);
@@ -399,10 +419,10 @@ extern "C" int ap_instance_norm(const float* x, float* y, int planes,
     const int threads = 512;
     if (aligned) {
       instance_norm_stream_kernel<true><<<planes, threads, 0, stream>>>(
-          x, y, hw, eps, relu);
+          x, y, stats, hw, eps, relu);
     } else {
       instance_norm_stream_kernel<false><<<planes, threads, 0, stream>>>(
-          x, y, hw, eps, relu);
+          x, y, stats, hw, eps, relu);
     }
     return static_cast<int>(cudaGetLastError());
   }
@@ -417,10 +437,10 @@ extern "C" int ap_instance_norm(const float* x, float* y, int planes,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t err =
-      aligned ? launch_smem<true>(x, y, planes, hw, cluster, slice, eps, relu,
-                                  stream)
-              : launch_smem<false>(x, y, planes, hw, cluster, slice, eps,
-                                   relu, stream);
+      aligned ? launch_smem<true>(x, y, stats, planes, hw, cluster, slice,
+                                  eps, relu, stream)
+              : launch_smem<false>(x, y, stats, planes, hw, cluster, slice,
+                                   eps, relu, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,317 @@
+// K2b: the backward of K2, InstanceNorm (+ optional ReLU), for Hopper
+// (sm_90a).
+//
+// Replaces the gradient of the custom-vjp entry `instance_norm_fused` in
+// animateportrait_tpu/ops/pallas_instnorm.py (`_bwd`): there the backward
+// is `jax.vjp` of the XLA formulation `_xla_instance_norm`, not a Pallas
+// kernel; the port writes it as a kernel of its own.
+//
+// Computes, for every (n, c) plane of contiguous NCHW fp32 x and upstream
+// gradient g, with the plane's k = E[x], m = E[x - k] and rstd that K2
+// saved in its stats buffer ((planes, 3) fp32):
+//   xhat = ((x - k) - m) * rstd,  gy = g * [xhat > 0] with ReLU, else g,
+//   dx = rstd * (gy - E[gy] - xhat * E[gy * xhat]).
+// xhat takes K2's steps on K2's numbers, so it is K2's pre-ReLU output bit
+// for bit and the ReLU mask is the one the forward applied.
+// The plain version (ops/instnorm.py:instance_norm_backward_plain) computes
+// the same steps.
+//
+// Design, simple first (making it fast is later work):
+// - A plane, or for a large plane each CTA's 1/k of it, is read once from
+//   device memory into shared memory as xhat and gy (8 bytes an element),
+//   and the two sums are taken in the same sweep. Loads are float4 where the
+//   plane is 16-byte aligned (hw % 4 == 0), scalar otherwise: the
+//   discriminators' 31 x 31 planes (hw = 961) take the scalar branch.
+// - A plane over the wrapper's per-CTA budget is split over a thread block
+//   cluster of k = 2, 4 or 8 CTAs (portable sizes), as in K2: every CTA adds
+//   the cluster's partial sums in rank order through distributed shared
+//   memory, so all slices use identical sums.
+// - dx is computed from shared memory and written with coalesced stores:
+//   device traffic is one read of x and g and one write of dx.
+// - A plane over 8 CTAs' shared memory (on no path of the port) takes the
+//   streaming branch: one block per plane, two sweeps over device memory.
+//
+// What bounds it on this card: memory, 12 bytes an element (read x and g,
+// write dx) over 3.35 TB/s; ~10 flops an element.
+#include <cstdint>
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kMaxClusterSize = 8;            // portable cluster size
+// dynamic shared memory a CTA may take (227 KB less the static arrays)
+constexpr int kMaxSliceBytes = 232448 - 1024;
+
+__device__ __forceinline__ void block_sum2(float& a, float& b) {
+  __shared__ float part_a[32];
+  __shared__ float part_b[32];
+  __shared__ float total_a;
+  __shared__ float total_b;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    part_a[warp] = a;
+    part_b[warp] = b;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int n_warps = blockDim.x >> 5;
+    a = lane < n_warps ? part_a[lane] : 0.f;
+    b = lane < n_warps ? part_b[lane] : 0.f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      a += __shfl_xor_sync(0xffffffffu, a, o);
+      b += __shfl_xor_sync(0xffffffffu, b, o);
+    }
+    if (lane == 0) {
+      total_a = a;
+      total_b = b;
+    }
+  }
+  __syncthreads();
+  a = total_a;
+  b = total_b;
+}
+
+// xhat and gy of one element; adds gy and gy * xhat to the sums
+__device__ __forceinline__ void prep1(float xv, float gv, float k, float mean,
+                                      float rstd, bool relu, float& xh,
+                                      float& gy, float& s1, float& s2) {
+  xh = ((xv - k) - mean) * rstd;
+  gy = (relu && !(xh > 0.f)) ? 0.f : gv;
+  s1 += gy;
+  s2 += gy * xh;
+}
+
+__device__ __forceinline__ float dx1(float xh, float gy, float m1, float m2,
+                                     float rstd) {
+  return rstd * ((gy - m1) - xh * m2);
+}
+
+// ---------------------------------------------------------------------------
+// Shared-memory kernel: cluster rank r of a plane holds xhat and gy of
+// elements [r * slice, min((r + 1) * slice, hw)) in dynamic shared memory
+// (xhat in the first `slice` floats, gy in the next). kVec: float4 loads and
+// stores (hw % 4 == 0 and 16-byte aligned tensors).
+template <bool kVec, bool kCluster>
+__global__ void __launch_bounds__(512)
+instance_norm_bwd_smem_kernel(const float* __restrict__ x,
+                              const float* __restrict__ g,
+                              const float* __restrict__ stats,
+                              float* __restrict__ dx, int hw, int slice,
+                              int relu) {
+  extern __shared__ __align__(16) float buf[];
+  __shared__ float part[2];                   // this CTA's two sums
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = kCluster ? static_cast<int>(cluster.num_blocks()) : 1;
+  const int rank = kCluster ? static_cast<int>(cluster.block_rank()) : 0;
+  const size_t plane = blockIdx.x / k;
+  const int begin = rank * slice;
+  const int count = max(0, min(slice, hw - begin));
+  const size_t offset = plane * static_cast<size_t>(hw) + begin;
+  const float k0 = stats[3 * plane];
+  const float mean = stats[3 * plane + 1];
+  const float rstd = stats[3 * plane + 2];
+  const bool r = relu != 0;
+  const int tid = threadIdx.x;
+  float* xs = buf;
+  float* gs = buf + slice;
+
+  // 1. one read of x and g: xhat and gy to shared memory, and the sums
+  float s1 = 0.f;
+  float s2 = 0.f;
+  if (kVec) {
+    const float4* x4 = reinterpret_cast<const float4*>(x + offset);
+    const float4* g4 = reinterpret_cast<const float4*>(g + offset);
+    float4* xs4 = reinterpret_cast<float4*>(xs);
+    float4* gs4 = reinterpret_cast<float4*>(gs);
+#pragma unroll 4
+    for (int i = tid; i < count / 4; i += blockDim.x) {
+      const float4 a = x4[i];
+      const float4 b = g4[i];
+      float4 xh, gy;
+      prep1(a.x, b.x, k0, mean, rstd, r, xh.x, gy.x, s1, s2);
+      prep1(a.y, b.y, k0, mean, rstd, r, xh.y, gy.y, s1, s2);
+      prep1(a.z, b.z, k0, mean, rstd, r, xh.z, gy.z, s1, s2);
+      prep1(a.w, b.w, k0, mean, rstd, r, xh.w, gy.w, s1, s2);
+      xs4[i] = xh;
+      gs4[i] = gy;
+    }
+  } else {
+    const float* xp = x + offset;
+    const float* gp = g + offset;
+    for (int i = tid; i < count; i += blockDim.x) {
+      prep1(xp[i], gp[i], k0, mean, rstd, r, xs[i], gs[i], s1, s2);
+    }
+  }
+  block_sum2(s1, s2);
+  float t1 = s1;
+  float t2 = s2;
+  if (kCluster) {
+    if (tid == 0) {
+      part[0] = s1;
+      part[1] = s2;
+    }
+    cluster.sync();
+    t1 = 0.f;
+    t2 = 0.f;
+    for (int q = 0; q < k; ++q) {
+      t1 += *cluster.map_shared_rank(&part[0], q);
+      t2 += *cluster.map_shared_rank(&part[1], q);
+    }
+    // done with the other CTAs' shared memory; wait for theirs at the end
+    asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  }
+  const float cnt = static_cast<float>(hw);
+  const float m1 = t1 / cnt;
+  const float m2 = t2 / cnt;
+
+  // 2. dx from shared memory (each thread reads back what it wrote)
+  if (kVec) {
+    const float4* xs4 = reinterpret_cast<const float4*>(xs);
+    const float4* gs4 = reinterpret_cast<const float4*>(gs);
+    float4* d4 = reinterpret_cast<float4*>(dx + offset);
+    for (int i = tid; i < count / 4; i += blockDim.x) {
+      const float4 a = xs4[i];
+      const float4 b = gs4[i];
+      float4 o;
+      o.x = dx1(a.x, b.x, m1, m2, rstd);
+      o.y = dx1(a.y, b.y, m1, m2, rstd);
+      o.z = dx1(a.z, b.z, m1, m2, rstd);
+      o.w = dx1(a.w, b.w, m1, m2, rstd);
+      d4[i] = o;
+    }
+  } else {
+    float* dp = dx + offset;
+    for (int i = tid; i < count; i += blockDim.x) {
+      dp[i] = dx1(xs[i], gs[i], m1, m2, rstd);
+    }
+  }
+  if (kCluster) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Streaming branch, for planes over 8 CTAs' shared memory: one block per
+// plane, two sweeps over device memory (sums, then dx).
+__global__ void instance_norm_bwd_stream_kernel(
+    const float* __restrict__ x, const float* __restrict__ g,
+    const float* __restrict__ stats, float* __restrict__ dx, int hw,
+    int relu) {
+  const size_t offset = static_cast<size_t>(blockIdx.x) * hw;
+  const float* xp = x + offset;
+  const float* gp = g + offset;
+  float* dp = dx + offset;
+  const float k0 = stats[3 * blockIdx.x];
+  const float mean = stats[3 * blockIdx.x + 1];
+  const float rstd = stats[3 * blockIdx.x + 2];
+  const bool r = relu != 0;
+  float s1 = 0.f;
+  float s2 = 0.f;
+  float xh, gy;
+  for (int i = threadIdx.x; i < hw; i += blockDim.x) {
+    prep1(xp[i], gp[i], k0, mean, rstd, r, xh, gy, s1, s2);
+  }
+  block_sum2(s1, s2);
+  const float cnt = static_cast<float>(hw);
+  const float m1 = s1 / cnt;
+  const float m2 = s2 / cnt;
+  for (int i = threadIdx.x; i < hw; i += blockDim.x) {
+    float u1 = 0.f;
+    float u2 = 0.f;
+    prep1(xp[i], gp[i], k0, mean, rstd, r, xh, gy, u1, u2);
+    dp[i] = dx1(xh, gy, m1, m2, rstd);
+  }
+}
+
+template <bool kVec, bool kCluster>
+cudaError_t launch_smem(const float* x, const float* g, const float* stats,
+                        float* dx, int planes, int hw, int cluster, int slice,
+                        int relu, cudaStream_t stream) {
+  // raise the kernel's dynamic shared memory limit once per size
+  static int limit = 48 * 1024;
+  const int bytes = 8 * slice;
+  if (bytes > limit) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        instance_norm_bwd_smem_kernel<kVec, kCluster>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    limit = bytes;
+  }
+  // about 16 elements a thread, 64 to 512 threads
+  int threads = 64;
+  while (threads < 512 && threads * 16 < slice) threads *= 2;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(planes) * cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(bytes);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = kCluster ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, instance_norm_bwd_smem_kernel<kVec, kCluster>,
+                            x, g, stats, dx, hw, slice, relu);
+}
+
+template <bool kVec>
+cudaError_t launch_smem(const float* x, const float* g, const float* stats,
+                        float* dx, int planes, int hw, int cluster, int slice,
+                        int relu, cudaStream_t stream) {
+  return cluster > 1
+             ? launch_smem<kVec, true>(x, g, stats, dx, planes, hw, cluster,
+                                       slice, relu, stream)
+             : launch_smem<kVec, false>(x, g, stats, dx, planes, hw, cluster,
+                                        slice, relu, stream);
+}
+
+}  // namespace
+
+// cluster: CTAs per plane, 1, 2, 4 or 8, whose slices (8 bytes an element)
+// must fit a CTA's shared memory, or 0 for the streaming branch. The wrapper
+// picks it (ops/instnorm.py:cluster_size with 8 bytes an element); anything
+// else returns cudaErrorInvalidValue and launches nothing. stats: the
+// (planes, 3) k, m and rstd that K2 wrote.
+extern "C" int ap_instance_norm_bwd(const float* x, const float* g,
+                                    const float* stats, float* dx, int planes,
+                                    int hw, int relu, int cluster,
+                                    cudaStream_t stream) {
+  if (cluster == 0) {
+    instance_norm_bwd_stream_kernel<<<planes, 512, 0, stream>>>(
+        x, g, stats, dx, hw, relu);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (cluster < 1 || cluster > kMaxClusterSize ||
+      (cluster & (cluster - 1)) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // each slice a multiple of 4 elements, so that every slice is 16-byte
+  // aligned (ops/instnorm.py:slice_elems)
+  const int slice = ((hw + cluster - 1) / cluster + 3) / 4 * 4;
+  if (8 * slice > kMaxSliceBytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool vec = (hw % 4 == 0) &&
+                   (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+                   (reinterpret_cast<uintptr_t>(g) % 16 == 0) &&
+                   (reinterpret_cast<uintptr_t>(dx) % 16 == 0);
+  const cudaError_t err =
+      vec ? launch_smem<true>(x, g, stats, dx, planes, hw, cluster, slice,
+                              relu, stream)
+          : launch_smem<false>(x, g, stats, dx, planes, hw, cluster, slice,
+                               relu, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -365,3 +365,60 @@ def voice_encoder_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
     _lstm(sd, "lstm.", p["lstm"], 3)
     _dense(sd, "linear", p["linear"])
     return sd
+
+
+def nlayer_d_state_dict(variables: Tree, n_layers: int = 3
+                        ) -> dict[str, torch.Tensor]:
+    """Inverse of ``load_nlayer_d_params``: conv0 at ``model.0``, then a
+    conv at every third index from ``model.2``, the output conv last."""
+    p = variables["params"]
+    sd: dict = {}
+    _conv2d(sd, "model.0", p["conv0"])
+    for n in range(1, n_layers + 1):
+        _conv2d(sd, f"model.{3 * n - 1}", p[f"conv{n}"])
+    _conv2d(sd, f"model.{3 * n_layers + 2}", p["out"])
+    return sd
+
+
+def mobilefacenet_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
+    """Inverse of ``load_mobilefacenet_params`` (params and batch_stats)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: dict = {}
+
+    def cb(ours: str, theirs: str) -> None:
+        pp, ss = p, s
+        for seg in ours.split("."):
+            pp, ss = pp[seg], ss[seg]
+        _conv2d(sd, f"{theirs}.conv", pp["conv"])
+        _batchnorm(sd, f"{theirs}.bn", pp["bn"]["bn"], ss["bn"]["bn"])
+        if "prelu" in pp:
+            sd[f"{theirs}.prelu.weight"] = _t(pp["prelu"]["alpha"])
+
+    def dw(ours: str, theirs: str) -> None:
+        for sub in ("conv", "conv_dw", "project"):
+            cb(f"{ours}.{sub}", f"{theirs}.{sub}")
+
+    cb("conv1", "conv1")
+    cb("conv2_dw", "conv2_dw")
+    for stage, blocks in (("3", 4), ("4", 6), ("5", 2)):
+        dw(f"conv_{int(stage) - 1}{stage}", f"conv_{int(stage) - 1}{stage}")
+        for i in range(blocks):
+            dw(f"conv_{stage}_{i}", f"conv_{stage}.model.{i}")
+    cb("conv_6_sep", "conv_6_sep")
+    cb("conv_6_dw", "output_layer.conv_6_dw")
+    _dense(sd, "output_layer.linear", p["linear"])
+    _batchnorm(sd, "output_layer.bn", p["out_bn"], s["out_bn"])
+    return sd
+
+
+def sphere20a_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
+    """Inverse of ``load_sphere20a_params`` (without the dropped fc6)."""
+    p = variables["params"]
+    sd: dict = {}
+    for name, leaf in p.items():
+        if name.startswith("conv"):
+            _conv2d(sd, name, leaf)
+        elif name.startswith("relu"):
+            sd[f"{name}.weight"] = _t(leaf["alpha"])
+    _dense(sd, "fc5", p["fc5"])
+    return sd

@@ -26,7 +26,7 @@ import time
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "torch_kernels"
-SOURCES = ("stft.cu", "instnorm.cu")
+SOURCES = ("stft.cu", "instnorm.cu", "instnorm_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
@@ -96,8 +96,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ap_stft_magnitude.argtypes = [p, i, p, i, p]
     lib.ap_stft_magnitude.restype = i
-    lib.ap_instance_norm.argtypes = [p, p, i, i, f, i, i, p]
+    lib.ap_instance_norm.argtypes = [p, p, p, i, i, f, i, i, p]
     lib.ap_instance_norm.restype = i
+    lib.ap_instance_norm_bwd.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.ap_instance_norm_bwd.restype = i
     return lib
 
 

@@ -1,9 +1,10 @@
-"""Module2 generators of the slice, NCHW. Port of the inference generators
-of ``animateportrait_tpu/models/gan.py``: ``TridentGeneratorFullIFW``
-(with its ``encode_static`` / ``decode`` split) and
-``ResnetStyle2Generator``, built with the reference's ``Sequential``
-layout (Module2/models/networks.py) so the state-dict keys are the
-reference checkpoints'.
+"""Module2 generators and discriminator, NCHW. Port of
+``animateportrait_tpu/models/gan.py``: ``TridentGeneratorFullIFW`` (with
+its ``encode_static`` / ``decode`` split), ``ResnetStyle2Generator``, the
+70x70 PatchGAN ``NLayerDiscriminator``, ``gan_loss`` and the training
+step's from-scratch ``init_weights``, built with the reference's
+``Sequential`` layout (Module2/models/networks.py) so the state-dict keys
+are the reference checkpoints'.
 
 Every InstanceNorm is ``nn.InstanceNorm2d`` of this package (kernel K2)
 with the ReLU that follows it fused in; the ReLU's ``Sequential`` slot
@@ -12,6 +13,8 @@ final ``OutConv7`` is a plain reflect-padded 7x7 conv on the same
 parameters (the JAX space-to-depth packing is a TPU layout trick).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn as nn
@@ -192,3 +195,81 @@ class TridentGeneratorFullIFW(nn.Module):
     def forward(self, x_in, land1, land2, motion, flow, ifmask):
         return self.decode(self.encode_static(x_in, land1), land2, motion,
                            flow, ifmask)
+
+
+class NLayerDiscriminator(nn.Module):
+    """70x70 PatchGAN (networks.py:2602-2647): C64 (no norm) - C128 - C256
+    - C512 (stride 1) - 1 channel, 4x4 kernels, LeakyReLU 0.2, each
+    InstanceNorm through K2 (and K2b in the backward pass)."""
+
+    def __init__(self, input_nc: int, ndf: int = 64, n_layers: int = 3):
+        super().__init__()
+        seq = [nn.Conv2d(input_nc, ndf, 4, 2, 1), nn.LeakyReLU(0.2)]
+        mult = 1
+        for n in range(1, n_layers + 1):
+            prev, mult = mult, min(2 ** n, 8)
+            seq += [nn.Conv2d(ndf * prev, ndf * mult, 4,
+                              2 if n < n_layers else 1, 1),
+                    InstanceNorm2d(), nn.LeakyReLU(0.2)]
+        seq.append(nn.Conv2d(ndf * mult, 1, 4, 1, 1))
+        self.model = nn.Sequential(*seq)
+
+    def forward(self, x):
+        return self.model(x)
+
+
+def gan_loss(prediction: torch.Tensor, target_is_real: bool,
+             mode: str = "lsgan") -> torch.Tensor:
+    """GANLoss (networks.py:407-473): lsgan = MSE against 1/0, vanilla =
+    BCE with logits, wgangp = signed mean."""
+    if mode == "lsgan":
+        return torch.mean(torch.square(prediction - float(target_is_real)))
+    if mode == "vanilla":
+        t = float(target_is_real)
+        return torch.mean(torch.clamp(prediction, min=0) - prediction * t
+                          + torch.log1p(torch.exp(-torch.abs(prediction))))
+    if mode == "wgangp":
+        return -prediction.mean() if target_is_real else prediction.mean()
+    raise ValueError(mode)
+
+
+_WEIGHTED = (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)
+_NORMS = (nn.BatchNorm1d, nn.BatchNorm2d)
+
+
+def _randn(t: torch.Tensor, generator: torch.Generator | None
+           ) -> torch.Tensor:
+    """N(0, 1) of ``t``'s shape, drawn on the generator's device."""
+    dev = t.device if generator is None else generator.device
+    return torch.randn(t.shape, generator=generator, device=dev)
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, init_type: str = "normal",
+                 gain: float = 0.02,
+                 generator: torch.Generator | None = None) -> nn.Module:
+    """From-scratch init of the reference's ``init_weights``
+    (networks.py:71-102), in place: conv and linear weights by
+    ``init_type`` (normal N(0, gain), xavier_normal with ``gain``,
+    kaiming_normal fan_in, orthogonal with ``gain``), their biases 0, and
+    BatchNorm weights N(1, gain) with biases 0 (the generator and the
+    discriminators hold affine-free InstanceNorms, so no norm weights)."""
+    for m in module.modules():
+        if isinstance(m, _WEIGHTED):
+            w = m.weight
+            fan_in, fan_out = nn.init._calculate_fan_in_and_fan_out(w)
+            if init_type == "orthogonal":
+                nn.init.orthogonal_(w, gain=gain, generator=generator)
+            elif init_type in ("normal", "xavier", "kaiming"):
+                std = {"normal": gain,
+                       "xavier": gain * math.sqrt(2.0 / (fan_in + fan_out)),
+                       "kaiming": math.sqrt(2.0 / fan_in)}[init_type]
+                w.copy_(_randn(w, generator) * std)
+            else:
+                raise ValueError(f"unknown init_type {init_type!r}")
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, _NORMS) and m.affine:
+            m.weight.copy_(1.0 + gain * _randn(m.weight, generator))
+            m.bias.zero_()
+    return module

@@ -1,4 +1,5 @@
-"""InstanceNorm (+ fused ReLU): kernel K2 and its plain PyTorch version.
+"""InstanceNorm (+ fused ReLU): kernel K2, its backward K2b, and their plain
+PyTorch versions.
 
 Port of ``animateportrait_tpu/ops/pallas_instnorm.py``. The TPU kernel
 (``_kernel`` under ``_pallas_forward``) was opt-in there and limited to
@@ -17,8 +18,18 @@ cancels when |mean| is many standard deviations: the landmark encoder's
 mostly flat planes reach mean/std ~12, and two summation orders then
 disagree by ~1e-4. With it, E[d] is nearly 0 and nothing cancels. The
 Pallas kernel that K2 replaces also takes the mean first. Kernel and plain
-version compute the same steps. The kernel is forward only: its backward
-comes with the training slice.
+version compute the same steps.
+
+Training: on a CUDA tensor that requires grad, with grad enabled,
+``instance_norm`` goes through ``InstanceNormK2``, an autograd function
+whose forward launches K2 with a stats buffer (each plane's k = E[x],
+m = E[x - k] and rstd, from which K2b recomputes the forward's pre-ReLU
+output bit for bit) and whose backward launches K2b (``csrc/instnorm_bwd.cu``, wrapper
+``instance_norm_backward``). The JAX package takes that gradient as
+``jax.vjp`` of its XLA formulation (``pallas_instnorm.py:_bwd``); on the
+CPU the port takes it as autograd through ``instance_norm_plain``. The
+inference path (no grad, or ``inference_mode``) launches K2 alone, as
+before.
 """
 from __future__ import annotations
 
@@ -43,15 +54,18 @@ def slice_elems(hw: int, cluster: int) -> int:
     return (-(-hw // cluster) + 3) // 4 * 4
 
 
-def cluster_size(hw: int, slice_bytes: int = SLICE_BYTES) -> int:
-    """CTAs per plane of ``hw`` fp32 elements: the smallest of 1, 2, 4 and
-    8 whose slices fit ``slice_bytes`` (8 where none does, if its slices
-    fit the hardware), or 0 for the streaming branch."""
+def cluster_size(hw: int, slice_bytes: int = SLICE_BYTES,
+                 elem_bytes: int = 4) -> int:
+    """CTAs per plane of ``hw`` elements that take ``elem_bytes`` of shared
+    memory each (4 for K2, 8 for K2b, which holds xhat and gy): the
+    smallest of 1, 2, 4 and 8 whose slices fit ``slice_bytes`` (8 where
+    none does, if its slices fit the hardware), or 0 for the streaming
+    branch."""
     budget = min(slice_bytes, MAX_SLICE_BYTES)
     k = 1
-    while k < MAX_CLUSTER and 4 * slice_elems(hw, k) > budget:
+    while k < MAX_CLUSTER and elem_bytes * slice_elems(hw, k) > budget:
         k *= 2
-    return k if 4 * slice_elems(hw, k) <= MAX_SLICE_BYTES else 0
+    return k if elem_bytes * slice_elems(hw, k) <= MAX_SLICE_BYTES else 0
 
 
 def instance_norm_plain(x: torch.Tensor, eps: float = 1e-5,
@@ -70,26 +84,32 @@ def instance_norm_plain(x: torch.Tensor, eps: float = 1e-5,
     return y.to(x.dtype)
 
 
+def _check(x: torch.Tensor, name: str) -> None:
+    """Raise on what the kernels do not take: a contiguous fp32 NCHW tensor
+    on the current CUDA device."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: kernel takes float32, got {x.dtype}")
+    if x.dim() != 4:
+        raise ValueError(f"{name}: expected NCHW, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: input must be contiguous NCHW")
+    if x.device.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: {x.device} is not the current CUDA "
+                         "device")
+
+
 def instance_norm(x: torch.Tensor, eps: float = 1e-5,
                   relu: bool = False) -> torch.Tensor:
-    """InstanceNorm(+ReLU) of an NCHW tensor: kernel K2 on a CUDA tensor,
-    the plain version on a CPU tensor."""
+    """InstanceNorm(+ReLU) of an NCHW tensor: kernel K2 on a CUDA tensor
+    (with K2b as its backward when autograd records it), the plain version
+    on a CPU tensor."""
     if x.device.type == "cpu":
         return instance_norm_plain(x, eps, relu)
-    if x.device.type != "cuda":
-        raise ValueError(f"instance_norm: unsupported device {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"instance_norm: kernel takes float32, got {x.dtype}")
-    if x.dim() != 4:
-        raise ValueError(f"instance_norm: expected NCHW, got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("instance_norm: input must be contiguous NCHW")
-    if x.requires_grad:
-        raise RuntimeError("instance_norm: the kernel has no backward yet; "
-                           "run under torch.inference_mode()")
-    if x.device.index != torch.cuda.current_device():
-        raise ValueError(f"instance_norm: {x.device} is not the current "
-                         "CUDA device")
+    _check(x, "instance_norm")
+    if x.requires_grad and torch.is_grad_enabled():
+        return InstanceNormK2.apply(x, eps, relu)
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
@@ -99,16 +119,118 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5,
 
 
 def _launch(x: torch.Tensor, y: torch.Tensor, eps: float, relu: bool,
-            cluster: int) -> None:
+            cluster: int, stats: torch.Tensor | None = None) -> None:
     """Launch K2 on checked contiguous fp32 NCHW CUDA tensors with
     ``cluster`` CTAs per plane (0: the streaming branch); the kernel
-    refuses a cluster whose slices do not fit its shared memory."""
+    refuses a cluster whose slices do not fit its shared memory. ``stats``:
+    None, or ``empty_stats(x)`` for each plane's k, m and rstd."""
     n, c, h, w = x.shape
     err = kernels.library().ap_instance_norm(
-        x.data_ptr(), y.data_ptr(), n * c, h * w, float(eps), int(relu),
-        int(cluster), torch.cuda.current_stream().cuda_stream)
+        x.data_ptr(), y.data_ptr(), 0 if stats is None else stats.data_ptr(),
+        n * c, h * w, float(eps), int(relu), int(cluster),
+        torch.cuda.current_stream().cuda_stream)
     kernels.check(err, "ap_instance_norm")
     instance_norm.launches += 1
 
 
 instance_norm.launches = 0
+
+
+class InstanceNormK2(torch.autograd.Function):
+    """InstanceNorm(+ReLU) with K2 forward and K2b backward, for CUDA
+    tensors that ``instance_norm`` has checked."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, eps: float, relu: bool) -> torch.Tensor:
+        n, c, h, w = x.shape
+        y = torch.empty_like(x)
+        stats = empty_stats(x)
+        if x.numel():
+            _launch(x, y, eps, relu, cluster_size(h * w), stats)
+        ctx.save_for_backward(x, stats)
+        ctx.relu = relu
+        return y
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, stats = ctx.saved_tensors
+        return (instance_norm_backward(x, g.contiguous(), stats, ctx.relu),
+                None, None)
+
+
+def empty_stats(x: torch.Tensor) -> torch.Tensor:
+    """A buffer for the statistics K2 saves for K2b: (N*C, 3) fp32, each
+    plane's k = E[x], m = E[x - k] and rstd = rsqrt(var + eps)."""
+    return torch.empty((x.shape[0] * x.shape[1], 3), dtype=torch.float32,
+                       device=x.device)
+
+
+def instance_norm_stats_plain(x: torch.Tensor, eps: float = 1e-5
+                              ) -> torch.Tensor:
+    """The (N*C, 3) k, m and rstd that K2 saves, by the plain version's
+    steps."""
+    xs = x.float()
+    cnt = x.shape[2] * x.shape[3]
+    k = xs.sum(dim=(2, 3), keepdim=True) / cnt
+    d = xs - k
+    mean = d.sum(dim=(2, 3), keepdim=True) / cnt
+    var = torch.clamp((d * d).sum(dim=(2, 3), keepdim=True) / cnt
+                      - mean * mean, min=0.0)
+    return torch.stack([k.reshape(-1), mean.reshape(-1),
+                        torch.rsqrt(var + eps).reshape(-1)], dim=1)
+
+
+def instance_norm_backward_plain(x: torch.Tensor, g: torch.Tensor,
+                                 stats: torch.Tensor,
+                                 relu: bool = False) -> torch.Tensor:
+    """The plain version of K2b: dx of InstanceNorm(+ReLU) from x, the
+    upstream gradient g and the saved (N*C, 3) k, m and rstd."""
+    n, c = x.shape[:2]
+    k, mean, rstd = (stats[:, i].reshape(n, c, 1, 1) for i in range(3))
+    xhat = ((x - k) - mean) * rstd
+    gy = torch.where(xhat > 0, g, torch.zeros_like(g)) if relu else g
+    m1 = gy.mean(dim=(2, 3), keepdim=True)
+    m2 = (gy * xhat).mean(dim=(2, 3), keepdim=True)
+    return rstd * ((gy - m1) - xhat * m2)
+
+
+def instance_norm_backward(x: torch.Tensor, g: torch.Tensor,
+                           stats: torch.Tensor,
+                           relu: bool = False) -> torch.Tensor:
+    """dx of InstanceNorm(+ReLU): kernel K2b on CUDA tensors, the plain
+    version on CPU tensors. ``stats`` is the (N*C, 3) k, m and rstd of
+    each plane of ``x``, as K2 saves them."""
+    if x.device.type == "cpu":
+        return instance_norm_backward_plain(x, g, stats, relu)
+    for t, name in ((x, "x"), (g, "g")):
+        _check(t, f"instance_norm_backward ({name})")
+    if g.shape != x.shape:
+        raise ValueError(f"instance_norm_backward: g {tuple(g.shape)} is "
+                         f"not x's {tuple(x.shape)}")
+    n, c, h, w = x.shape
+    if (stats.device != x.device or stats.dtype != torch.float32
+            or stats.shape != (n * c, 3) or not stats.is_contiguous()):
+        raise ValueError("instance_norm_backward: stats must be contiguous "
+                         f"({n * c}, 3) float32 on {x.device}")
+    dx = torch.empty_like(x)
+    if x.numel() == 0:
+        return dx
+    _launch_backward(x, g, stats, dx, relu,
+                     cluster_size(h * w, elem_bytes=8))
+    return dx
+
+
+def _launch_backward(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
+                     dx: torch.Tensor, relu: bool, cluster: int) -> None:
+    """Launch K2b on checked tensors with ``cluster`` CTAs per plane (0: the
+    streaming branch)."""
+    n, c, h, w = x.shape
+    err = kernels.library().ap_instance_norm_bwd(
+        x.data_ptr(), g.data_ptr(), stats.data_ptr(), dx.data_ptr(), n * c,
+        h * w, int(relu), int(cluster),
+        torch.cuda.current_stream().cuda_stream)
+    kernels.check(err, "ap_instance_norm_bwd")
+    instance_norm_backward.launches += 1
+
+
+instance_norm_backward.launches = 0

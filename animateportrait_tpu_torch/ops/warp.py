@@ -3,12 +3,98 @@
 The JAX ``grid_sample`` reproduces ``F.grid_sample`` (both corner
 conventions, zeros or border padding), so the port calls that operator
 directly; the TPU gather workarounds (``_aug4``, ``_gather_chunk``) have no
-counterpart. What stays is the reference's flow-warp quirk.
+counterpart. What stays is the reference's flow-warp quirk, and the
+pixel-coordinate samplers of the training step: ``sample_bilinear``
+(``dense_image_warp``, the face crops) and ``sample_bicubic`` (the
+MobileFaceNet crop). They index in pixels, as the JAX functions do, so no
+round trip through normalized coordinates moves a sample; they are plain
+gathers that autograd differentiates (with respect to the image and the
+coordinates).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def _gather(img: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor
+            ) -> torch.Tensor:
+    """img (N, C, H, W) at integer pixels (rows, cols) of shape (N, *S),
+    which must lie in the image -> (N, C, *S)."""
+    n, c, h, w = img.shape
+    idx = (rows * w + cols).reshape(n, 1, -1).expand(n, c, -1)
+    return img.reshape(n, c, h * w).gather(2, idx).reshape(
+        n, c, *rows.shape[1:])
+
+
+def sample_bilinear(img: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor
+                    ) -> torch.Tensor:
+    """Bilinear samples of ``img`` (N, C, H, W) at float pixel coordinates
+    ``iy``, ``ix`` of shape (N, *S) -> (N, C, *S), with the JAX function's
+    border padding: the base index clamped to [-1, H-1] (resp. W) and each
+    tap to the image, which is ``F.grid_sample``'s border padding."""
+    _, _, h, w = img.shape
+    y0 = torch.floor(iy)
+    x0 = torch.floor(ix)
+    wy = (iy - y0).unsqueeze(1)
+    wx = (ix - x0).unsqueeze(1)
+    y0i = y0.long().clamp(-1, h - 1)
+    x0i = x0.long().clamp(-1, w - 1)
+
+    def tap(dy, dx):
+        return _gather(img, (y0i + dy).clamp(0, h - 1),
+                       (x0i + dx).clamp(0, w - 1))
+
+    top = tap(0, 0) * (1 - wx) + tap(0, 1) * wx
+    bot = tap(1, 0) * (1 - wx) + tap(1, 1) * wx
+    return top * (1 - wy) + bot * wy
+
+
+def sample_bicubic(img: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor
+                   ) -> torch.Tensor:
+    """Bicubic samples of ``img`` (N, C, H, W) at float pixel coordinates
+    (N, *S) -> (N, C, *S): torch's kernel (a = -0.75) with the JAX
+    function's border handling, the base index clamped to [-1, H-1] and
+    each of the 4 x 4 taps to the image. (Per-tap clamping alone differs
+    only more than 1 px outside the image.)"""
+    _, _, h, w = img.shape
+    a = -0.75
+    y0 = torch.floor(iy)
+    x0 = torch.floor(ix)
+    ty = (iy - y0).unsqueeze(1)
+    tx = (ix - x0).unsqueeze(1)
+
+    def cubic(t):
+        t2, t3 = t * t, t * t * t
+        return (a * (t3 - 2 * t2 + t),
+                (a + 2) * t3 - (a + 3) * t2 + 1,
+                -(a + 2) * t3 + (2 * a + 3) * t2 - a * t,
+                a * (t2 - t3))
+
+    wy, wx = cubic(ty), cubic(tx)
+    gy = y0.long().clamp(-1, h - 1)
+    gx = x0.long().clamp(-1, w - 1)
+    out = 0.0
+    for jy in range(4):
+        r = (gy + jy - 1).clamp(0, h - 1)
+        for jx in range(4):
+            c = (gx + jx - 1).clamp(0, w - 1)
+            out = out + wy[jy] * wx[jx] * _gather(img, r, c)
+    return out
+
+
+def dense_image_warp(image: torch.Tensor, flow: torch.Tensor
+                     ) -> torch.Tensor:
+    """Warp ``image`` (N, C, H, W) by a per-pixel backward flow (N, H, W, 2)
+    in (dy, dx) order: ``out[n, :, j, i] = image[n, :, j - dy, i - dx]``,
+    bilinear with border clamping (the reference's
+    Module2/models/sparse_image_warp.py:220-268)."""
+    _, _, h, w = image.shape
+    gy = torch.arange(h, dtype=image.dtype, device=image.device)[None, :,
+                                                                 None]
+    gx = torch.arange(w, dtype=image.dtype, device=image.device)[None, None,
+                                                                 :]
+    return sample_bilinear(image, gy - flow[..., 0], gx - flow[..., 1])
 
 
 def warp_acc_flow(x: torch.Tensor, flow: torch.Tensor,

@@ -2,8 +2,9 @@
 
 Copies of the reference's data files, with the loader names of the JAX
 package's ``utils/assets.py``: the canonical 68-point face shape, the
-audio-feature normalization constants and the Obama target speaker
-embedding used by the AutoVC normalizer. They are data, not code; the port
+audio-feature normalization constants, the Obama target speaker
+embedding used by the AutoVC normalizer, and the landmark edge list whose
+first 20 edges draw the lips. They are data, not code; the port
 keeps its own copy so that it imports nothing of the JAX package.
 """
 from __future__ import annotations
@@ -35,3 +36,10 @@ def autovc_mel_au_mean_std() -> tuple[np.ndarray, np.ndarray]:
 def obama_speaker_emb() -> np.ndarray:
     """256-d target speaker embedding for voice normalization."""
     return np.loadtxt(os.path.join(ASSET_DIR, "obama_emb.txt"))
+
+
+@functools.lru_cache(maxsize=None)
+def face_lmark_lookup() -> np.ndarray:
+    """(64, 2) landmark edge list (lips first 20) for line drawing
+    (faceLmarkLookup.npy)."""
+    return np.load(os.path.join(ASSET_DIR, "faceLmarkLookup.npy"))

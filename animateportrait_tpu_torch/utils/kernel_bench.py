@@ -11,8 +11,8 @@ Helpers, used by ``chip_smoke.py``:
   67 TFLOP/s (H100 SXM data sheet), and which of the two bounds it.
 - the main path's kernel shapes (``K1_LENGTHS``, ``K2_SHAPES``, and
   ``K2_BATCH_MIX``, K2's launches in one 8-frame batch), the work each call
-  does, and the one PyTorch call that computes the same function
-  (``library_ms``; the port never calls it).
+  does (K2b's too), and the one PyTorch call that computes the same
+  function (``library_ms``; the port never calls it).
 
 As a script it times K1 and K2 of a checkout at those shapes, and K2's 29
 launches of one batch back to back, and prints one JSON line; ``--root``
@@ -120,6 +120,14 @@ def k2_work(shape) -> tuple[int, int]:
     return 8 * numel, 8 * numel
 
 
+def k2b_work(shape) -> tuple[int, int]:
+    """(bytes, fp32 operations) of InstanceNorm's backward from the saved
+    statistics: x and the upstream gradient read once, dx written once;
+    ~10 operations an element (xhat, the ReLU mask, the two sums, dx)."""
+    numel = math.prod(shape)
+    return 12 * numel, 10 * numel
+
+
 def stft_library(x: torch.Tensor) -> torch.Tensor:
     """|STFT| by one PyTorch call (cuFFT): the yardstick for K1."""
     w = torch.hann_window(N_FFT, periodic=True, device=x.device)
@@ -130,6 +138,64 @@ def stft_library(x: torch.Tensor) -> torch.Tensor:
 def instance_norm_library(x: torch.Tensor) -> torch.Tensor:
     """InstanceNorm by one PyTorch call: the yardstick for K2 (no ReLU)."""
     return torch.nn.functional.instance_norm(x, eps=1e-5)
+
+
+def instance_norm_backward_library(x: torch.Tensor, g: torch.Tensor):
+    """InstanceNorm's backward by PyTorch: the yardstick for K2b (no
+    ReLU). Returns a function that runs the backward of one
+    ``F.instance_norm`` forward, kept with its graph, on ``g``."""
+    xr = x.detach().requires_grad_()
+    y = torch.nn.functional.instance_norm(xr, eps=1e-5)
+    return lambda: torch.autograd.grad(y, xr, g, retain_graph=True)[0]
+
+
+# elements whose float64 pre-ReLU output lies within this of the kink may
+# fall on either side of K2's fp32 output
+KINK = 1e-4
+
+
+def k2_gradient_errors(x: torch.Tensor, g: torch.Tensor,
+                       relu: bool) -> dict:
+    """K2's gradient path (K2 forward with saved statistics, K2b backward)
+    on ``x`` with upstream gradient ``g``, against autograd in float64 and
+    through the plain version, on the function the forward computed: with
+    ReLU, ``g`` masked by K2's own output (y > 0), the derivative K2b must
+    apply. Returns the largest |diff| of each over the largest |dx|
+    (``vs_f64``, ``vs_plain``, and ``plain_vs_f64``), the forward's largest
+    |diff| to the plain version (``fwd``), and the elements whose side of
+    the kink float64 puts elsewhere (``flips``; each must lie within
+    ``KINK`` of it, else this raises)."""
+    from animateportrait_tpu_torch.ops import instnorm
+
+    F = torch.nn.functional
+    xk = x.detach().clone().requires_grad_()
+    y = instnorm.instance_norm(xk, relu=relu)
+    dx = {"path": torch.autograd.grad(y, xk, g)[0].double()}
+    y = y.detach()
+    fwd = float((y - instnorm.instance_norm_plain(x, relu=relu)).abs().max())
+    y64 = F.instance_norm(x.double(), eps=1e-5)
+    flips = 0
+    if relu:
+        mask = y > 0
+        flipped = mask != (y64 > 0)
+        if bool((y64.abs()[flipped] > KINK).any()):
+            raise AssertionError("K2's ReLU mask differs from float64's "
+                                 "away from the kink")
+        flips = int(flipped.sum())
+        g = g * mask
+    for name, fn, xin in (("plain", instnorm.instance_norm_plain, x),
+                          ("f64", lambda v: F.instance_norm(v, eps=1e-5),
+                           x.double())):
+        xr = xin.detach().clone().requires_grad_()
+        dx[name] = torch.autograd.grad(fn(xr), xr, g.to(xin.dtype))[
+            0].double()
+    top = float(dx["f64"].abs().max())
+
+    def rel(a, b):
+        return float((dx[a] - dx[b]).abs().max()) / top
+
+    return {"vs_f64": rel("path", "f64"), "vs_plain": rel("path", "plain"),
+            "plain_vs_f64": rel("plain", "f64"), "fwd": fwd, "flips": flips}
 
 
 def k2_input(shape, device, seed: int = 0) -> torch.Tensor:

@@ -37,7 +37,20 @@ Phases, each printing its own lines:
      as in phase 3;
   6. card against host for the modules phase 5 added to the path: the
      MTCNN cascade, the Photo2Cartoon stylization, a 2-frame cartoon render
-     and the speaker embedding.
+     and the speaker embedding;
+  7. the Module2 training step (``train/module2.py``) at the configuration
+     of the JAX package's ``bench.py:bench_train_step``: crop 256, drawing
+     (1 channel), ngf = ndf = 64, batch 4, stacked discriminator passes,
+     fp32, seeded random weights and a seeded synthetic batch. A warm step
+     keeps the first input of every InstanceNorm at every shape; K2's
+     gradient path (K2 forward with saved statistics, K2b backward) is held
+     against autograd through the plain version and through float64 on
+     those, and K2b against its plain version on the same statistics. Then
+     K2's and K2b's device times at each shape of the step, the launch
+     counters zeroed before timed steps and read after them (steps/s, a
+     smoke figure, and the step's peak memory), K2's and K2b's device time
+     in a profiled step, and card against host ``grads`` at the JAX tests'
+     small configuration.
 
 Any failure raises, and the script exits non-zero without a result. The
 line before the last is the kernels' JSON record; the last line is
@@ -64,6 +77,19 @@ K2_REPLACES = "animateportrait_tpu/ops/pallas_instnorm.py:126"
 K2_TIMED_SHAPE = (8, 256, 64, 64)
 K1_TOL = dict(atol=2e-3, rtol=1e-3)  # 1024-term fp32 sums, as the JAX tests
 K2_ATOL = 1e-5                       # fp32 statistics over up to 262k pixels
+# K2b replaces the gradient of the custom-vjp entry, jax.vjp of the XLA
+# formulation (not a Pallas kernel in JAX)
+K2B_REPLACES = "animateportrait_tpu/ops/pallas_instnorm.py:162"
+# K2b against its plain version on the same statistics, of the largest
+# |dx| (the discriminators' flat planes give |dx| up to ~100)
+K2B_RTOL = 1e-5
+# K2 + K2b against float64 autograd and fp32 autograd through the plain
+# version, on the function the forward computed (with ReLU, the upstream
+# gradient masked by K2's output), as fractions of the largest |dx|
+K2B_F64_RTOL = 1e-5
+K2B_PLAIN_RTOL = 1e-5
+TRAIN_BATCH = 4
+TRAIN_STEPS = 3
 
 
 def say(msg: str) -> None:
@@ -191,9 +217,11 @@ def phase2(dev: torch.device) -> dict[str, dict]:
     return rec
 
 
-def keep_instance_norm_inputs(nets) -> tuple[dict, list]:
+def keep_instance_norm_inputs(nets, by_shape: bool = False
+                              ) -> tuple[dict, list]:
     """Forward pre-hooks that keep a copy of the first input of every
-    InstanceNorm2d of ``nets``, by module name."""
+    InstanceNorm2d of ``nets``, by module name (and, with ``by_shape``,
+    the first input of each shape a module sees)."""
     from animateportrait_tpu_torch.nn import InstanceNorm2d
 
     kept, hooks = {}, []
@@ -201,8 +229,10 @@ def keep_instance_norm_inputs(nets) -> tuple[dict, list]:
         for name, mod in net.named_modules():
             if isinstance(mod, InstanceNorm2d):
                 def keep(mod, args, key=f"{net_name}.{name}"):
+                    if by_shape:
+                        key = f"{key} {tuple(args[0].shape)}"
                     if key not in kept:
-                        kept[key] = (args[0].clone(), mod.relu)
+                        kept[key] = (args[0].detach().clone(), mod.relu)
                 hooks.append(mod.register_forward_pre_hook(keep))
     return kept, hooks
 
@@ -554,6 +584,288 @@ def phase6(dev: torch.device, landmarks: np.ndarray) -> None:
         raise AssertionError(f"speaker embedding differs: {emb_err}")
 
 
+def k2_gradient_on_path(kept: dict) -> dict:
+    """K2's gradient path against autograd in float64 and through the plain
+    version on the InstanceNorm inputs of a training step, with a seeded
+    upstream gradient (``kernel_bench.k2_gradient_errors``); and K2b
+    against its plain version on the statistics K2 saved. Returns the
+    worst errors."""
+    from animateportrait_tpu_torch.ops import instnorm
+    from animateportrait_tpu_torch.utils.kernel_bench import (
+        k2_gradient_errors)
+
+    worst, by_shape = {}, {}
+    for i, (key, (x, relu)) in enumerate(sorted(kept.items())):
+        gen = torch.Generator(device=x.device).manual_seed(i)
+        g = torch.randn(x.shape, generator=gen, device=x.device)
+        stats = instnorm.empty_stats(x)
+        instnorm._launch(x, torch.empty_like(x), 1e-5, relu,
+                         instnorm.cluster_size(x.shape[2] * x.shape[3]),
+                         stats)
+        want = instnorm.instance_norm_backward_plain(x, g, stats, relu)
+        errs = k2_gradient_errors(x, g, relu)
+        errs["k2b_abs"] = float((instnorm.instance_norm_backward(
+            x, g, stats, relu) - want).abs().max())
+        errs["k2b"] = errs["k2b_abs"] / float(want.abs().max())
+        for k, v in errs.items():
+            worst[k] = max(worst.get(k, 0), v)
+        k = (tuple(x.shape), relu)
+        by_shape[k] = {n: max(by_shape.get(k, {}).get(n, 0), v)
+                       for n, v in errs.items()}
+    for (shape, relu), e in sorted(by_shape.items()):
+        say(f"[7] K2 gradient path {shape} relu={relu}, of max|dx|: K2b "
+            f"vs plain {e['k2b']:.2e} (<= {K2B_RTOL}); K2+K2b vs float64 "
+            f"{e['vs_f64']:.2e} (<= {K2B_F64_RTOL}), vs plain autograd "
+            f"{e['vs_plain']:.2e} (<= {K2B_PLAIN_RTOL}); plain autograd vs "
+            f"float64 {e['plain_vs_f64']:.2e}; ReLU mask elements float64 "
+            f"puts across the kink: {e['flips']}")
+    say(f"[7] K2 gradient path on {len(kept)} InstanceNorm inputs of a "
+        f"step, {len(by_shape)} shapes: worst {worst}")
+    if not (worst["k2b"] <= K2B_RTOL and worst["vs_f64"] <= K2B_F64_RTOL
+            and worst["vs_plain"] <= K2B_PLAIN_RTOL
+            and worst["fwd"] <= K2_ATOL):
+        raise AssertionError(f"K2's gradient path disagrees: {worst}")
+    return worst
+
+
+def count_instance_norms(nets) -> tuple[dict, list]:
+    """Forward pre-hooks counting the InstanceNorm calls of ``nets`` by
+    (shape, relu, recorded for the backward)."""
+    from animateportrait_tpu_torch.nn import InstanceNorm2d
+
+    counts, hooks = {}, []
+
+    def count(mod, args):
+        x = args[0]
+        key = (tuple(x.shape), mod.relu,
+               bool(x.requires_grad and torch.is_grad_enabled()))
+        counts[key] = counts.get(key, 0) + 1
+
+    for net in nets:
+        for mod in net.modules():
+            if isinstance(mod, InstanceNorm2d):
+                hooks.append(mod.register_forward_pre_hook(count))
+    return counts, hooks
+
+
+def time_training_shapes(dev: torch.device, counts: dict) -> dict:
+    """K2 (the training forward, which saves statistics) and K2b at each
+    InstanceNorm shape of a step, without ReLU (the library calls have
+    none): device times of kernel, plain version and library call, bound
+    and share; launches per step of each."""
+    from animateportrait_tpu_torch.ops import instnorm
+    from animateportrait_tpu_torch.utils.kernel_bench import (
+        instance_norm_backward_library, instance_norm_library, k2_input,
+        k2_work, k2b_work)
+
+    per_shape = {}
+    for (shape, _, grad), n in counts.items():
+        fwd, bwd = per_shape.get(shape, (0, 0))
+        per_shape[shape] = (fwd + n, bwd + (n if grad else 0))
+    rows = []
+    with torch.no_grad():
+        for shape, (n_fwd, n_bwd) in sorted(per_shape.items()):
+            x = k2_input(shape, dev)
+            g = torch.randn(shape, generator=torch.Generator(device=dev)
+                            .manual_seed(7), device=dev)
+            y = torch.empty_like(x)
+            stats = instnorm.empty_stats(x)
+            k = instnorm.cluster_size(shape[2] * shape[3])
+            kb = instnorm.cluster_size(shape[2] * shape[3], elem_bytes=8)
+            fwd = timed(lambda: instnorm._launch(x, y, 1e-5, False, k, stats),
+                        lambda: instnorm.instance_norm_plain(x),
+                        lambda: instance_norm_library(x), k2_work(shape))
+            with torch.enable_grad():
+                lib = instance_norm_backward_library(x, g)
+                bwd = timed(lambda: instnorm.instance_norm_backward(
+                    x, g, stats), lambda: instnorm.instance_norm_backward_plain(
+                        x, g, stats), lib, k2b_work(shape))
+            rows.append(dict(shape=list(shape), k2_launches=n_fwd,
+                             k2b_launches=n_bwd, k2_ctas=k, k2b_ctas=kb,
+                             k2=fwd, k2b=bwd))
+            say(f"[7] {shape} per step: K2 x{n_fwd} ({k} CTA/plane) "
+                f"{fwd['ms'] * 1e3:.2f} us, plain {fwd['plain_ms'] * 1e3:.2f}"
+                f", library {fwd['library_ms'] * 1e3:.2f}, bound "
+                f"{fwd['bound_ms'] * 1e3:.2f} ({100 * fwd['share_of_bound']:.0f}"
+                f"%); K2b x{n_bwd} ({kb} CTA/plane) {bwd['ms'] * 1e3:.2f} us, "
+                f"plain {bwd['plain_ms'] * 1e3:.2f}, library "
+                f"{bwd['library_ms'] * 1e3:.2f}, bound "
+                f"{bwd['bound_ms'] * 1e3:.2f} "
+                f"({100 * bwd['share_of_bound']:.0f}%)")
+            del x, g, y, lib
+    return rows
+
+
+def profiled_ms(fn, top: int = 8) -> dict:
+    """Device time of K2, K2b and all kernels in one call of ``fn``, from a
+    ``torch.profiler`` trace (0 where CUPTI gives no device time), and the
+    ``top`` kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"k2": 0.0, "k2b": 0.0, "all": 0.0}
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = float(getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0))) / 1e3
+        out["all"] += ms
+        kernels.append((ms, e.count, e.key))
+        if "instance_norm_bwd" in e.key:
+            out["k2b"] += ms
+        elif "instance_norm" in e.key:
+            out["k2"] += ms
+    out["top"] = [dict(ms=ms, calls=n, name=name[:90])
+                  for ms, n, name in sorted(kernels, reverse=True)[:top]]
+    return out
+
+
+def compare_grads(card, host, what: str) -> float:
+    """Card against host gradients: each leaf within 1e-3 of its largest
+    |g|, but the biases that an InstanceNorm cancels (zero gradient, noise
+    on both) and up to two leaves above a ReLU kink that the two forwards
+    put on different sides (within 5e-2). Returns the worst leaf error."""
+    gscale = max(float(v.abs().max()) for v in host.values())
+    errs = {}
+    for k, h in host.items():
+        c = card[k].cpu().double()
+        h = h.double()
+        scale = float(h.abs().max())
+        if scale <= 1e-5 * gscale:
+            if float(c.abs().max()) > 1e-5 * gscale:
+                raise AssertionError(f"{what} {k}: {float(c.abs().max())}")
+            continue
+        errs[k] = float((c - h).abs().max()) / scale
+    over = {k: e for k, e in errs.items() if e > 1e-3}
+    if len(over) > 2 or any(e > 5e-2 for e in over.values()):
+        raise AssertionError(f"{what} gradients differ: {over}")
+    return max(errs.values())
+
+
+def phase7(dev: torch.device) -> dict:
+    from animateportrait_tpu_torch.ops.instnorm import (
+        instance_norm, instance_norm_backward)
+    from animateportrait_tpu_torch.train import module2 as m2
+
+    cfg = m2.Module2Config(batch_d_passes=True)
+    state = m2.init_state(cfg, torch.Generator().manual_seed(0), dev)
+    frozen = m2.init_frozen_random(torch.Generator().manual_seed(1), dev)
+    batch = m2.make_random_batch(cfg, TRAIN_BATCH, torch.Generator(
+        device=dev).manual_seed(2), dev)
+    step = m2.build_train_step(cfg)
+    pool_gen = torch.Generator().manual_seed(3)
+
+    kept, hooks = keep_instance_norm_inputs({"g": state.g, "d": state.d},
+                                            by_shape=True)
+    counts, count_hooks = count_instance_norms(
+        [state.g, state.d, frozen.modnet])
+    t0 = time.perf_counter()
+    step.step(state, batch, frozen, pool_gen)
+    torch.cuda.synchronize()
+    say(f"[7] warm step {time.perf_counter() - t0:.3f} s (keeps the "
+        f"InstanceNorm inputs)")
+    for h in hooks + count_hooks:
+        h.remove()
+    worst = k2_gradient_on_path(kept)
+    del kept
+    rows = time_training_shapes(dev, counts)
+
+    g0 = next(state.g.parameters()).detach().clone()
+    d0 = next(state.d.parameters()).detach().clone()
+    torch.cuda.reset_peak_memory_stats(dev)
+    instance_norm.launches = 0
+    instance_norm_backward.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        metrics = step.step(state, batch, frozen, pool_gen)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"instance_norm": instance_norm.launches,
+                "instance_norm_backward": instance_norm_backward.launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    prof = profiled_ms(lambda: step.step(state, batch, frozen, pool_gen))
+    losses = {k: float(v) for k, v in metrics.items()}
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    say(f"[7] timed: {TRAIN_STEPS} steps in {dt:.3f} s = "
+        f"{TRAIN_STEPS / dt:.3f} steps/s (batch {TRAIN_BATCH}, smoke "
+        f"figure, not a benchmark); peak memory {peak / 2 ** 30:.2f} GiB")
+    say(f"[7] kernel launches in the timed steps: {launches} "
+        f"({per_step} per step)")
+    say(f"[7] profiled step: device time {prof['all']:.3f} ms "
+        f"({100 * prof['all'] / (1e3 * dt / TRAIN_STEPS):.1f}% of a timed "
+        f"step's wall time), K2 {prof['k2']:.3f} ms, K2b {prof['k2b']:.3f} "
+        f"ms")
+    for k in prof["top"]:
+        say(f"[7]   {k['ms']:9.3f} ms in {k['calls']:4d} calls: {k['name']}")
+    say(f"[7] losses after step {state.step}: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in losses.items()))
+    n_fwd = sum(counts.values())
+    n_bwd = sum(n for (_, _, grad), n in counts.items() if grad)
+    if per_step != {"instance_norm": n_fwd, "instance_norm_backward": n_bwd}:
+        raise AssertionError(f"launches per step {per_step}, InstanceNorm "
+                             f"calls {n_fwd}, of them recorded {n_bwd}")
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"non-finite losses {losses}")
+    with torch.no_grad():
+        moved = (float((next(state.g.parameters()) - g0).abs().max()),
+                 float((next(state.d.parameters()) - d0).abs().max()))
+    fills = min(cfg.pool_size, 2 * TRAIN_BATCH * (TRAIN_STEPS + 2))
+    if not (min(moved) > 0 and state.pool_count == fills
+            and bool(state.pool[:fills].abs().sum((1, 2, 3)).gt(0).all())):
+        raise AssertionError(f"params moved {moved}, pool {state.pool_count}"
+                             f" of {fills}")
+    say(f"[7] G and D params moved (max |delta| {moved[0]:.3e}, "
+        f"{moved[1]:.3e}); pool holds {state.pool_count} of "
+        f"{cfg.pool_size}")
+    est = {"k2": sum(r["k2_launches"] * r["k2"]["ms"] for r in rows),
+           "k2b": sum(r["k2b_launches"] * r["k2b"]["ms"] for r in rows)}
+    say(f"[7] launches x per-shape time per step: K2 {est['k2']:.3f} ms, "
+        f"K2b {est['k2b']:.3f} ms")
+    del state, frozen, batch
+    torch.cuda.empty_cache()
+    card_vs_host_grads(dev)
+    return {"launches": launches, "per_step": per_step, "rows": rows,
+            "worst": worst, "profiled": prof, "estimated": est,
+            "steps_per_s": TRAIN_STEPS / dt, "peak_bytes": peak}
+
+
+def card_vs_host_grads(dev: torch.device) -> None:
+    from animateportrait_tpu_torch.train import module2 as m2
+
+    cfg = m2.Module2Config(crop_size=64, ngf=8, ndf=8, steps_per_epoch=2,
+                           pool_size=4)
+    out = {}
+    batch = m2.make_random_batch(cfg, 1, torch.Generator().manual_seed(2),
+                                 "cpu")
+    for where in (dev, torch.device("cpu")):
+        state = m2.init_state(cfg, torch.Generator().manual_seed(0), where)
+        frozen = m2.init_frozen_random(torch.Generator().manual_seed(1),
+                                       where)
+        out[where.type] = m2.build_train_step(cfg).grads(
+            state, {k: v.to(where) for k, v in batch.items()}, frozen,
+            torch.Generator().manual_seed(3))
+    c, h = out["cuda"], out["cpu"]
+    loss_err = max(abs(float(c.metrics[k]) - float(v)) / max(abs(float(v)),
+                                                              1e-5)
+                   for k, v in h.metrics.items())
+    g_err = compare_grads(c.g, h.g, "G")
+    d_err = compare_grads(c.d, h.d, "D")
+    pool_err = float((c.pool.cpu() - h.pool).abs().max())
+    say(f"[7] card vs host grads (crop 64, ngf = ndf = 8, batch 1): losses "
+        f"max rel diff {loss_err:.2e} (<= 1e-4), worst G leaf {g_err:.2e}, "
+        f"worst D leaf {d_err:.2e} (of the leaf's max |g|), pool "
+        f"{pool_err:.2e} ({c.pool_count} filled)")
+    if not (loss_err <= 1e-4 and c.pool_count == h.pool_count == 2
+            and pool_err <= 1e-4):
+        raise AssertionError(f"card vs host: losses {loss_err}, pool "
+                             f"{pool_err}")
+
+
 def main() -> None:
     phase0()
     dev = torch.device("cuda", 0)
@@ -573,22 +885,52 @@ def main() -> None:
     rec["instance_norm"]["max_abs_err"] = max(
         rec["instance_norm"]["max_abs_err"], cli_run["k2_path_err"])
     phase6(dev, main_run["landmarks"])
+    train = phase7(dev)
     say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     sources = {"stft_magnitude": ("animateportrait_tpu_torch/csrc/stft.cu",
                                   K1_REPLACES),
                "instance_norm": ("animateportrait_tpu_torch/csrc/instnorm.cu",
-                                 K2_REPLACES)}
+                                 K2_REPLACES),
+               "instance_norm_backward": (
+                   "animateportrait_tpu_torch/csrc/instnorm_bwd.cu",
+                   K2B_REPLACES)}
+    # K2b's headline numbers: the shape that moves the most bytes in a step
+    head = max(train["rows"], key=lambda r: r["k2b_launches"]
+               * np.prod(r["shape"]))
+    rec["instance_norm_backward"] = dict(
+        head["k2b"], max_abs_err=train["worst"]["k2b_abs"],
+        shape=head["shape"],
+        launches_per_step=train["per_step"]["instance_norm_backward"],
+        path_err=train["worst"],
+        by_shape=[dict(r["k2b"], shape=r["shape"], cluster=r["k2b_ctas"],
+                       launches_per_step=r["k2b_launches"])
+                  for r in train["rows"]])
+    rec["instance_norm"]["train_by_shape"] = [
+        dict(r["k2"], shape=r["shape"], cluster=r["k2_ctas"],
+             launches_per_step=r["k2_launches"]) for r in train["rows"]]
     rec["instance_norm"]["ms_by_path"] = {
         "cartoon_cli": cli_run["k2_time"],
         "drawing_pipeline": main_run["k2_time"]}
-    # "launches": the user's entry point (phase 5, the cartoon CLI run);
-    # "launches_by_path" adds the drawing pipeline of phase 3
+    for name, key in (("instance_norm", "k2"),
+                      ("instance_norm_backward", "k2b")):
+        rec[name]["ms_by_path"] = dict(
+            rec[name].get("ms_by_path", {}), train_step=dict(
+                launches_per_step=train["per_step"][name],
+                profiled_ms=train["profiled"][key],
+                device_ms=train["profiled"]["all"],
+                estimated_ms=train["estimated"][key]))
+    launches = {
+        "cartoon_cli": cli_run["launches"], "drawing_pipeline":
+        main_run["launches"], "train_step": train["launches"]}
+    # "launches": K1's and K2's on the user's entry point (phase 5, the
+    # cartoon CLI run), K2b's in the timed training steps (phase 7);
+    # "launches_by_path" has every path's
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": repl,
-         "launches": cli_run["launches"][name],
-         "launches_by_path": {
-             "cartoon_cli": cli_run["launches"][name],
-             "drawing_pipeline": main_run["launches"][name]},
+         "launches": launches["train_step" if name == "instance_norm_backward"
+                              else "cartoon_cli"][name],
+         "launches_by_path": {path: n.get(name, 0)
+                              for path, n in launches.items()},
          **rec[name]}
         for name, (src, repl) in sources.items()]}))
     say(json.dumps({"ok": True, "device": {

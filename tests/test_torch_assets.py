@@ -27,7 +27,8 @@ from animateportrait_tpu_torch.utils.device import resolve_device
 from animateportrait_tpu_torch.utils.smoke import make_wav
 
 
-@pytest.mark.parametrize("name", ["std_face_landmarks", "obama_speaker_emb"])
+@pytest.mark.parametrize("name", ["std_face_landmarks", "obama_speaker_emb",
+                                  "face_lmark_lookup"])
 def test_table_equals_the_jax_packages(name):
     got, want = getattr(assets, name)(), getattr(jax_assets, name)()
     assert got.dtype == want.dtype and got.shape == want.shape

@@ -1,8 +1,9 @@
 """Card-only tests of the port's CUDA kernels: each kernel against its plain
-PyTorch version, the wrappers' checks and launch counters, and small runs
-on the card against the CPU: the renderer (drawing and cartoon), the MTCNN
-cascade, Photo2Cartoon and the speaker embedding. They skip without a CUDA
-device.
+PyTorch version, the wrappers' checks and launch counters, K2's gradient
+path (K2 forward, K2b backward) against autograd through the plain version,
+and small runs on the card against the CPU: the renderer (drawing and
+cartoon), the MTCNN cascade, Photo2Cartoon, the speaker embedding and the
+Module2 training step. They skip without a CUDA device.
 
 This file imports neither JAX nor the JAX package, so it runs where JAX is
 not installed; the repo's conftest imports JAX, so on such a machine run
@@ -16,7 +17,7 @@ import torch
 from animateportrait_tpu_torch.ops import instnorm, stft
 from animateportrait_tpu_torch.ops.spectral import stft_magnitude as stft_plain
 from animateportrait_tpu_torch.utils.kernel_bench import (
-    K2_SHAPES, K2_STREAM_SHAPE, k2_input)
+    K2_SHAPES, K2_STREAM_SHAPE, k2_gradient_errors, k2_input)
 from torch_port_helpers import cuda_device, maxdiff, psnr  # noqa: F401
 
 pytestmark = pytest.mark.cuda
@@ -25,6 +26,26 @@ pytestmark = pytest.mark.cuda
 K1_TOL = dict(atol=2e-3, rtol=1e-3)
 # fp32 statistics over up to 262144 pixels, summed in another order
 K2_ATOL = 1e-5
+# K2b: dx = rstd * (gy - E[gy] - xhat E[gy xhat]) with |dx| ~ 1 here; the
+# two sums over up to 65536 pixels are taken in another order
+K2B_ATOL = 1e-5
+# K2 + K2b against float64 autograd and fp32 autograd through the plain
+# version, on the function the forward computed (with ReLU, the upstream
+# gradient masked by K2's output: kernel_bench.k2_gradient_errors), as
+# fractions of the largest |dx|
+K2B_F64_RTOL = 1e-5
+K2B_PLAIN_RTOL = 1e-5
+# every InstanceNorm shape of the Module2 training step at the bench
+# configuration (batch 4, ngf = ndf = 64): the generator's planes, and the
+# discriminators' planes of 4 (coherence D in the G pass), 8 (two stacked
+# inputs) and 12 (three) images, 31 x 31 with hw % 4 != 0
+TRAIN_IN_SHAPES = [
+    (4, 32, 256, 256), (4, 64, 256, 256), (4, 8, 256, 256),
+    (4, 128, 128, 128), (4, 64, 128, 128), (4, 16, 128, 128),
+    (4, 256, 64, 64), (4, 128, 64, 64), (4, 16, 64, 64),
+    (4, 128, 64, 64), (8, 128, 64, 64), (12, 128, 64, 64),
+    (4, 256, 32, 32), (8, 256, 32, 32), (12, 256, 32, 32),
+    (4, 512, 31, 31), (8, 512, 31, 31), (12, 512, 31, 31)]
 
 
 def _act(shape, seed=0, offset=0.5):
@@ -140,8 +161,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
             stft.stft_magnitude(s.view(2, 2048))
         with pytest.raises(ValueError, match="reflect"):
             stft.stft_magnitude(s[:512])
-    with pytest.raises(RuntimeError, match="backward"):
-        instnorm.instance_norm(x.clone().requires_grad_())
+        stats = instnorm.instance_norm_stats_plain(x)
+        with pytest.raises(ValueError, match="stats"):
+            instnorm.instance_norm_backward(x, x, stats[:4])
+        with pytest.raises(ValueError, match="not x's"):
+            instnorm.instance_norm_backward(x, x[:1], stats)
+        with pytest.raises(ValueError, match="contiguous"):
+            instnorm.instance_norm_backward(x, x.transpose(2, 3).contiguous()
+                                            .transpose(2, 3), stats)
 
 
 def test_launch_counters_count_kernel_launches_only(cuda_device):
@@ -252,3 +279,144 @@ def test_photo2cartoon_and_speaker_card_match_host(cuda_device):
         outs.append((y, e))
     assert psnr(outs[0][0], outs[1][0]) >= 40.0
     assert maxdiff(outs[0][1], outs[1][1]) <= 1e-4
+
+
+def _k2_grad_case(shape, relu, device, seed=0):
+    """Activations, an upstream gradient and K2's saved statistics."""
+    x = k2_input(shape, device, seed=seed)
+    g = torch.randn(shape, generator=torch.Generator(device=device)
+                    .manual_seed(seed + 1), device=device)
+    stats = instnorm.empty_stats(x)
+    instnorm._launch(x, torch.empty_like(x), 1e-5, relu,
+                     instnorm.cluster_size(shape[2] * shape[3]), stats)
+    return x, g, stats
+
+
+@pytest.mark.parametrize("shape", TRAIN_IN_SHAPES)
+@pytest.mark.parametrize("relu", [False, True])
+def test_k2b_kernel_matches_plain(cuda_device, shape, relu):
+    x, g, stats = _k2_grad_case(shape, relu, cuda_device)
+    # K2's statistics are the plain version's
+    assert maxdiff(stats.cpu(), instnorm.instance_norm_stats_plain(x).cpu()) \
+        <= 1e-5 * float(stats.abs().max())
+    got = instnorm.instance_norm_backward(x, g, stats, relu)
+    want = instnorm.instance_norm_backward_plain(x, g, stats, relu)
+    assert maxdiff(got.cpu(), want.cpu()) <= K2B_ATOL
+
+
+@pytest.mark.parametrize("shape", TRAIN_IN_SHAPES)
+@pytest.mark.parametrize("relu", [False, True])
+def test_k2_gradient_path_matches_plain_autograd(cuda_device, shape, relu):
+    x, g, _ = _k2_grad_case(shape, relu, cuda_device, seed=2)
+    e = k2_gradient_errors(x, g, relu)
+    assert e["fwd"] <= K2_ATOL
+    assert e["vs_f64"] <= K2B_F64_RTOL and e["vs_plain"] <= K2B_PLAIN_RTOL
+
+
+# one shape for each number of CTAs per plane K2b's dispatcher picks at the
+# default budget (8 bytes an element; 0: streaming), and planes with
+# hw % 4 != 0 on one CTA and split over a cluster (scalar loads)
+@pytest.mark.parametrize("shape,cluster", [
+    ((2, 3, 64, 64), 1), ((2, 4, 128, 128), 2), ((2, 4, 128, 256), 4),
+    ((2, 4, 256, 256), 8), ((1, 2, 512, 512), 0), ((3, 5, 31, 31), 1),
+    ((1, 2, 257, 255), 8)])
+@pytest.mark.parametrize("relu", [False, True])
+def test_k2b_every_cluster_size(cuda_device, shape, cluster, relu):
+    assert instnorm.cluster_size(shape[2] * shape[3], elem_bytes=8) == cluster
+    x, g, stats = _k2_grad_case(shape, relu, cuda_device, seed=3)
+    got = instnorm.instance_norm_backward(x, g, stats, relu)
+    want = instnorm.instance_norm_backward_plain(x, g, stats, relu)
+    assert maxdiff(got.cpu(), want.cpu()) <= K2B_ATOL
+    e = k2_gradient_errors(x, g, relu)
+    assert e["vs_f64"] <= K2B_F64_RTOL and e["vs_plain"] <= K2B_PLAIN_RTOL
+
+
+# 3 CTAs, and slices over a CTA's shared memory (2 CTAs for 512^2)
+@pytest.mark.parametrize("cluster", [3, 16, -1, 2])
+def test_k2b_refuses_a_cluster_it_cannot_run(cuda_device, cluster):
+    x, g, stats = _k2_grad_case((1, 2, 512, 512), False, cuda_device)
+    before = instnorm.instance_norm_backward.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        instnorm._launch_backward(x, g, stats, torch.empty_like(x), False,
+                                  cluster)
+    assert instnorm.instance_norm_backward.launches == before
+
+
+def test_k2_autograd_function_only_when_grad_is_needed(cuda_device):
+    x = _act((2, 4, 16, 16)).to(cuda_device)
+    k2, k2b = (instnorm.instance_norm.launches,
+               instnorm.instance_norm_backward.launches)
+    xg = x.clone().requires_grad_()
+    with torch.inference_mode():
+        y = instnorm.instance_norm(x, relu=True)
+    with torch.no_grad():
+        y2 = instnorm.instance_norm(xg, relu=True)
+    assert y.grad_fn is None and y2.grad_fn is None
+    assert instnorm.instance_norm.launches == k2 + 2
+    y3 = instnorm.instance_norm(x, relu=True)          # needs no grad
+    assert y3.grad_fn is None
+    y4 = instnorm.instance_norm(xg, relu=True)
+    assert type(y4.grad_fn).__name__ == "InstanceNormK2Backward"
+    assert instnorm.instance_norm.launches == k2 + 4
+    assert instnorm.instance_norm_backward.launches == k2b
+    y4.sum().backward()
+    assert instnorm.instance_norm_backward.launches == k2b + 1
+    assert maxdiff(y4.detach().cpu(), y.cpu()) == 0.0
+
+
+def test_full_width_training_step_on_the_card(cuda_device):
+    """One step of the bench configuration (crop 256, ngf = ndf = 64,
+    batch 4, stacked D passes): finite losses, both nets moved, every
+    InstanceNorm forward through K2 and every backward through K2b."""
+    from animateportrait_tpu_torch.train import module2 as m2
+
+    cfg = m2.Module2Config(batch_d_passes=True)
+    state = m2.init_state(cfg, torch.Generator().manual_seed(0), cuda_device)
+    frozen = m2.init_frozen_random(torch.Generator().manual_seed(1),
+                                   cuda_device)
+    batch = m2.make_random_batch(cfg, 4, torch.Generator(
+        device=cuda_device).manual_seed(2), cuda_device)
+    g0 = next(state.g.parameters()).detach().clone()
+    d0 = next(state.d.parameters()).detach().clone()
+    k2, k2b = (instnorm.instance_norm.launches,
+               instnorm.instance_norm_backward.launches)
+    metrics = m2.build_train_step(cfg).step(state, batch, frozen,
+                                            torch.Generator().manual_seed(3))
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    with torch.no_grad():
+        assert float((next(state.g.parameters()) - g0).abs().max()) > 0
+        assert float((next(state.d.parameters()) - d0).abs().max()) > 0
+    assert state.pool_count == 8
+    # G: 2 forwards of 38 INs; Ds: 5 stacked passes of 3 INs in the G pass
+    # and 5 in the D pass; MODNet: 16 INs, inference only
+    assert instnorm.instance_norm_backward.launches - k2b == 2 * 38 + 30
+    assert instnorm.instance_norm.launches - k2 == 2 * 38 + 30 + 16
+
+
+def test_small_training_grads_card_match_host(cuda_device):
+    from animateportrait_tpu_torch.train import module2 as m2
+
+    cfg = m2.Module2Config(crop_size=64, ngf=8, ndf=8, steps_per_epoch=2,
+                           pool_size=4)
+    batch = m2.make_random_batch(cfg, 1, torch.Generator().manual_seed(2),
+                                 "cpu")
+    out = {}
+    for where in (cuda_device, torch.device("cpu")):
+        state = m2.init_state(cfg, torch.Generator().manual_seed(0), where)
+        frozen = m2.init_frozen_random(torch.Generator().manual_seed(1),
+                                       where)
+        out[where.type] = m2.build_train_step(cfg).grads(
+            state, {k: v.to(where) for k, v in batch.items()}, frozen,
+            torch.Generator().manual_seed(3))
+    c, h = out["cuda"], out["cpu"]
+    for k, v in h.metrics.items():
+        np.testing.assert_allclose(float(c.metrics[k]), float(v), rtol=1e-4,
+                                   atol=1e-5, err_msg=k)
+    for net in ("g", "d"):
+        host, card = getattr(h, net), getattr(c, net)
+        gscale = max(float(v.abs().max()) for v in host.values())
+        errs = {k: float((card[k].cpu() - v).abs().max() / v.abs().max())
+                for k, v in host.items() if float(v.abs().max()) > 1e-5 * gscale}
+        over = {k: e for k, e in errs.items() if e > 1e-3}
+        assert len(over) <= 2 and all(e <= 5e-2 for e in over.values()), over
+    assert c.pool_count == h.pool_count == 2
