@@ -12,13 +12,14 @@ Checkpoints are the reference's torch files, loaded as they are: the same
 wrapper keys as the JAX CLI (``model``, ``G``, ``model_g_face_id``,
 ``genA2B``), a leading ``module.`` stripped, then a strict
 ``load_state_dict``; the few reference keys no net of the port runs are
-dropped by name. A missing checkpoint gets seeded random weights with a
-warning, as in the JAX CLI: the pipeline runs end to end, but the output
-is no portrait animation. The MTCNN weights (``<ckpt_dir>/mtcnn/
-{pnet,rnet,onet}.npy``) are required. FAN3D is not ported yet, so a FAN
-checkpoint in ``--ckpt_dir`` is an error: the JAX CLI would use it and
-give other output. Not ported either: ``--video``, ``--render_dp``,
-``--render_bf16`` and ``--warp_mode tps``; argparse rejects them.
+dropped by name (``io/reference.py``). A missing checkpoint gets seeded
+random weights with a warning, as in the JAX CLI: the pipeline runs end to
+end, but the output is no portrait animation. The MTCNN weights
+(``<ckpt_dir>/mtcnn/{pnet,rnet,onet}.npy``) are required. FAN3D is not
+ported yet, so a FAN checkpoint in ``--ckpt_dir`` is an error: the JAX CLI
+would use it and give other output. Not ported either: ``--video``,
+``--render_dp``, ``--render_bf16`` and ``--warp_mode tps``; argparse
+rejects them.
 
 ``--device`` (default ``cuda``) is where every net runs; without a CUDA
 device, ``cuda`` is an error, never a silent fall back to the CPU.
@@ -30,20 +31,18 @@ import dataclasses
 import glob
 import os
 import pickle
-import re
 import sys
 import time
 
 import numpy as np
 import torch
 
+from animateportrait_tpu_torch.io.reference import (
+    MODNET_TRAINING_HEADS, load_or_init)
+
 FAN_CKPT_NAMES = ("3DFAN4-4a694010b9.zip", "3DFAN4-7835d9f11d.pth.tar",
                   "3DFAN4.pth", "2DFAN4-cd938726ad.zip",
                   "2DFAN4-11f355bf06.pth.tar", "2DFAN4.pth")
-# MODNet's training heads: the JAX loader reads them when present, but
-# inference never runs them and the port's MODNet has none
-MODNET_TRAINING_HEADS = re.compile(
-    r"^(lr_branch\.conv_lr|hr_branch\.conv_hr)\.")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -110,42 +109,6 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def _load_state_dict(path: str, unwrap: str | None) -> dict:
-    """A reference torch checkpoint -> {key: tensor}, unwrapped as the JAX
-    CLI unwraps it (``io/torch_convert.py:load_torch_statedict`` and
-    ``cli.py:_load_or_init``)."""
-    obj = torch.load(path, map_location="cpu", weights_only=False)
-    if hasattr(obj, "state_dict"):
-        obj = obj.state_dict()
-    if isinstance(obj, dict) and "state_dict" in obj and all(
-            not torch.is_tensor(v) for k, v in obj.items()
-            if k != "state_dict"):
-        obj = obj["state_dict"]
-    if unwrap and unwrap in obj:
-        obj = obj[unwrap]
-    return {(k[len("module."):] if k.startswith("module.") else k):
-            torch.as_tensor(v) for k, v in obj.items()
-            if torch.is_tensor(v) or isinstance(v, np.ndarray)}
-
-
-def _load_or_init(path: str, net: torch.nn.Module, name: str,
-                  unwrap: str | None = None,
-                  drop: re.Pattern | None = None) -> torch.nn.Module:
-    """Load ``path`` into ``net`` (strict), without the keys ``drop``
-    matches; seeded random weights when there is no file."""
-    if path and os.path.exists(path):
-        sd = _load_state_dict(path, unwrap)
-        if drop is not None:
-            sd = {k: v for k, v in sd.items() if not drop.search(k)}
-        net.load_state_dict(sd, strict=True)
-        return net
-    print(f"[animateportrait_tpu_torch] WARNING: no checkpoint for {name} "
-          f"({path}); using random init", file=sys.stderr)
-    from animateportrait_tpu_torch.utils.smoke import init_random_
-
-    return init_random_(net, torch.Generator().manual_seed(0))
-
-
 def find_fan_checkpoint(ckpt_dir: str) -> str | None:
     """A face_alignment FAN checkpoint under <ckpt_dir>[/face_alignment],
     looked up as the JAX package's ``models/fan3d.py`` does."""
@@ -202,31 +165,31 @@ def build_pipeline(args):
           "the output does not track this face's own shape.",
           file=sys.stderr)
 
-    autovc = _load_or_init(os.path.join(cd, args.load_AUTOVC_name),
-                           AutoVCGenerator(), "autovc", unwrap="model")
-    pos = _load_or_init(os.path.join(cd, args.load_a2l_G_name),
-                        Audio2landmarkPos(), "speaker branch", unwrap="G")
-    content = _load_or_init(os.path.join(cd, args.load_a2l_C_name),
-                            Audio2landmarkContent(), "content branch",
-                            unwrap="model_g_face_id")
-    generator = _load_or_init(
+    autovc = load_or_init(os.path.join(cd, args.load_AUTOVC_name),
+                          AutoVCGenerator(), "autovc", unwrap="model")
+    pos = load_or_init(os.path.join(cd, args.load_a2l_G_name),
+                       Audio2landmarkPos(), "speaker branch", unwrap="G")
+    content = load_or_init(os.path.join(cd, args.load_a2l_C_name),
+                           Audio2landmarkContent(), "content branch",
+                           unwrap="model_g_face_id")
+    generator = load_or_init(
         os.path.join(cd, args.exp, f"{args.epoch}_net_G_A.pth"),
         TridentGeneratorFullIFW(output_nc=1 if style == "drawing" else 3,
                                 ngf=args.ngf, div=3, disp=3),
         f"generator {args.exp}")
-    flow = _load_or_init(
+    flow = load_or_init(
         os.path.join(cd, "FlowReg_id_flow_faces", "best_net_netF.pth"),
         FlowUnet(nf=args.flow_nf), "flow regressor")
-    modnet = _load_or_init(
+    modnet = load_or_init(
         os.path.join(cd, "modnet_photographic_portrait_matting.ckpt"),
         MODNet(), "modnet", drop=MODNET_TRAINING_HEADS)
     static_g = cartoon_g = None
     if style == "drawing":
-        static_g = _load_or_init(os.path.join(cd, "static", "drawing.pth"),
-                                 ResnetStyle2Generator(ngf=args.static_ngf),
-                                 "static drawing net")
+        static_g = load_or_init(os.path.join(cd, "static", "drawing.pth"),
+                                ResnetStyle2Generator(ngf=args.static_ngf),
+                                "static drawing net")
     else:
-        cartoon_g = _load_or_init(
+        cartoon_g = load_or_init(
             os.path.join(cd, "static", "cartoon.pt"),
             photo2cartoon.Photo2CartoonGenerator(ngf=args.cartoon_ngf),
             "photo2cartoon", unwrap="genA2B", drop=photo2cartoon.UNUSED_KEY)

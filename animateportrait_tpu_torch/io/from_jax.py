@@ -422,3 +422,27 @@ def sphere20a_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
             sd[f"{name}.weight"] = _t(leaf["alpha"])
     _dense(sd, "fc5", p["fc5"])
     return sd
+
+
+def senet50_state_dict(variables: Tree, layers: tuple = (3, 4, 6, 3)
+                       ) -> dict[str, torch.Tensor]:
+    """Inverse of ``load_senet50_params`` (params and batch_stats; the
+    pickle's ``fc`` is dropped there)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: dict = {}
+    _conv2d(sd, "conv1", p["conv1"])
+    _batchnorm(sd, "bn1", p["bn1"]["bn"], s["bn1"]["bn"])
+    for li, blocks in enumerate(layers):
+        for bi in range(blocks):
+            ours, theirs = f"layer{li + 1}_{bi}", f"layer{li + 1}.{bi}"
+            pb, sb = p[ours], s[ours]
+            for k in range(1, 6):
+                _conv2d(sd, f"{theirs}.conv{k}", pb[f"conv{k}"])
+            for k in range(1, 4):
+                _batchnorm(sd, f"{theirs}.bn{k}", pb[f"bn{k}"]["bn"],
+                           sb[f"bn{k}"]["bn"])
+            if "down_conv" in pb:
+                _conv2d(sd, f"{theirs}.downsample.0", pb["down_conv"])
+                _batchnorm(sd, f"{theirs}.downsample.1",
+                           pb["down_bn"]["bn"], sb["down_bn"]["bn"])
+    return sd

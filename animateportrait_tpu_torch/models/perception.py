@@ -1,14 +1,16 @@
 """Frozen perception nets of the training losses, NCHW. Port of
 ``animateportrait_tpu/models/perception.py``: MobileFaceNet (the 68-point
-landmark regressor of the geometry loss), Sphere20a (the sphereface
-features of the identity loss), ``face_loss`` and ``crop_head_bbox``.
+landmark regressor of the geometry loss), Sphere20a and SENet50 (the
+features of the identity loss, 112 x 96 and 224 x 224 crops),
+``face_loss`` and ``crop_head_bbox``.
 
 The modules keep the reference's layout (Module2/models/mobilefacenet.py,
-Module2/models/facenet.py:200-282), so their state-dict keys are the
-reference checkpoints'. MobileFaceNet's BatchNorms run on their running
-statistics: build it, then call ``.eval()`` (``init_frozen_random`` and the
-training step do). Both nets stay frozen in training: the losses
-differentiate through them with respect to their input only.
+Module2/models/facenet.py), so their state-dict keys are the reference
+checkpoints'. MobileFaceNet's and SENet50's BatchNorms run on their
+running statistics: build them, then call ``.eval()``
+(``init_frozen_random`` and the training step do). The nets stay frozen in
+training: the losses differentiate through them with respect to their
+input only.
 """
 from __future__ import annotations
 
@@ -144,12 +146,73 @@ class Sphere20a(nn.Module):
         return feats
 
 
+class SEBottleneck(nn.Module):
+    """SENet bottleneck with the reference's inline squeeze-excite
+    (``conv4``/``conv5``, facenet.py:67-117); the stride is conv1's."""
+
+    def __init__(self, cin: int, planes: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        out = planes * 4
+        self.conv1 = nn.Conv2d(cin, planes, 1, stride, bias=False)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
+        self.bn3 = nn.BatchNorm2d(out)
+        self.conv4 = nn.Conv2d(out, out // 16, 1)
+        self.conv5 = nn.Conv2d(out // 16, out, 1)
+        self.downsample = nn.Sequential(
+            nn.Conv2d(cin, out, 1, stride, bias=False),
+            nn.BatchNorm2d(out)) if downsample else None
+
+    def forward(self, x):
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = torch.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        se = torch.relu(self.conv4(out.mean((2, 3), keepdim=True)))
+        se = torch.sigmoid(self.conv5(se))
+        res = x if self.downsample is None else self.downsample(x)
+        return torch.relu(se * out + res)
+
+
+class SENet50(nn.Module):
+    """senet50(include_top=False) (facenet.py:120-195): forward(img (N, 3,
+    224, 224)) -> the 5 feature levels of the SENet FaceLoss, the stem
+    after its ceil-mode max pool and the output of each of the 4 stages."""
+
+    def __init__(self, layers: tuple = (3, 4, 6, 3)):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.bn1 = nn.BatchNorm2d(64)
+        self.maxpool = nn.MaxPool2d(3, 2, 0, ceil_mode=True)
+        cin = 64
+        for i, (planes, blocks) in enumerate(zip((64, 128, 256, 512),
+                                                 layers)):
+            stride = 1 if i == 0 else 2
+            mods = []
+            for b in range(blocks):
+                mods.append(SEBottleneck(
+                    cin, planes, stride if b == 0 else 1,
+                    downsample=b == 0 and (stride != 1 or cin != planes * 4)))
+                cin = planes * 4
+            self.add_module(f"layer{i + 1}", nn.Sequential(*mods))
+
+    def forward(self, x):
+        x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
+        feats = [x]
+        for i in range(1, 5):
+            x = getattr(self, f"layer{i}")(x)
+            feats.append(x)
+        return feats
+
+
 def face_loss(net: nn.Module, img1: torch.Tensor,
               img2: torch.Tensor) -> torch.Tensor:
     """FaceLoss.compute_loss (networks.py:2995-3009): the unweighted sum of
     the mean L1 distances between the 5 feature levels of ``img1`` and of
-    the reference ``img2``, which carries no gradient. Inputs NCHW
-    112 x 96 in [-1, 1]."""
+    the reference ``img2``, which carries no gradient. Inputs NCHW in
+    [-1, 1], 112 x 96 for Sphere20a, 224 x 224 for SENet50."""
     f1 = net(img1)
     with torch.no_grad():
         f2 = net(img2)

@@ -6,16 +6,19 @@ One step: the frozen MODNet matte and FlowUnet flows, the TPS warps of the
 mask and of the static drawing (``forward_shared``, no gradients); two
 trident-generator forwards and the generator's losses against five 70x70
 PatchGAN discriminators, the frozen MobileFaceNet geometry loss and the
-Sphere20a identity loss; the coherence image pool; the discriminators'
-losses on the detached fakes; then both Adam updates, from the same old
-state. Every InstanceNorm runs kernel K2 forward and K2b backward on the
-card (``ops/instnorm.py``).
+Sphere20a (or SENet50) identity loss; the coherence image pool; the
+discriminators' losses on the detached fakes; then both Adam updates, from
+the same old state. Every InstanceNorm runs kernel K2 forward and K2b
+backward on the card (``ops/instnorm.py``).
 
 ``build_train_step(cfg)`` returns a ``Module2TrainStep`` with
-``grads(state, batch, frozen, gen)`` (the JAX ``train_step.grads_fn``) and
-``step(state, batch, frozen, gen)``, which applies the updates in place.
-The JAX package's bf16 ``compute_dtype``, ``remat``, FSDP sharding and
-``visuals_fn`` are not ported.
+``grads(state, batch, frozen, gen)`` (the JAX ``train_step.grads_fn``),
+``step(state, batch, frozen, gen)``, which applies the updates in place,
+and ``visuals(state, batch, frozen)`` (the JAX ``visuals_fn``).
+``cfg.remat`` recomputes each generator forward in the backward
+(``torch.utils.checkpoint``, as ``jax.checkpoint`` in JAX); K2 runs again
+in the recompute and K2b takes the statistics of that run. The JAX
+package's bf16 ``compute_dtype`` and its FSDP sharding are not ported.
 
 Layouts: images (N, C, H, W) in [-1, 1]; landmarks (N, 68, 2) (x, y) in
 crop-size pixels; motion grids (N, H, W, 2) normalized (x, y); face
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from animateportrait_tpu_torch.models.flowunet import (
     FlowUnet, kp_to_map_binary)
@@ -37,7 +41,7 @@ from animateportrait_tpu_torch.models.gan import (
     NLayerDiscriminator, TridentGeneratorFullIFW, gan_loss, init_weights)
 from animateportrait_tpu_torch.models.modnet import MODNet
 from animateportrait_tpu_torch.models.perception import (
-    MobileFaceNet, Sphere20a, crop_head_bbox, face_loss)
+    MobileFaceNet, SENet50, Sphere20a, crop_head_bbox, face_loss)
 from animateportrait_tpu_torch.ops.tps import (
     linear_motion_grid, motion_grid_from_landmarks, sparse_image_warp)
 from animateportrait_tpu_torch.ops.warp import sample_bicubic
@@ -91,6 +95,21 @@ class Module2Config:
     identity_loss: int = 2
     warp_loss: int = 2
     more_weight_for_lip: int = 2
+    # recompute the two generator forwards in the backward instead of
+    # keeping their activations: memory for time, the same gradients
+    remat: bool = False
+    # the FaceLoss net, chosen as the reference does by a 'senet' in the
+    # checkpoint path (geomgm_ifw_fore_model.py:185, networks.py:2862-2876):
+    # SENet50 on 224 x 224 head crops, else Sphere20a on 112 x 96
+    face_recog_model: str = "sphere20a"
+
+    @property
+    def use_senet(self) -> bool:
+        return "senet" in self.face_recog_model
+
+    @property
+    def face_crop_hw(self) -> tuple[int, int]:
+        return (224, 224) if self.use_senet else (112, 96)
 
 
 @dataclasses.dataclass
@@ -100,7 +119,7 @@ class FrozenNets:
 
     modnet: MODNet
     mobilefacenet: MobileFaceNet
-    sphere: Sphere20a
+    sphere: Sphere20a | SENet50    # the FaceLoss net
     flowunet: FlowUnet
 
 
@@ -414,12 +433,14 @@ def make_random_batch(cfg: Module2Config, batch_size: int,
 
 
 def init_frozen_random(gen: torch.Generator,
-                       device: torch.device | str = DEFAULT_DEVICE
-                       ) -> FrozenNets:
-    """Seeded random frozen nets (tests and smoke runs; real use loads
-    converted reference checkpoints), in eval mode and frozen."""
+                       device: torch.device | str = DEFAULT_DEVICE,
+                       face_recog_model: str = "sphere20a") -> FrozenNets:
+    """Seeded random frozen nets (tests and smoke runs; real use loads the
+    reference checkpoints, ``io/reference.py``), in eval mode and frozen;
+    the FaceLoss net is SENet50 when ``face_recog_model`` names a senet."""
     dev = resolve_device(device)
-    nets = [MODNet(), MobileFaceNet(), Sphere20a(), FlowUnet()]
+    face = SENet50() if "senet" in face_recog_model else Sphere20a()
+    nets = [MODNet(), MobileFaceNet(), face, FlowUnet()]
     for net in nets:
         _lecun_init_(net, gen).to(dev).eval().requires_grad_(False)
     return FrozenNets(*nets)
@@ -506,11 +527,18 @@ class Module2TrainStep:
 
     def g_forward(self, g: nn.Module, batch: dict, shared: dict
                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The two generator forwards (each recomputed in the backward under
+        ``cfg.remat``), blended into the static drawing with blendbg."""
         fakes = []
         for suffix in ("", "2"):
-            fake = g(shared["real_A_fore"], batch["A_lm"],
-                     batch[f"tB{suffix}_lm"], shared[f"warp_motion{suffix}"],
-                     shared[f"iw_flow{suffix}"], shared[f"if_mask{suffix}"])
+            args = (shared["real_A_fore"], batch["A_lm"],
+                    batch[f"tB{suffix}_lm"], shared[f"warp_motion{suffix}"],
+                    shared[f"iw_flow{suffix}"], shared[f"if_mask{suffix}"])
+            if self.cfg.remat and torch.is_grad_enabled():
+                fake = torch.utils.checkpoint.checkpoint(
+                    g, *args, use_reentrant=False)
+            else:
+                fake = g(*args)
             if self.cfg.blendbg:
                 m = shared[f"mask{suffix or 1}"]
                 fb = shared["fakeB_static"]
@@ -602,11 +630,10 @@ class Module2TrainStep:
             def rep3(x):
                 return x.repeat(1, 3, 1, 1) if x.shape[1] == 1 else x
 
-            # Sphere20a's 112 x 96 crops (the SENet50 FaceLoss, 224 x 224,
-            # is not ported)
-            f_crop = crop_head_bbox(rep3(fake_B), batch["winB"])
+            f_crop = crop_head_bbox(rep3(fake_B), batch["winB"],
+                                    cfg.face_crop_hw)
             s_crop = crop_head_bbox(rep3(shared["fakeB_static"]),
-                                    batch["winA"])
+                                    batch["winA"], cfg.face_crop_hw)
             losses["iden_B"] = l_iden = face_loss(
                 frozen.sphere, f_crop, s_crop) * cfg.lambda_face
             loss = loss + l_iden
@@ -680,6 +707,28 @@ class Module2TrainStep:
                      pool_count=count,
                      metrics={k: v.detach() for k, v in
                               {**g_losses, **d_losses}.items()})
+
+    @torch.no_grad()
+    def visuals(self, state: TrainState, batch: dict, frozen: FrozenNets
+                ) -> tuple[dict, dict]:
+        """The dashboard snapshot of the current generator (the JAX
+        ``visuals_fn``): the batch's images, the static drawing and both
+        fakes, NCHW; and the MobileFaceNet landmarks of the fakes beside
+        the targets and face windows, for the detected-vs-target overlays
+        (``fake_B_lm_68_vis``/``_vist``, geomgm_ifw_fore_model.py:722-731)."""
+        shared = self.forward_shared(batch, frozen)
+        fake_B, fake_B2 = self.g_forward(state.g, batch, shared)
+        mfn = frozen.mobilefacenet
+        visuals = dict(real_A=batch["real_A"], real_B=batch["real_B"],
+                       A_lm=batch["A_lm"], tB_lm=batch["tB_lm"],
+                       fakeB_static=shared["fakeB_static"], fake_B=fake_B,
+                       fake_B2=fake_B2)
+        aux = dict(fb_lm=extract_landmarks(mfn, fake_B, batch["winB"]),
+                   fb2_lm=extract_landmarks(mfn, fake_B2, batch["winB2"]),
+                   tb_lm=batch["tB_lm_68"][:, :68],
+                   tb2_lm=batch["tB2_lm_68"][:, :68],
+                   winB=batch["winB"], winB2=batch["winB2"])
+        return visuals, aux
 
     def step(self, state: TrainState, batch: dict, frozen: FrozenNets,
              gen: torch.Generator) -> dict[str, torch.Tensor]:

@@ -1,9 +1,20 @@
-"""Host image IO and resize without OpenCV.
+"""Host image IO and resize without OpenCV or PIL.
 
 ``read_image`` stands in for ``cv2.imread`` (the JAX CLI's reader): BGR
 uint8 from 8-bit non-interlaced PNG (gray, RGB, RGBA; the alpha channel is
 dropped, as OpenCV does) and from binary PPM/PGM. Anything else, JPEG
-included, raises an error that names what it reads.
+included, raises an error that names what it reads. ``load_image`` stands
+in for ``PIL.Image.open(path).convert("RGB" | "L")`` (the training data
+layer's reader) on the same formats, ``png_size`` for ``.size``, and
+``write_png`` writes 8-bit gray or RGB PNGs with a chosen row filter.
+
+``resize_bicubic_pil`` is ``PIL.Image.resize(..., Image.BICUBIC)`` byte for
+byte: PIL's a = -0.5 cubic, its support widened by the downscale factor,
+weights normalized per output pixel and rounded to 22-bit fixed point, a
+horizontal pass rounded and clipped to uint8, then a vertical pass done
+the same way. ``draw_dots`` is ``cv2.circle(img, c, r, 255, -1)`` at integer
+centres: OpenCV's midpoint circle fill, as one stamp per radius clipped at
+the borders.
 
 ``resize_bicubic`` reproduces ``cv2.resize(..., interpolation=INTER_CUBIC)``
 on uint8 images, the resize the JAX package's alignment (``align.py``) and
@@ -17,6 +28,7 @@ an upscale (fp32 summation order).
 """
 from __future__ import annotations
 
+import functools
 import struct
 import zlib
 
@@ -33,46 +45,142 @@ def _unsupported(path: str, what: str) -> ValueError:
                       + " and ".join(READS))
 
 
-def _unfilter(raw: bytes, h: int, row_bytes: int, bpp: int) -> np.ndarray:
-    """Undo the five PNG row filters (None, Sub, Up, Average, Paeth)."""
-    if len(raw) != h * (row_bytes + 1):
-        raise ValueError("read_image: PNG image data has the wrong length")
-    rows = np.frombuffer(raw, np.uint8).reshape(h, row_bytes + 1)
-    out = np.zeros((h, row_bytes), np.uint8)
-    prior = np.zeros(row_bytes, np.uint8)
-    for y in range(h):
-        kind, line = rows[y, 0], rows[y, 1:]
-        if kind == 0:
-            cur = line.copy()
-        elif kind == 1:
-            cur = np.cumsum(line.reshape(-1, bpp), axis=0,
-                            dtype=np.uint8).reshape(-1)
-        elif kind == 2:
-            cur = line + prior
-        elif kind in (3, 4):
-            cur = bytearray(line.tobytes())
-            up = prior.tobytes()
-            for i in range(row_bytes):
-                a = cur[i - bpp] if i >= bpp else 0
-                b = up[i]
-                if kind == 3:
-                    pred = (a + b) >> 1
-                else:
-                    c = up[i - bpp] if i >= bpp else 0
-                    p = a + b - c
-                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-                    pred = a if pa <= pb and pa <= pc else (
-                        b if pb <= pc else c)
-                cur[i] = (cur[i] + pred) & 0xFF
-            cur = np.frombuffer(bytes(cur), np.uint8)
+def _unfilter_row(kind: int, line: np.ndarray, prior: np.ndarray,
+                  bpp: int) -> np.ndarray:
+    """One row: None, Sub (a cumulative sum) and Up as array operations;
+    Average and Paeth, whose predictor reads the decoded byte to the left,
+    byte by byte."""
+    if kind == 0:
+        return line.copy()
+    if kind == 1:
+        return np.cumsum(line.reshape(-1, bpp), axis=0,
+                         dtype=np.uint8).reshape(-1)
+    if kind == 2:
+        return line + prior
+    cur = bytearray(line.tobytes())
+    up = prior.tobytes()
+    for i in range(len(cur)):
+        a = cur[i - bpp] if i >= bpp else 0
+        b = up[i]
+        if kind == 3:
+            pred = (a + b) >> 1
         else:
-            raise ValueError(f"read_image: unknown PNG filter {kind}")
-        out[y] = cur
-        prior = out[y]
+            c = up[i - bpp] if i >= bpp else 0
+            pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+        cur[i] = (cur[i] + pred) & 0xFF
+    return np.frombuffer(bytes(cur), np.uint8)
+
+
+@functools.lru_cache(maxsize=1)
+def _pred_table() -> np.ndarray:
+    """Each filter's predictor less c, as a function of da = a - c and
+    db = b - c alone: (5, 511 * 511) int16 indexed by kind, then
+    (da + 255) * 511 + (db + 255). None 0 (its c is not added), Sub da,
+    Up db, Average (da + db) >> 1 (as c + (da + db) >> 1 = (a + b) >> 1),
+    Paeth da, db or 0 by its distances |db|, |da| and |da + db|."""
+    da, db = np.meshgrid(np.arange(-255, 256), np.arange(-255, 256),
+                         indexing="ij")
+    pa, pb, pc = np.abs(db), np.abs(da), np.abs(da + db)
+    paeth = np.where((pa <= pb) & (pa <= pc), da, np.where(pb <= pc, db, 0))
+    return np.stack([np.zeros_like(da), da, db, (da + db) >> 1, paeth]
+                    ).reshape(5, -1).astype(np.int16)
+
+
+def _unfilter_wavefront(kinds: np.ndarray, lines: np.ndarray
+                        ) -> np.ndarray:
+    """Undo the filters of all rows at once: ``lines`` (H, W, C) uint8, the
+    filtered bytes of each pixel's C byte columns, and ``kinds`` (H, C),
+    each row's filter for each column; any mix of the five. The byte of
+    pixel (y, x) depends on pixels (y, x - 1), (y - 1, x) and
+    (y - 1, x - 1) of its column only, so every pixel of an anti-diagonal
+    y + x = d can be decoded together once diagonals d - 1 and d - 2 are: a
+    few array operations per diagonal, H + W - 1 diagonals, the predictor
+    one gather from ``_pred_table``. Columns are independent, so images of
+    one size decode together, stacked along C. The rows are skewed so that
+    each diagonal is a contiguous slice: ``o[d + 2, y + 1]`` is pixel
+    (y, d - y); ``o[x + 1, 0]`` is the zero row above the image and
+    ``o[y + 1, y + 1]`` the zero pixel left of row y."""
+    h, w, cols = lines.shape
+    raw = np.zeros((w + h, h, cols), np.uint8)             # (d, y, column)
+    for y in range(h):
+        raw[y:y + w, y] = lines[y]
+    o = np.zeros((w + h + 1, h + 1, cols), np.int32)
+    table = _pred_table()
+    kinds = kinds.astype(np.int32)
+    mixed = bool((kinds != kinds[0, 0]).any())
+    if mixed:
+        flat = table.reshape(-1)
+        # each row's table offset, and 0 to drop c from a None row
+        off = kinds * table.shape[1] + 255 * 511 + 255
+        keep_c = (kinds != 0).astype(np.int32)
+    else:
+        flat = table[kinds[0, 0]]
+        off = 255 * 511 + 255
+    for d in range(h + w - 1):
+        lo, hi = max(0, d - w + 1), min(h - 1, d) + 1      # rows on it
+        a = o[d + 1, lo + 1:hi + 1]                        # (y, x - 1)
+        b = o[d + 1, lo:hi]                                # (y - 1, x)
+        c = o[d, lo:hi]                                    # (y - 1, x - 1)
+        idx = a - c
+        idx *= 511
+        idx += b
+        idx -= c
+        if mixed:
+            idx += off[lo:hi]
+            t = c * keep_c[lo:hi]
+        else:
+            idx += off
+            t = c.copy() if kinds[0, 0] else np.zeros_like(c)
+        t += raw[d, lo:hi]
+        t += flat.take(idx)
+        t &= 0xFF
+        o[d + 2, lo + 1:hi + 1] = t
+    out = np.empty((h, w, cols), np.uint8)
+    for y in range(h):
+        out[y] = o[y + 2:y + 2 + w, y + 1]
     return out
 
 
-def _read_png(path: str, data: bytes) -> np.ndarray:
+def _unfilter_rows(kinds: np.ndarray, lines: np.ndarray) -> np.ndarray:
+    """The row loop: (H,) filters and (H, W, bpp) filtered bytes ->
+    (H, W, bpp) pixels."""
+    h, w, bpp = lines.shape
+    out = np.zeros((h, w * bpp), np.uint8)
+    prior = np.zeros(w * bpp, np.uint8)
+    for y in range(h):
+        out[y] = _unfilter_row(int(kinds[y]), lines[y].reshape(-1), prior,
+                               bpp)
+        prior = out[y]
+    return out.reshape(h, w, bpp)
+
+
+# The wavefront decodes in H + W - 1 array steps of ~15-40 us whatever the
+# filters; the row loop spends ~0.4 us a byte on each Average or Paeth row
+# and ~0.01 us on the others. Images of one size whose Average and Paeth
+# rows hold more bytes than this many times H + W take the wavefront.
+_WAVEFRONT_BYTES_PER_STEP = 40
+
+
+def _slow_bytes(kinds: np.ndarray, lines: np.ndarray) -> int:
+    return int(np.count_nonzero(kinds >= 3)) * lines[0].size
+
+
+def _split_rows(raw: bytes, h: int, w: int, bpp: int
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """Inflated PNG image data -> (each row's filter (H,), the filtered
+    bytes (H, W, bpp))."""
+    if len(raw) != h * (w * bpp + 1):
+        raise ValueError("read_image: PNG image data has the wrong length")
+    rows = np.frombuffer(raw, np.uint8).reshape(h, w * bpp + 1)
+    kinds = rows[:, 0]
+    if kinds.size and int(kinds.max()) > 4:
+        raise ValueError(f"read_image: unknown PNG filter {int(kinds.max())}")
+    return kinds, rows[:, 1:].reshape(h, w, bpp)
+
+
+def _png_rows(path: str, data: bytes) -> tuple[np.ndarray, np.ndarray]:
+    """A PNG file's rows: (filters (H,), filtered bytes (H, W, channels))."""
     pos, idat, hdr = 8, [], None
     while pos + 8 <= len(data):
         n, tag = struct.unpack(">I4s", data[pos: pos + 8])
@@ -94,10 +202,8 @@ def _read_png(path: str, data: bytes) -> np.ndarray:
     if depth != 8 or ctype not in _PNG_CHANNELS or interlace:
         raise _unsupported(path, f"a PNG of bit depth {depth}, colour type "
                            f"{ctype}, interlace {interlace}")
-    ch = _PNG_CHANNELS[ctype]
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch)
-    px = px.reshape(h, w, ch)
-    return np.repeat(px, 3, 2) if ch == 1 else px[:, :, 2::-1].copy()
+    return _split_rows(zlib.decompress(b"".join(idat)), h, w,
+                       _PNG_CHANNELS[ctype])
 
 
 def _read_pnm(path: str, data: bytes) -> np.ndarray:
@@ -118,21 +224,144 @@ def _read_pnm(path: str, data: bytes) -> np.ndarray:
         raise _unsupported(path, f"a PNM with maxval {maxval}")
     ch = 3 if data[:2] == b"P6" else 1
     px = np.frombuffer(data, np.uint8, count=w * h * ch, offset=pos + 1)
-    px = px.reshape(h, w, ch)
-    return np.repeat(px, 3, 2) if ch == 1 else px[:, :, ::-1].copy()
+    return px.reshape(h, w, ch)
+
+
+def _decode_many(paths: list[str]) -> list[np.ndarray]:
+    """Image files -> their samples, each (H, W, 1) gray, (H, W, 3) RGB or
+    (H, W, 4) RGBA uint8. The PNGs of one size whose Average and Paeth
+    rows make the wavefront the cheaper method decode in one wavefront,
+    their byte columns side by side; the others by the row loop."""
+    out: list = [None] * len(paths)
+    pending: dict[tuple[int, int], list] = {}
+    for i, path in enumerate(paths):
+        with open(path, "rb") as f:
+            data = f.read()
+        if data.startswith(_PNG_SIG):
+            kinds, lines = _png_rows(path, data)
+            if _slow_bytes(kinds, lines):
+                pending.setdefault(lines.shape[:2], []).append(
+                    (i, kinds, lines))
+            else:
+                out[i] = _unfilter_rows(kinds, lines)
+        elif data[:2] in (b"P5", b"P6"):
+            out[i] = _read_pnm(path, data)
+        elif data.startswith(b"\xff\xd8\xff"):
+            raise _unsupported(path, "a JPEG")
+        else:
+            raise _unsupported(path, "in a format it does not know")
+    for (h, w), group in pending.items():
+        slow = sum(_slow_bytes(k, ln) for _, k, ln in group)
+        if slow <= _WAVEFRONT_BYTES_PER_STEP * (h + w):
+            for i, kinds, lines in group:
+                out[i] = _unfilter_rows(kinds, lines)
+            continue
+        px = _unfilter_wavefront(
+            np.concatenate([np.repeat(k[:, None], ln.shape[2], 1)
+                            for _, k, ln in group], 1),
+            np.concatenate([ln for _, _, ln in group], 2))
+        col = 0
+        for i, _, lines in group:
+            out[i] = px[:, :, col:col + lines.shape[2]]
+            col += lines.shape[2]
+    return out
 
 
 def read_image(path: str) -> np.ndarray:
     """An image file -> (H, W, 3) BGR uint8, as ``cv2.imread`` gives it."""
+    px = _decode_many([path])[0]
+    return np.repeat(px, 3, 2) if px.shape[2] == 1 else px[:, :, 2::-1].copy()
+
+
+def _pil_mode(px: np.ndarray, grayscale: bool) -> np.ndarray:
+    if grayscale:
+        if px.shape[2] == 1:
+            return px[:, :, 0].copy()
+        rgb = px[:, :, :3].astype(np.uint32)
+        return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470
+                 + rgb[..., 2] * 7471 + 0x8000) >> 16).astype(np.uint8)
+    return np.repeat(px, 3, 2) if px.shape[2] == 1 else px[:, :, :3].copy()
+
+
+def load_images(paths: list[str], grayscale: list[bool]) -> list[np.ndarray]:
+    """Image files as ``PIL.Image.open(path).convert("L" | "RGB")`` gives
+    them: (H, W) gray or (H, W, 3) RGB uint8 each, decoded together
+    (``_decode_many``). Alpha is dropped; RGB goes to gray by PIL's ITU-R
+    601-2 integer formula (L = (19595 R + 38470 G + 7471 B + 2^15) >> 16)."""
+    return [_pil_mode(px, g) for px, g in zip(_decode_many(paths),
+                                               grayscale)]
+
+
+def load_image(path: str, grayscale: bool = False) -> np.ndarray:
+    """One image file, as ``load_images`` reads it."""
+    return load_images([path], [grayscale])[0]
+
+
+def png_size(path: str) -> tuple[int, int]:
+    """(width, height) of a PNG from its IHDR chunk alone, as
+    ``PIL.Image.open(path).size`` gives it."""
     with open(path, "rb") as f:
-        data = f.read()
-    if data.startswith(_PNG_SIG):
-        return _read_png(path, data)
-    if data[:2] in (b"P5", b"P6"):
-        return _read_pnm(path, data)
-    if data.startswith(b"\xff\xd8\xff"):
-        raise _unsupported(path, "a JPEG")
-    raise _unsupported(path, "in a format it does not know")
+        head = f.read(24)
+    if not head.startswith(_PNG_SIG) or head[12:16] != b"IHDR":
+        if head.startswith(b"\xff\xd8\xff"):
+            raise _unsupported(path, "a JPEG")
+        raise _unsupported(path, "not a PNG")
+    return struct.unpack(">II", head[16:24])
+
+
+def _filter_rows(px: np.ndarray, kind: int, bpp: int) -> np.ndarray:
+    """PNG filter ``kind`` applied to every row of (H, row_bytes) uint8."""
+    x = px.astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]
+    if kind == 0:
+        pred = np.zeros_like(x)
+    elif kind == 1:
+        pred = a
+    elif kind == 2:
+        pred = b
+    elif kind == 3:
+        pred = (a + b) >> 1
+    elif kind == 4:
+        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+        pred = np.where((pa <= pb) & (pa <= pc), a,
+                        np.where(pb <= pc, b, c))
+    else:
+        raise ValueError(f"write_png: PNG filter {kind} is not one of 0-4")
+    return ((x - pred) & 0xFF).astype(np.uint8)
+
+
+def write_png(path: str, img: np.ndarray, png_filter: int = 1,
+              level: int = 6) -> str:
+    """Write (H, W) gray or (H, W, 3) RGB uint8 as an 8-bit PNG whose rows
+    all take filter ``png_filter`` (0 None, 1 Sub, 2 Up, 3 Average,
+    4 Paeth), deflated by zlib at ``level``."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (
+            img.ndim == 3 and img.shape[2] not in (1, 3)):
+        raise ValueError(f"write_png takes (H, W) or (H, W, 3) uint8, got "
+                         f"{img.shape} {img.dtype}")
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[:, :, 0]
+    h, w = img.shape[:2]
+    bpp = 1 if img.ndim == 2 else 3
+    rows = _filter_rows(img.reshape(h, w * bpp), png_filter, bpp)
+    body = np.concatenate([np.full((h, 1), png_filter, np.uint8), rows], 1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data)))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0 if bpp == 1 else 2, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(_PNG_SIG + chunk(b"IHDR", ihdr)
+                + chunk(b"IDAT", zlib.compress(body.tobytes(), level))
+                + chunk(b"IEND", b""))
+    return path
 
 
 def _cubic_taps(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
@@ -168,3 +397,110 @@ def resize_bicubic(img: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
     out = sum(rows[iy[:, k]] * wy[(slice(None), k, None) + trail]
               for k in range(4))
     return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+_PIL_PRECISION_BITS = 22          # 32 - 8 - 2, Resample.c
+
+
+def _pil_cubic(x: np.ndarray) -> np.ndarray:
+    """PIL's bicubic filter, a = -0.5 (Resample.c:bicubic_filter)."""
+    a = -0.5
+    x = np.abs(x)
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+def _pil_taps(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
+    """Per output index: the source indices of its band and their fixed-point
+    weights, (n_out, ksize) each, zero-weighted past the band
+    (Resample.c:precompute_coeffs and normalize_coeffs_8bpc)."""
+    scale = n_in / n_out
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(n_out) + 0.5) * scale
+    # C's (int) truncates toward zero; clamped at 0 right after
+    xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
+    xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64),
+                      n_in) - xmin
+    k = np.arange(ksize)
+    idx = xmin[:, None] + k[None, :]
+    valid = k[None, :] < xmax[:, None]
+    w = np.where(valid, _pil_cubic((idx - center[:, None] + 0.5)
+                                   / filterscale), 0.0)
+    ww = w.sum(1, keepdims=True)
+    w = np.where(ww != 0.0, w / np.where(ww != 0.0, ww, 1.0), w)
+    one = float(1 << _PIL_PRECISION_BITS)
+    fixed = np.trunc(np.where(w < 0, -0.5 + w * one, 0.5 + w * one))
+    return np.minimum(idx, n_in - 1), fixed.astype(np.int64)
+
+
+def _pil_pass(img: np.ndarray, idx: np.ndarray, w: np.ndarray,
+              axis: int) -> np.ndarray:
+    """One 8-bit pass along ``axis``: the banded sums in 32-bit integers,
+    rounded with 2^21, shifted by 22 and clipped to uint8. A band's
+    positive weights sum to under 1.25 * 2^22, so no partial sum of 255 x
+    weight terms reaches 2^31."""
+    src = img.astype(np.int32)
+    w = w.astype(np.int32)
+    shape = [1] * src.ndim
+    shape[axis] = idx.shape[0]
+    acc = np.take(src, idx[:, 0], axis=axis) * w[:, 0].reshape(shape)
+    acc += 1 << (_PIL_PRECISION_BITS - 1)
+    for k in range(1, idx.shape[1]):
+        acc += np.take(src, idx[:, k], axis=axis) * w[:, k].reshape(shape)
+    acc >>= _PIL_PRECISION_BITS
+    return np.clip(acc, 0, 255).astype(np.uint8)
+
+
+def resize_bicubic_pil(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """uint8 (H, W[, C]) -> (out_h, out_w[, C]) as ``PIL.Image.fromarray(img)
+    .resize(size, Image.BICUBIC)`` gives it; ``size`` is (width, height),
+    as PIL takes it. A pass runs only along an axis whose size changes."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise TypeError(f"resize_bicubic_pil takes uint8, got {img.dtype}")
+    out_w, out_h = size
+    if img.shape[1] != out_w:
+        img = _pil_pass(img, *_pil_taps(img.shape[1], out_w), axis=1)
+    if img.shape[0] != out_h:
+        img = _pil_pass(img, *_pil_taps(img.shape[0], out_h), axis=0)
+    return img
+
+
+def _circle_stamp(radius: int) -> tuple[np.ndarray, np.ndarray]:
+    """(dy, dx) offsets of the pixels ``cv2.circle(..., thickness=-1)``
+    fills around an integer centre: OpenCV's midpoint circle
+    (drawing.cpp:Circle), whose every step fills the rows +-dy over
+    +-dx and the rows +-dx over +-dy."""
+    cells = set()
+    err, dx, dy, plus, minus = 0, radius, 0, 1, (radius << 1) - 1
+    while dx >= dy:
+        for ry, rx in ((dy, dx), (dx, dy)):
+            for sy in (-ry, ry):
+                cells.update((sy, x) for x in range(-rx, rx + 1))
+        dy += 1
+        err += plus
+        plus += 2
+        mask = (err <= 0) - 1
+        err -= minus & mask
+        dx += mask
+        minus -= mask & 2
+    off = np.array(sorted(cells), np.int64)
+    return off[:, 0], off[:, 1]
+
+
+def draw_dots(lm: np.ndarray, crop_size: int) -> np.ndarray:
+    """The landmark-dot image of the data layer (``data/umlvd_ifw.py``):
+    a filled circle of radius 3 (5 at 512) at each rounded (x, y) of ``lm``
+    (N, 2), on a zero crop_size^2 image, as (crop_size, crop_size, 1)
+    float32 in [-1, 1]. Pixels outside the image are dropped."""
+    radius = 5 if crop_size == 512 else 3
+    dy, dx = _circle_stamp(radius)
+    c = np.round(np.asarray(lm)).astype(np.int64)
+    ys = (c[:, 1:2] + dy[None]).reshape(-1)
+    xs = (c[:, 0:1] + dx[None]).reshape(-1)
+    keep = (ys >= 0) & (ys < crop_size) & (xs >= 0) & (xs < crop_size)
+    img = np.zeros((crop_size, crop_size), np.uint8)
+    img[ys[keep], xs[keep]] = 255
+    return (img[..., None].astype(np.float32) / 255.0) * 2 - 1

@@ -1,7 +1,8 @@
 """Inputs and weights for smoke runs of the slice (no checkpoints needed):
 the fixed-box stub detector and the synthetic speech WAV that the JAX
-package's ``bench.py:bench_e2e`` uses, seeded random weights, and seeded
-random MTCNN weights biased to detect faces."""
+package's ``bench.py:bench_e2e`` uses, seeded random weights, seeded
+random MTCNN weights biased to detect faces, and a seeded synthetic
+UMLVD-IFW training tree (``write_umlvd_tree``)."""
 from __future__ import annotations
 
 import os
@@ -159,3 +160,110 @@ def build_pipeline(nets: dict[str, nn.Module], device: torch.device | str,
                         nets.get("static_g"), frame_batch=frame_batch,
                         output_uint8=output_uint8, device=device,
                         style=style, cartoon_g=nets.get("photo2cartoon")))
+
+
+def _face_landmarks(rng: np.random.Generator, size: int) -> np.ndarray:
+    """A face-like 68-point set (x, y) in pixels of a size^2 image: the
+    canonical face shape, scaled to about half the image, shifted and
+    jittered. Its points span two dimensions, so never all collinear."""
+    from animateportrait_tpu_torch.utils.assets import std_face_landmarks
+
+    base = std_face_landmarks()[:, :2] - np.array([0.0, 0.45])
+    # the canonical mouth is closed (inner-lip points 61-63 on 67-65, the
+    # inner corners next to the outer ones); open it as in speech, so no
+    # two points coincide
+    base[[55, 56, 57, 58, 59, 65, 66, 67], 1] += rng.uniform(0.08, 0.2)
+    base[[60, 64], 0] *= 0.9
+    scale = size * 0.3 * rng.uniform(0.9, 1.1)
+    centre = size * (np.array([0.5, 0.55]) + rng.uniform(-0.03, 0.03, 2))
+    lm = centre + scale * base + rng.normal(0, size * 0.004, base.shape)
+    return lm.astype(np.float32)
+
+
+def _region_mask(lm: np.ndarray, size: int, idx: slice,
+                 pad: float) -> np.ndarray:
+    """A filled ellipse over the bounding box of ``lm[idx]`` widened by
+    ``pad`` pixels, as 0/255 uint8."""
+    pts = lm[idx]
+    (x0, y0), (x1, y1) = pts.min(0) - pad, pts.max(0) + pad
+    y, x = np.mgrid[0:size, 0:size] + 0.5
+    inside = (((x - (x0 + x1) / 2) / max((x1 - x0) / 2, 1)) ** 2
+              + ((y - (y0 + y1) / 2) / max((y1 - y0) / 2, 1)) ** 2) <= 1
+    return inside.astype(np.uint8) * 255
+
+
+def _portrait(rng: np.random.Generator, lm: np.ndarray, size: int,
+              gray: bool) -> np.ndarray:
+    """A synthetic portrait: colour ramps, a bright face oval around the
+    landmarks, darker eyes and lips, and seeded noise (which keeps the
+    PNG's rows incompressible, as photos are)."""
+    y, x = np.mgrid[0:size, 0:size] / size
+    tint = rng.uniform(0.5, 1.5, 3)
+    img = np.stack([90 + 80 * x * tint[0], 70 + 90 * y * tint[1],
+                    110 + 50 * np.sin(6 * x * y * tint[2])], -1)
+    for idx, gain in ((slice(0, 68), 70.0), (slice(36, 48), -60.0),
+                      (slice(48, 68), -50.0)):
+        img += gain * (_region_mask(lm, size, idx, size * 0.02)[..., None]
+                       / 255.0)
+    img += rng.normal(0, 8, img.shape)
+    img = np.clip(img, 0, 255).astype(np.uint8)
+    return img.mean(2).astype(np.uint8)[..., None].repeat(3, 2) \
+        if gray else img
+
+
+def write_umlvd_tree(root: str, n_photos: int = 3, n_styles: int = 3,
+                     clips: int = 1, frames: int = 3, size: int = 128,
+                     seed: int = 0, png_filter: int = 1) -> str:
+    """A seeded synthetic training tree in the reference's UMLVD-IFW layout
+    under ``root``, written with ``utils/image.py:write_png`` with every
+    row filtered by ``png_filter``: ``n_photos`` RGB photos (``Photo``,
+    their landmark dot images ``Alm/MTCNN``, 68-point txts
+    ``Alm_txt/MTCNN``, nose/eyes/lips masks ``Amask/*`` and static
+    stylizations ``fakeB_static``), ``n_styles`` style images
+    (``Drawing``, ``Blm``, ``Blm_txt``, ``Bmask``), and ``clips`` film
+    clips of ``frames`` frames (``Drawing/scanner_frag_<k>_MTCNN`` with
+    their ``_win.txt`` face windows). Images are size^2; style images are
+    gray-toned RGB; zlib level 1. Returns ``root``."""
+    from animateportrait_tpu_torch.utils.image import draw_dots, write_png
+
+    rng = np.random.default_rng(seed)
+    parts = (("nose", slice(27, 36)), ("eyes", slice(36, 48)),
+             ("lips", slice(48, 68)))
+
+    def put(rel: str, img: np.ndarray) -> None:
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        write_png(path, img, png_filter=png_filter, level=1)
+
+    def put_txt(rel: str, rows) -> None:
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.writelines(" ".join(repr(float(v)) for v in r) + "\n"
+                         for r in rows)
+
+    def group(kind: str, rel: str, gray: bool) -> np.ndarray:
+        lm = _face_landmarks(rng, size)
+        src = "Photo" if kind == "A" else "Drawing"
+        put(f"{src}/{rel}.png", _portrait(rng, lm, size, gray))
+        dots = draw_dots(lm, size)[..., 0]
+        put(f"{kind}lm/MTCNN/{rel}.png", ((dots + 1) * 127.5).astype(
+            np.uint8))
+        put_txt(f"{kind}lm_txt/MTCNN/{rel}.txt", lm)
+        for part, idx in parts:
+            put(f"{kind}mask/{part}/{rel}.png",
+                _region_mask(lm, size, idx, size * 0.01))
+        return lm
+
+    for i in range(n_photos):
+        lm = group("A", f"a{i}", gray=False)
+        put(f"fakeB_static/a{i}.png", _portrait(rng, lm, size, gray=True))
+    for i in range(n_styles):
+        group("B", f"b{i}", gray=True)
+    for k in range(clips):
+        for j in range(frames):
+            rel = f"scanner_frag_{k}_MTCNN/f{j}"
+            lm = group("B", rel, gray=True)
+            (x0, y0), (x1, y1) = lm.min(0), lm.max(0)
+            put_txt(f"Blm_txt/MTCNN/{rel}_win.txt", [[x0, x1, y0, y1]])
+    return root

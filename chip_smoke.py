@@ -50,7 +50,24 @@ Phases, each printing its own lines:
      counters zeroed before timed steps and read after them (steps/s, a
      smoke figure, and the step's peak memory), K2's and K2b's device time
      in a profiled step, and card against host ``grads`` at the JAX tests'
-     small configuration.
+     small configuration;
+  8. the trainer as users run it: ``train_cli.main`` with the readme's
+     drawing command (crop 256, load 286, ngf = ndf = 64, batch 4,
+     ``--num_threads 8`` worker processes, 8 steps) over a seeded synthetic
+     UMLVD-IFW tree of 16 photos and 16 drawings at 512^2 and two 8-frame
+     clips, every PNG row Paeth-filtered (the costliest to decode). Steps/s
+     over steps 3-8 with the data loading, the data-wait share, peak
+     memory, K2's and K2b's launches (counters zeroed just before), and the
+     host decode and resize times per image on this machine's CPU. Then
+     ``--continue_train`` for 2 steps: it must resume at step 8, and the
+     state restored from the step-8 checkpoint must equal the saved one
+     bit for bit; the gallery PNGs, ``loss_log.txt`` and ``metrics.jsonl``
+     must be there. Last, the step's ``grads`` at the bench batch on a
+     batch of the tree with ``remat`` on and off: every leaf within 1e-5
+     of its scale or twice the plain step's own run-to-run spread, and
+     both peak memories.
+Then the loader's forkserver and multiprocessing's resource tracker are
+stopped, and no process the run started may still be running.
 
 Any failure raises, and the script exits non-zero without a result. The
 line before the last is the kernels' JSON record; the last line is
@@ -90,6 +107,19 @@ K2B_F64_RTOL = 1e-5
 K2B_PLAIN_RTOL = 1e-5
 TRAIN_BATCH = 4
 TRAIN_STEPS = 3
+# the readme's drawing training command (readme.md:65)
+README_DRAWING = (
+    "--name training/drawing1 --model geomgm_ifw_fore --netG "
+    "resnet_9blocks_rcatland32_full_ifw --netg_resb_div 3 --netg_resb_disp 3 "
+    "--output_nc 1 --lr 0.00005 --lambda_geom 50 --lambda_geom_lipline 50 "
+    "--more_weight_for_lip 2 --lambda_face 3.0 --lambda_warp_inter 10 "
+    "--blendbg 1 --select_target12_thre 0.0 --niter 70 --niter_decay 0"
+    ).split()
+CLI_STEPS = 8        # phase 8's first run; --continue_train adds 2
+# remat against no remat, of each gradient leaf's largest |g| (of the
+# tree's for a bias an InstanceNorm cancels, whose gradient is rounding
+# noise), with cuDNN's deterministic algorithms
+REMAT_RTOL = 1e-5
 
 
 def say(msg: str) -> None:
@@ -866,6 +896,319 @@ def card_vs_host_grads(dev: torch.device) -> None:
                              f"{pool_err}")
 
 
+def host_image_times(root: str) -> dict:
+    """Host decode and resize times per image on this machine's CPU (best
+    of 3): one 512^2 RGB photo alone (inflate + unfilter), its rows'
+    unfilter alone, an item's 15 images decoded together, and PIL's
+    bicubic resize 512 -> 286 of an RGB and of a gray image."""
+    import glob
+
+    from animateportrait_tpu_torch.data.umlvd_ifw import (
+        DataConfig, UMLVDIFWDataset)
+    from animateportrait_tpu_torch.utils import image
+
+    def best(fn, n=3):
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            out.append(time.perf_counter() - t0)
+        return min(out) * 1e3
+
+    photo = sorted(glob.glob(os.path.join(root, "Photo", "*.png")))[0]
+    with open(photo, "rb") as f:
+        kinds, lines = image._png_rows(photo, f.read())
+    h, w, bpp = lines.shape
+    per_column = np.repeat(kinds[:, None], bpp, 1)
+    rgb = image.load_image(photo)
+    gray = image.load_image(photo, grayscale=True)
+    ds = UMLVDIFWDataset(DataConfig(root=root, output_nc=1))
+    out = {
+        "photo_ms": best(lambda: image.load_image(photo)),
+        "unfilter_ms": best(lambda: image._unfilter_wavefront(per_column,
+                                                             lines)),
+        "resize_rgb_ms": best(lambda: image.resize_bicubic_pil(rgb,
+                                                               (286, 286))),
+        "resize_gray_ms": best(lambda: image.resize_bicubic_pil(gray,
+                                                                (286, 286))),
+        "item_ms": best(lambda: ds.sample(0, np.random.default_rng(0)))}
+    say(f"[8] host CPU per image: a 512^2 RGB all-Paeth photo "
+        f"{out['photo_ms']:.1f} ms to decode, {out['unfilter_ms']:.1f} ms of "
+        f"it the unfilter (filters {sorted(set(kinds.tolist()))}, "
+        f"{h}x{w}x{bpp}); PIL "
+        f"bicubic 512 -> 286 {out['resize_rgb_ms']:.1f} ms RGB, "
+        f"{out['resize_gray_ms']:.1f} ms gray; one training item (15 "
+        f"images) {out['item_ms']:.1f} ms")
+    return out
+
+
+def states_equal(a, b) -> list[str]:
+    """The names of the parts of two TrainStates that differ in any bit."""
+    from animateportrait_tpu_torch.io.checkpoint import train_state_dict
+
+    diff = []
+
+    def walk(x, y, name):
+        if torch.is_tensor(x):
+            if not (torch.is_tensor(y) and x.shape == y.shape
+                    and x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())):
+                diff.append(name)
+        elif isinstance(x, dict):
+            if not isinstance(y, dict) or set(x) != set(y):
+                diff.append(name)
+            else:
+                for k in x:
+                    walk(x[k], y[k], f"{name}.{k}")
+        elif isinstance(x, (list, tuple)):
+            if len(x) != len(y):
+                diff.append(name)
+            for i, (u, v) in enumerate(zip(x, y)):
+                walk(u, v, f"{name}[{i}]")
+        elif x != y:
+            diff.append(name)
+
+    walk(train_state_dict(a), train_state_dict(b), "state")
+    return diff
+
+
+def in_cancelled_biases(net) -> set:
+    """The names of the biases of convs that an InstanceNorm follows: the
+    norm removes any constant, so their gradient is 0 in exact arithmetic
+    and rounding noise in fp32."""
+    from animateportrait_tpu_torch.nn import InstanceNorm2d
+
+    out = set()
+    for name, mod in net.named_modules():
+        kids = list(mod.named_children())
+        for (a, m), (_, nxt) in zip(kids, kids[1:]):
+            if isinstance(m, torch.nn.modules.conv._ConvNd) and isinstance(
+                    nxt, InstanceNorm2d) and m.bias is not None:
+                out.add(f"{name}.{a}.bias".lstrip("."))
+    return out
+
+
+def _leaf_errors(ref: dict, got: dict, cancelled: set) -> dict:
+    """Each leaf's max |got - ref| over its largest |ref|, or over the
+    tree's largest |ref| for a bias an InstanceNorm cancels."""
+    gscale = max(float(v.abs().max()) for v in ref.values())
+    return {k: float((got[k] - v).abs().max())
+            / (gscale if k in cancelled else float(v.abs().max()))
+            for k, v in ref.items()}
+
+
+def remat_check(dev: torch.device, root: str) -> dict:
+    """The step's ``grads`` at the bench configuration (batch 4, stacked D
+    passes) on a batch of the tree, with ``remat`` off and on: each one's
+    peak memory and K2 launches; then, with cuDNN's deterministic
+    algorithms, the plain step twice and the remat step once: every leaf
+    of the remat step within REMAT_RTOL of its scale (the tree's, for the
+    biases an InstanceNorm cancels), or within twice the plain step's own
+    run-to-run spread there (``F.grid_sample``'s backward adds with
+    atomics, so the plain step does not repeat itself to 1e-5 either)."""
+    import dataclasses
+
+    from animateportrait_tpu_torch.data.umlvd_ifw import (
+        DataConfig, UMLVDIFWDataset)
+    from animateportrait_tpu_torch.ops.instnorm import (
+        instance_norm, instance_norm_backward)
+    from animateportrait_tpu_torch.train import module2 as m2
+
+    cfg = m2.Module2Config(batch_d_passes=True)
+    ds = UMLVDIFWDataset(DataConfig(root=root, output_nc=1))
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in ds.batch(
+        list(range(TRAIN_BATCH)), np.random.default_rng(7)).items()}
+    state = m2.init_state(cfg, torch.Generator().manual_seed(0), dev)
+    frozen = m2.init_frozen_random(torch.Generator().manual_seed(1), dev)
+    steps = {r: m2.build_train_step(dataclasses.replace(cfg, remat=r))
+             for r in (False, True)}
+
+    def grads(remat):
+        return steps[remat].grads(state, batch, frozen, torch.Generator(
+            device=dev).manual_seed(3))
+
+    mem = {}
+    for remat in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        instance_norm.launches = instance_norm_backward.launches = 0
+        g = grads(remat)
+        torch.cuda.synchronize()
+        mem[remat] = (torch.cuda.max_memory_allocated(dev),
+                      instance_norm.launches, instance_norm_backward.launches)
+        del g
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain, again, remat = grads(False), grads(False), grads(True)
+    finally:
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = det
+    worst = {}
+    for net in ("g", "d"):
+        ref = getattr(plain, net)
+        cancelled = in_cancelled_biases(getattr(state, net))
+        spread = _leaf_errors(ref, getattr(again, net), cancelled)
+        diff = _leaf_errors(ref, getattr(remat, net), cancelled)
+        k = max(diff, key=diff.get)
+        worst[net] = dict(remat=diff[k], leaf=k, spread_there=spread[k],
+                          spread=max(spread.values()),
+                          over=sorted((round(diff[n], 9), n) for n in diff
+                                      if diff[n] > REMAT_RTOL)[-4:],
+                          failed=[n for n in diff if diff[n] > max(
+                              REMAT_RTOL, 2 * spread[n])])
+    (p0, k0, b0), (p1, k1, b1) = mem[False], mem[True]
+    say(f"[8] remat at the bench batch (batch 4, a batch of the tree): peak "
+        f"{p0 / 2 ** 30:.2f} GiB without, {p1 / 2 ** 30:.2f} GiB with; K2 "
+        f"launches {k0} -> {k1}, K2b {b0} -> {b1}")
+    for net, w in worst.items():
+        say(f"[8] remat vs plain {net.upper()} (cuDNN deterministic), of each "
+            f"leaf's scale: worst {w['remat']:.2e} at {w['leaf']} (plain vs "
+            f"plain there {w['spread_there']:.2e}; worst plain vs plain "
+            f"{w['spread']:.2e}); leaves over {REMAT_RTOL}: {w['over']}")
+    if any(w["failed"] for w in worst.values()) or k1 <= k0:
+        raise AssertionError(f"remat grads differ {worst}, or K2 was not "
+                             f"run again ({k0} -> {k1})")
+    return {"peak_bytes": p0, "peak_bytes_remat": p1, "worst": worst,
+            "k2_launches": (k0, k1)}
+
+
+def phase8(dev: torch.device) -> dict:
+    from animateportrait_tpu_torch import train_cli
+    from animateportrait_tpu_torch.io.checkpoint import CheckpointManager
+    from animateportrait_tpu_torch.ops.instnorm import (
+        instance_norm, instance_norm_backward)
+    from animateportrait_tpu_torch.train import module2 as m2
+    from animateportrait_tpu_torch.utils.image import read_image
+    from animateportrait_tpu_torch.utils.options import to_configs
+    from animateportrait_tpu_torch.utils.smoke import write_umlvd_tree
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = write_umlvd_tree(os.path.join(tmp, "data"), n_photos=16,
+                                n_styles=16, clips=2, frames=8, size=512,
+                                seed=0, png_filter=4)
+        say(f"[8] wrote the synthetic UMLVD-IFW tree (16 photos, 16 "
+            f"drawings, 2 clips x 8 frames, 512^2, Paeth rows) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        host = host_image_times(root)
+        ck = os.path.join(tmp, "ck")
+        argv = ["--dataroot", root, *README_DRAWING, "--crop_size", "256",
+                "--load_size", "286", "--ngf", "64", "--ndf", "64",
+                "--batch_size", str(TRAIN_BATCH), "--num_threads", "8",
+                "--save_latest_freq", "4", "--display_freq", "4",
+                "--update_html_freq", "4", "--print_freq", "1",
+                "--checkpoints_dir", ck, "--frozen_dir",
+                os.path.join(tmp, "frozen"), "--device", "cuda"]
+        cfg, _ = to_configs(train_cli.build_argparser().parse_args(argv))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        instance_norm.launches = instance_norm_backward.launches = 0
+        t0 = time.perf_counter()
+        run = train_cli.main(argv + ["--max_steps", str(CLI_STEPS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"instance_norm": instance_norm.launches,
+                    "instance_norm_backward": instance_norm_backward.launches}
+        peak = torch.cuda.max_memory_allocated(dev)
+        recs = {r.step: r for r in run.records}
+        if sorted(recs) != list(range(1, CLI_STEPS + 1)):
+            raise AssertionError(f"logged steps {sorted(recs)}")
+        timed = [recs[i] for i in range(3, CLI_STEPS + 1)]
+        sps = len(timed) / (recs[CLI_STEPS].t_end - recs[2].t_end)
+        data_share = sum(r.data_s for r in timed) / sum(
+            r.data_s + r.comp_s for r in timed)
+        say(f"[8] train_cli.main, the readme's drawing command at crop 256, "
+            f"ngf = ndf = 64, batch {TRAIN_BATCH}, 8 loader workers: "
+            f"{CLI_STEPS} steps in {wall:.1f} s of wall time (workers' start, "
+            f"init, saves and visuals included); steps 3-{CLI_STEPS}: "
+            f"{sps:.3f} steps/s with the data loading, data-wait share "
+            f"{100 * data_share:.1f}% (whole run {100 * run.data_share:.1f}%)"
+            f"; per step data/compute s: "
+            + ", ".join(f"{r.step}: {r.data_s:.3f}/{r.comp_s:.3f}"
+                        for r in run.records))
+        say(f"[8] peak memory {peak / 2 ** 30:.2f} GiB; kernel launches in "
+            f"the run: {launches}")
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"a kernel of the trainer's path never "
+                                 f"launched: {launches}")
+
+        exp = os.path.join(ck, "training", "drawing1")
+        mgr = CheckpointManager(os.path.join(exp, "checkpoints"))
+        saved = (mgr.all_steps(), sorted(os.listdir(
+            os.path.join(exp, "checkpoints", "latest"))))
+        if saved != ([CLI_STEPS], [f"{CLI_STEPS}.pt"]):
+            raise AssertionError(f"checkpoint steps {saved}")
+        run2 = train_cli.main(argv + ["--max_steps", str(CLI_STEPS + 2),
+                                      "--continue_train"])
+        if run2.resumed_from != CLI_STEPS or run2.state.step != CLI_STEPS + 2:
+            raise AssertionError(f"resumed from {run2.resumed_from}, ended "
+                                 f"at {run2.state.step}")
+        fresh = mgr.restore(CLI_STEPS, m2.init_state(
+            cfg, torch.Generator().manual_seed(5), dev))
+        diff = states_equal(run.state, fresh)
+        if diff:
+            raise AssertionError(f"restored state differs from the saved "
+                                 f"one at {diff[:8]}")
+        with open(os.path.join(exp, "loss_log.txt")) as f:
+            log = f.read()
+        with open(os.path.join(exp, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        images = sorted(os.listdir(os.path.join(exp, "web", "images")))
+        png = read_image(os.path.join(exp, "web", "images", images[0]))
+        if not (f"iters: {CLI_STEPS + 2}," in log and len(rows) == 10
+                and all(np.isfinite(v) for r in rows for v in r.values())
+                and len(images) == 2 * 11
+                and png.shape == (cfg.crop_size, cfg.crop_size, 3)
+                and os.path.exists(os.path.join(exp, "web", "index.html"))
+                and os.path.exists(os.path.join(exp, "train_opt.txt"))):
+            raise AssertionError(f"trainer outputs: {len(rows)} metric rows, "
+                                 f"{len(images)} gallery images {png.shape}")
+        say(f"[8] --continue_train resumed at step {run2.resumed_from} and "
+            f"ended at {run2.state.step}; the state restored from the "
+            f"step-{CLI_STEPS} checkpoint equals the saved one bit for bit; "
+            f"loss_log.txt and metrics.jsonl hold {len(rows)} finite rows, "
+            f"the gallery {len(images)} PNGs ({images[0]} reads back as "
+            f"{png.shape}) and index.html; losses at step "
+            f"{rows[-1]['iters']}: G {rows[-1]['G']:.4f}, D_A "
+            f"{rows[-1]['D_A']:.4f}")
+        del run, run2, fresh
+        torch.cuda.empty_cache()
+        remat = remat_check(dev, root)
+    return {"launches": launches, "steps_per_s": sps, "data_share": data_share,
+            "peak_bytes": peak, "host": host, "remat": remat}
+
+
+def child_processes() -> list[str]:
+    """The processes whose parent is this one, as "pid command"."""
+    out = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:       # it exited while we looked
+            continue
+        # the parent is the second field after the command in parentheses
+        if int(stat.rsplit(")", 1)[1].split()[1]) == os.getpid():
+            out.append(f"{pid} {cmd.strip()[:120]}")
+    return out
+
+
+def stop_processes() -> None:
+    """Stop the trainer's loader servers (its workers stopped with each
+    ``train_cli.main``), then fail if any process this one started is
+    still running."""
+    from animateportrait_tpu_torch.data.umlvd_ifw import stop_worker_servers
+
+    stop_worker_servers()
+    left = child_processes()
+    if left:
+        raise AssertionError(f"processes still running: {left}")
+    say("[done] no process started by this run is still running")
+
+
 def main() -> None:
     phase0()
     dev = torch.device("cuda", 0)
@@ -886,6 +1229,8 @@ def main() -> None:
         rec["instance_norm"]["max_abs_err"], cli_run["k2_path_err"])
     phase6(dev, main_run["landmarks"])
     train = phase7(dev)
+    trainer = phase8(dev)
+    stop_processes()
     say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     sources = {"stft_magnitude": ("animateportrait_tpu_torch/csrc/stft.cu",
                                   K1_REPLACES),
@@ -921,7 +1266,8 @@ def main() -> None:
                 estimated_ms=train["estimated"][key]))
     launches = {
         "cartoon_cli": cli_run["launches"], "drawing_pipeline":
-        main_run["launches"], "train_step": train["launches"]}
+        main_run["launches"], "train_step": train["launches"],
+        "train_cli": trainer["launches"]}
     # "launches": K1's and K2's on the user's entry point (phase 5, the
     # cartoon CLI run), K2b's in the timed training steps (phase 7);
     # "launches_by_path" has every path's

@@ -15,7 +15,7 @@ import jax
 import jax.numpy as jnp
 
 from animateportrait_tpu_torch import cli
-from animateportrait_tpu_torch.io import from_jax
+from animateportrait_tpu_torch.io import from_jax, reference
 from animateportrait_tpu_torch.utils import video
 from animateportrait_tpu_torch.utils.image import read_image
 from animateportrait_tpu_torch.utils.smoke import (
@@ -270,7 +270,7 @@ def test_checkpoint_loading_matches_jax_cli(tmp_path, net):
     torch.save(obj, path)
     jv = jax_load(path, jax_loader, None, net, unwrap=wrap)
     want = to_sd(jv)
-    got = cli._load_or_init(path, make(), net, unwrap=wrap,
+    got = reference.load_or_init(path, make(), net, unwrap=wrap,
                             drop=drop).state_dict()
     assert set(got) == set(want)
     for k, t in want.items():
@@ -279,16 +279,16 @@ def test_checkpoint_loading_matches_jax_cli(tmp_path, net):
         assert not extra
     else:
         with pytest.raises(RuntimeError, match="Unexpected key"):
-            cli._load_or_init(path, make(), net, unwrap=wrap)
+            reference.load_or_init(path, make(), net, unwrap=wrap)
 
 
 def test_missing_checkpoint_takes_seeded_random_init(capsys):
     from animateportrait_tpu_torch.models.photo2cartoon import (
         Photo2CartoonGenerator)
 
-    a = cli._load_or_init("/nonexistent/cartoon.pt",
+    a = reference.load_or_init("/nonexistent/cartoon.pt",
                           Photo2CartoonGenerator(ngf=8), "photo2cartoon")
-    b = cli._load_or_init(None, Photo2CartoonGenerator(ngf=8), "p2c")
+    b = reference.load_or_init(None, Photo2CartoonGenerator(ngf=8), "p2c")
     err = capsys.readouterr().err
     assert "WARNING: no checkpoint for photo2cartoon" in err
     for k, t in a.state_dict().items():

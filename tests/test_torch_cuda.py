@@ -18,7 +18,8 @@ from animateportrait_tpu_torch.ops import instnorm, stft
 from animateportrait_tpu_torch.ops.spectral import stft_magnitude as stft_plain
 from animateportrait_tpu_torch.utils.kernel_bench import (
     K2_SHAPES, K2_STREAM_SHAPE, k2_gradient_errors, k2_input)
-from torch_port_helpers import cuda_device, maxdiff, psnr  # noqa: F401
+from torch_port_helpers import (  # noqa: F401
+    cuda_device, in_cancelled_biases, maxdiff, psnr)
 
 pytestmark = pytest.mark.cuda
 
@@ -420,3 +421,75 @@ def test_small_training_grads_card_match_host(cuda_device):
         over = {k: e for k, e in errs.items() if e > 1e-3}
         assert len(over) <= 2 and all(e <= 5e-2 for e in over.values()), over
     assert c.pool_count == h.pool_count == 2
+
+
+def test_train_cli_one_step_on_the_card(cuda_device, tmp_path):
+    """``train_cli.main`` on ``cuda`` for one step over a small synthetic
+    UMLVD-IFW tree, with two loader worker processes: K2 and K2b launch,
+    the loss log and the step-1 checkpoint are written."""
+    from animateportrait_tpu_torch import train_cli
+    from animateportrait_tpu_torch.utils.smoke import write_umlvd_tree
+
+    root = write_umlvd_tree(str(tmp_path / "data"), size=96, seed=0,
+                            png_filter=4)
+    k2, k2b = (instnorm.instance_norm.launches,
+               instnorm.instance_norm_backward.launches)
+    res = train_cli.main([
+        "--dataroot", root, "--checkpoints_dir", str(tmp_path / "ck"),
+        "--name", "smoke", "--output_nc", "1", "--ngf", "8", "--ndf", "8",
+        "--load_size", "72", "--crop_size", "64", "--batch_size", "2",
+        "--num_threads", "2", "--max_steps", "1", "--print_freq", "1",
+        "--display_freq", "1", "--frozen_dir", str(tmp_path / "none"),
+        "--device", "cuda"])
+    assert res.state.step == 1 and next(res.state.g.parameters()).is_cuda
+    assert instnorm.instance_norm.launches > k2
+    assert instnorm.instance_norm_backward.launches > k2b
+    exp = tmp_path / "ck" / "smoke"
+    assert "iters: 1," in (exp / "loss_log.txt").read_text()
+    assert (exp / "checkpoints" / "1.pt").exists()
+    assert len(list((exp / "web" / "images").iterdir())) == 11
+
+
+def test_remat_grads_match_on_the_card(cuda_device):
+    """``remat`` recomputes the generator forwards (K2 launches again) and
+    gives the gradients of the plain step: with cuDNN's deterministic
+    algorithms, each leaf within 1e-5 of its largest |g| (of the tree's for
+    a bias an InstanceNorm cancels), or within twice the plain step's own
+    run-to-run spread there (``F.grid_sample``'s backward adds with
+    atomics)."""
+    import dataclasses
+
+    from animateportrait_tpu_torch.train import module2 as m2
+
+    cfg = m2.Module2Config(crop_size=64, ngf=8, ndf=8, pool_size=4,
+                           batch_d_passes=True)
+    state = m2.init_state(cfg, torch.Generator().manual_seed(0), cuda_device)
+    frozen = m2.init_frozen_random(torch.Generator().manual_seed(1),
+                                   cuda_device)
+    batch = m2.make_random_batch(cfg, 2, torch.Generator(
+        device=cuda_device).manual_seed(2), cuda_device)
+
+    def grads(remat):
+        k2 = instnorm.instance_norm.launches
+        g = m2.build_train_step(dataclasses.replace(cfg, remat=remat)).grads(
+            state, batch, frozen,
+            torch.Generator(device=cuda_device).manual_seed(3))
+        return g, instnorm.instance_norm.launches - k2
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        (plain, n0), (again, _), (remat, n1) = (grads(False), grads(False),
+                                                grads(True))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    assert n1 > n0
+    for net in ("g", "d"):
+        ref = getattr(plain, net)
+        gscale = max(float(v.abs().max()) for v in ref.values())
+        cancelled = in_cancelled_biases(getattr(state, net))
+        for k, v in ref.items():
+            scale = gscale if k in cancelled else float(v.abs().max())
+            spread = float((getattr(again, net)[k] - v).abs().max())
+            err = float((getattr(remat, net)[k] - v).abs().max())
+            assert err <= max(1e-5 * scale, 2 * spread), (k, err, spread)

@@ -2,9 +2,9 @@
 versions against the JAX package (XLA path and the Pallas kernel in
 interpret mode) and the wrappers' dispatch rules on the CPU; the kernels
 themselves are tested on the card by tests/test_torch_cuda.py. Also checks
-that the port and chip_smoke.py import nothing of JAX or Flax, nor OpenCV,
-PIL or torchvision (the card machine has none of them), and no module of
-the JAX package at all."""
+that the port and chip_smoke.py import nothing of JAX, Flax, Optax or
+Orbax, nor OpenCV, PIL or torchvision (the card machine has none of them),
+and no module of the JAX package at all."""
 import os
 import subprocess
 import sys
@@ -229,8 +229,8 @@ def test_kernel_bounds():
 _NO_JAX = r"""
 import importlib, pkgutil, sys
 # every module of the JAX package is blocked, even one that is numpy only
-BLOCKED = ("jax", "jaxlib", "flax", "cv2", "PIL", "torchvision",
-           "animateportrait_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL",
+           "torchvision", "animateportrait_tpu")
 def blocked(name):
     return name.split(".")[0] in BLOCKED
 class Block:
@@ -247,6 +247,7 @@ assert not any(blocked(k) for k in sys.modules)
 assert not any(k.split(".")[0] == "animateportrait_tpu" for k in sys.modules)
 assert "animateportrait_tpu_torch.utils.assets" in sys.modules
 assert "animateportrait_tpu_torch.cli" in mods
+assert "animateportrait_tpu_torch.train_cli" in mods
 print(len(mods))
 """
 
@@ -255,7 +256,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 26
+    assert int(out.stdout.strip()) >= 47
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -1,7 +1,8 @@
 """Shared helpers for the tests of the PyTorch port (tests/test_torch_*.py):
 layout conversions, differences, PSNR, the fixture that skips the
-card-only tests on a machine without a CUDA device, and the thread count
-of a pytest-xdist worker."""
+card-only tests on a machine without a CUDA device, the thread count of a
+pytest-xdist worker, and the biases whose gradient an InstanceNorm
+cancels."""
 import os
 
 import numpy as np
@@ -42,3 +43,19 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
     return torch.device("cuda", 0)
+
+
+def in_cancelled_biases(net) -> set:
+    """The names of the biases of convs that an InstanceNorm follows: their
+    gradient is 0 in exact arithmetic (the norm removes any constant), and
+    rounding noise in fp32."""
+    from animateportrait_tpu_torch.nn import InstanceNorm2d
+
+    out = set()
+    for name, mod in net.named_modules():
+        kids = list(mod.named_children())
+        for (a, m), (_, nxt) in zip(kids, kids[1:]):
+            if isinstance(m, torch.nn.modules.conv._ConvNd) and isinstance(
+                    nxt, InstanceNorm2d) and m.bias is not None:
+                out.add(f"{name}.{a}.bias".lstrip("."))
+    return out
