@@ -18,8 +18,9 @@ end, but the output is no portrait animation. The MTCNN weights
 (``<ckpt_dir>/mtcnn/{pnet,rnet,onet}.npy``) are required. FAN3D is not
 ported yet, so a FAN checkpoint in ``--ckpt_dir`` is an error: the JAX CLI
 would use it and give other output. Not ported either: ``--video``,
-``--render_dp``, ``--render_bf16`` and ``--warp_mode tps``; argparse
-rejects them.
+``--render_dp`` and ``--warp_mode tps``; argparse rejects them.
+``--render_bf16`` runs the renderer's per-frame nets in bf16
+(``pipeline/render.py``), through K2 in bf16 on the card.
 
 ``--device`` (default ``cuda``) is where every net runs; without a CUDA
 device, ``cuda`` is an error, never a silent fall back to the CPU.
@@ -79,6 +80,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--gender", default="F", choices=["M", "F"])
     p.add_argument("--frame_batch", type=int, default=32,
                    help="frames per renderer batch")
+    p.add_argument("--render_bf16", action="store_true",
+                   help="run the per-frame nets (trident generator + "
+                        "intrinsic-flow Unet) in bfloat16; the "
+                        "once-per-photo nets stay fp32")
     p.add_argument("--warp_mode", default="linear", choices=["linear"],
                    help="per-frame warp grids: the reference's "
                    "griddata-linear semantics (the JAX CLI's 'tps' is not "
@@ -202,7 +207,8 @@ def build_pipeline(args):
         AudioPipeline(autovc, device=device),
         Module2Renderer(generator, flow, modnet, static_g,
                         frame_batch=args.frame_batch, output_uint8=True,
-                        device=device, style=style, cartoon_g=cartoon_g))
+                        device=device, style=style, cartoon_g=cartoon_g,
+                        use_bf16=args.render_bf16))
 
 
 def load_train_embs(ckpt_dir: str) -> dict:

@@ -1,11 +1,11 @@
-// K2: fused InstanceNorm (+ optional ReLU), forward, for Hopper (sm_90a).
-// Its backward is K2b (instnorm_bwd.cu).
+// K2: fused InstanceNorm (+ optional ReLU), forward, for Hopper (sm_90a),
+// on fp32 or bf16 tensors. Its backward is K2b (instnorm_bwd.cu).
 //
 // Replaces the Pallas TPU kernel `_kernel`, launched by `_pallas_forward`
 // (custom-vjp entry `instance_norm_fused`) in
 // animateportrait_tpu/ops/pallas_instnorm.py.
 //
-// Computes, for every (n, c) plane of a contiguous NCHW fp32 tensor,
+// Computes, for every (n, c) plane of a contiguous NCHW tensor,
 //   k = E[x], d = x - k, m = E[d], var = max(E[d^2] - m^2, 0),
 //   y = (d - m) * rsqrt(var + eps)
 // and optionally y = max(y, 0): the one-pass statistics with the clamp that
@@ -17,9 +17,16 @@
 // kernel, too, takes the mean before the variance. The plain version in
 // ops/instnorm.py computes the same steps.
 //
+// Storage type T is float or __nv_bfloat16, one body for both. As the TPU
+// kernel does for any dtype (`x.astype(f32)` ... `y.astype(o_ref.dtype)`),
+// a bf16 element is widened to fp32 on load (__bfloat162float), every
+// statistic and y (and its ReLU) is computed in fp32, and y is rounded to
+// bf16 once, to nearest even (__float2bfloat16_rn), as `.to(torch.bfloat16)`
+// and XLA's convert round. The statistics K2 saves stay fp32.
+//
 // Design: one read and one write of device memory.
 // - A plane, or for a large plane each CTA's 1/k of it, is copied once
-//   into shared memory by 1-D TMA bulk copies
+//   into shared memory, in its storage type, by 1-D TMA bulk copies
 //   (cp.async.bulk ... mbarrier::complete_tx), in 8 KB chunks with one
 //   mbarrier each, so the first sum starts while later chunks arrive.
 // - The mean, then the shifted sums, are taken from shared memory, so the
@@ -28,16 +35,23 @@
 //   cluster through distributed shared memory (every CTA adds the k
 //   partials in rank order, so all get the same statistics).
 // - The output is normalized from shared memory and written with coalesced
-//   float4 stores: device traffic is one read and one write. (Normalizing
-//   in place and writing each chunk back by a bulk store was 2-19% slower
-//   at every main-path shape on the H100; PERF.md.)
+//   stores of 4 elements (16 bytes in fp32, 8 in bf16): device traffic is
+//   one read and one write. (Normalizing in place and writing each chunk
+//   back by a bulk store was 2-19% slower at every main-path shape on the
+//   H100; PERF.md.)
 // - A plane larger than the wrapper's per-CTA budget is split over a
 //   thread block cluster of k = 2, 4 or 8 CTAs (portable sizes), launched
-//   with cudaLaunchKernelEx; the wrapper picks k. That also fills the SMs: (1, 64, 512, 512) runs
-//   512 CTAs of 128 KB. The budget sets how many CTAs share an SM (about
-//   227 KB / budget), so that one CTA's loads overlap another's stores.
-// - A plane or slice that is not 16-byte aligned (or hw % 4 != 0) is
-//   staged with scalar loads and written with scalar stores.
+//   with cudaLaunchKernelEx; the wrapper picks k. That also fills the SMs:
+//   (1, 64, 512, 512) fp32 runs 512 CTAs of 128 KB. The budget sets how
+//   many CTAs share an SM (about 227 KB / budget), so that one CTA's loads
+//   overlap another's stores. A bf16 plane takes half the shared memory,
+//   so fewer CTAs.
+// - A bulk copy moves 16-byte-aligned runs of a multiple of 16 bytes, so a
+//   slice is a multiple of 16 bytes (4 fp32 or 8 bf16 elements). A plane
+//   or slice that is not 16-byte aligned (hw not a multiple of 4 in fp32,
+//   of 8 in bf16, or a tensor that starts off 16 bytes) is staged with
+//   scalar loads and written with scalar stores: the discriminators' 31 x 31
+//   planes take that path.
 // - A plane that one CTA holds skips the cluster barriers and reductions.
 // - A plane over 8 CTAs' shared memory (~1.8 MB, on no path of the port)
 //   takes the streaming branch of the same entry point: one block per plane
@@ -51,21 +65,62 @@
 //
 // What bounds it on this card: memory. Each element is read once and
 // written once and costs a handful of flops, so the bound is
-// 8 bytes per element over 3.35 TB/s.
+// 2 * sizeof(T) bytes per element (8 in fp32, 4 in bf16) over 3.35 TB/s.
 #include <cstdint>
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kChunk = 2048;                  // floats per bulk copy (8 KB)
+using bf16 = __nv_bfloat16;
+
+constexpr int kChunkBytes = 8192;             // bytes per bulk copy
 constexpr int kMaxChunks = 32;
 constexpr int kMaxClusterSize = 8;            // portable cluster size
 // dynamic shared memory a CTA may take (227 KB less the static arrays)
 constexpr int kMaxSliceBytes = 232448 - 1024;
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 narrow<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Elements 4i .. 4i+3 of p, widened: one 16-byte load in fp32, one 8-byte
+// load in bf16 (p + 4i must be aligned to that).
+__device__ __forceinline__ float4 load4(const float* p, int i) {
+  return reinterpret_cast<const float4*>(p)[i];
+}
+__device__ __forceinline__ float4 load4(const bf16* p, int i) {
+  const uint2 u = reinterpret_cast<const uint2*>(p)[i];
+  const bf16* h = reinterpret_cast<const bf16*>(&u);
+  return make_float4(__bfloat162float(h[0]), __bfloat162float(h[1]),
+                     __bfloat162float(h[2]), __bfloat162float(h[3]));
+}
+
+// Store v as elements 4i .. 4i+3 of p, each rounded once to p's type.
+__device__ __forceinline__ void store4(float* p, int i, float4 v) {
+  reinterpret_cast<float4*>(p)[i] = v;
+}
+__device__ __forceinline__ void store4(bf16* p, int i, float4 v) {
+  uint2 u;
+  bf16* h = reinterpret_cast<bf16*>(&u);
+  h[0] = __float2bfloat16_rn(v.x);
+  h[1] = __float2bfloat16_rn(v.y);
+  h[2] = __float2bfloat16_rn(v.z);
+  h[3] = __float2bfloat16_rn(v.w);
+  reinterpret_cast<uint2*>(p)[i] = u;
+}
 
 __device__ __forceinline__ void block_sum2(float& a, float& b) {
   __shared__ float part_a[32];
@@ -116,6 +171,14 @@ __device__ __forceinline__ float norm1(float v, float k, float mean,
   return relu ? fmaxf(y, 0.f) : y;
 }
 
+__device__ __forceinline__ float4 norm4(float4 v, float k, float mean,
+                                        float inv, bool relu) {
+  return make_float4(norm1(v.x, k, mean, inv, relu),
+                     norm1(v.y, k, mean, inv, relu),
+                     norm1(v.z, k, mean, inv, relu),
+                     norm1(v.w, k, mean, inv, relu));
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -133,15 +196,19 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 
 // ---------------------------------------------------------------------------
 // Shared-memory kernel: cluster rank r of a plane holds elements
-// [r * slice, min((r + 1) * slice, hw)) of it in dynamic shared memory.
-// kCluster is false for a plane that one CTA holds: it then needs no
+// [r * slice, min((r + 1) * slice, hw)) of it in dynamic shared memory, in
+// its storage type T. kBulk: TMA bulk copies and 4-element stores (hw a
+// multiple of 16 bytes, 16-byte-aligned tensors); else scalar loads and
+// stores. kCluster is false for a plane that one CTA holds: it then needs no
 // cluster barrier.
-template <bool kBulk, bool kCluster>
+template <typename T, bool kBulk, bool kCluster>
 __global__ void __launch_bounds__(512)
-instance_norm_smem_kernel(const float* __restrict__ x, float* __restrict__ y,
+instance_norm_smem_kernel(const T* __restrict__ x, T* __restrict__ y,
                           float* __restrict__ stats, int hw, int slice,
                           float eps, int relu) {
-  extern __shared__ __align__(128) float buf[];
+  constexpr int kChunk = kChunkBytes / static_cast<int>(sizeof(T));
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* buf = reinterpret_cast<T*>(smem);
   __shared__ __align__(8) uint64_t bars[kMaxChunks];
   __shared__ float part[3];                   // this CTA's s0, s1, s2
 
@@ -152,8 +219,8 @@ instance_norm_smem_kernel(const float* __restrict__ x, float* __restrict__ y,
   const int begin = rank * slice;
   const int count = max(0, min(slice, hw - begin));
   const size_t offset = plane * static_cast<size_t>(hw) + begin;
-  const float* xp = x + offset;
-  float* yp = y + offset;
+  const T* xp = x + offset;
+  T* yp = y + offset;
   const int n_chunks = (count + kChunk - 1) / kChunk;
   const float cnt = static_cast<float>(hw);
   const int tid = threadIdx.x;
@@ -170,8 +237,8 @@ instance_norm_smem_kernel(const float* __restrict__ x, float* __restrict__ y,
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       for (int c = 0; c < n_chunks; ++c) {
         const int c0 = c * kChunk;
-        const uint32_t bytes = 4u * static_cast<uint32_t>(
-            min(kChunk, count - c0));
+        const uint32_t bytes = static_cast<uint32_t>(sizeof(T)) *
+                               static_cast<uint32_t>(min(kChunk, count - c0));
         const uint32_t bar = smem_addr(&bars[c]);
         asm volatile(
             "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
@@ -197,13 +264,12 @@ instance_norm_smem_kernel(const float* __restrict__ x, float* __restrict__ y,
     const int c1 = min(count, c0 + kChunk);
     if (kBulk) {
       mbar_wait(smem_addr(&bars[c]), 0);
-      const float4* b4 = reinterpret_cast<const float4*>(buf);
       for (int i = c0 / 4 + tid; i < c1 / 4; i += blockDim.x) {
-        const float4 v = b4[i];
+        const float4 v = load4(buf, i);
         s0 += (v.x + v.y) + (v.z + v.w);
       }
     } else {
-      for (int i = c0 + tid; i < c1; i += blockDim.x) s0 += buf[i];
+      for (int i = c0 + tid; i < c1; i += blockDim.x) s0 += widen(buf[i]);
     }
   }
   float total = block_sum(s0);
@@ -221,9 +287,8 @@ instance_norm_smem_kernel(const float* __restrict__ x, float* __restrict__ y,
   float s1 = 0.f;
   float s2 = 0.f;
   if (kBulk) {
-    const float4* b4 = reinterpret_cast<const float4*>(buf);
     for (int i = tid; i < count / 4; i += blockDim.x) {
-      const float4 v = b4[i];
+      const float4 v = load4(buf, i);
       const float a = v.x - kmean, b = v.y - kmean, c = v.z - kmean,
                   d = v.w - kmean;
       s1 += (a + b) + (c + d);
@@ -231,7 +296,7 @@ instance_norm_smem_kernel(const float* __restrict__ x, float* __restrict__ y,
     }
   } else {
     for (int i = tid; i < count; i += blockDim.x) {
-      const float d = buf[i] - kmean;
+      const float d = widen(buf[i]) - kmean;
       s1 += d;
       s2 += d * d;
     }
@@ -264,22 +329,15 @@ instance_norm_smem_kernel(const float* __restrict__ x, float* __restrict__ y,
     stats[3 * plane + 2] = inv;
   }
 
-  // 3. normalize from shared memory, coalesced float4 stores to y (a bulk
-  // store of each normalized chunk was 2-19% slower at every shape)
+  // 3. normalize from shared memory, coalesced 4-element stores to y (a
+  // bulk store of each normalized chunk was 2-19% slower at every shape)
   if (kBulk) {
-    const float4* b4 = reinterpret_cast<const float4*>(buf);
-    float4* y4 = reinterpret_cast<float4*>(yp);
     for (int i = tid; i < count / 4; i += blockDim.x) {
-      float4 v = b4[i];
-      v.x = norm1(v.x, kmean, mean, inv, r);
-      v.y = norm1(v.y, kmean, mean, inv, r);
-      v.z = norm1(v.z, kmean, mean, inv, r);
-      v.w = norm1(v.w, kmean, mean, inv, r);
-      y4[i] = v;
+      store4(yp, i, norm4(load4(buf, i), kmean, mean, inv, r));
     }
   } else {
     for (int i = tid; i < count; i += blockDim.x) {
-      yp[i] = norm1(buf[i], kmean, mean, inv, r);
+      yp[i] = narrow<T>(norm1(widen(buf[i]), kmean, mean, inv, r));
     }
   }
   if (kCluster) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
@@ -287,28 +345,27 @@ instance_norm_smem_kernel(const float* __restrict__ x, float* __restrict__ y,
 
 // ---------------------------------------------------------------------------
 // Streaming branch, for planes over 8 CTAs' shared memory: one block per
-// plane, three sweeps over device memory, float4 loads where aligned.
-template <bool kVec>
-__global__ void instance_norm_stream_kernel(const float* __restrict__ x,
-                                            float* __restrict__ y,
+// plane, three sweeps over device memory, 4-element loads where aligned.
+template <typename T, bool kVec>
+__global__ void instance_norm_stream_kernel(const T* __restrict__ x,
+                                            T* __restrict__ y,
                                             float* __restrict__ stats, int hw,
                                             float eps, int relu) {
   const size_t offset = static_cast<size_t>(blockIdx.x) * hw;
-  const float* xp = x + offset;
-  float* yp = y + offset;
-  const float4* x4 = reinterpret_cast<const float4*>(xp);
+  const T* xp = x + offset;
+  T* yp = y + offset;
   const int n4 = hw >> 2;
   const float cnt = static_cast<float>(hw);
 
   float s0 = 0.f;
   if (kVec) {
     for (int i = threadIdx.x; i < n4; i += blockDim.x) {
-      const float4 v = x4[i];
+      const float4 v = load4(xp, i);
       s0 += (v.x + v.y) + (v.z + v.w);
     }
   } else {
     for (int i = threadIdx.x; i < hw; i += blockDim.x) {
-      s0 += xp[i];
+      s0 += widen(xp[i]);
     }
   }
   const float k = block_sum(s0) / cnt;
@@ -317,14 +374,14 @@ __global__ void instance_norm_stream_kernel(const float* __restrict__ x,
   float s2 = 0.f;
   if (kVec) {
     for (int i = threadIdx.x; i < n4; i += blockDim.x) {
-      const float4 v = x4[i];
+      const float4 v = load4(xp, i);
       const float a = v.x - k, b = v.y - k, c = v.z - k, d = v.w - k;
       s1 += (a + b) + (c + d);
       s2 += (a * a + b * b) + (c * c + d * d);
     }
   } else {
     for (int i = threadIdx.x; i < hw; i += blockDim.x) {
-      const float d = xp[i] - k;
+      const float d = widen(xp[i]) - k;
       s1 += d;
       s2 += d * d;
     }
@@ -341,33 +398,26 @@ __global__ void instance_norm_stream_kernel(const float* __restrict__ x,
   }
 
   if (kVec) {
-    float4* y4 = reinterpret_cast<float4*>(yp);
     for (int i = threadIdx.x; i < n4; i += blockDim.x) {
-      const float4 v = x4[i];
-      float4 o;
-      o.x = norm1(v.x, k, mean, inv, r);
-      o.y = norm1(v.y, k, mean, inv, r);
-      o.z = norm1(v.z, k, mean, inv, r);
-      o.w = norm1(v.w, k, mean, inv, r);
-      y4[i] = o;
+      store4(yp, i, norm4(load4(xp, i), k, mean, inv, r));
     }
   } else {
     for (int i = threadIdx.x; i < hw; i += blockDim.x) {
-      yp[i] = norm1(xp[i], k, mean, inv, r);
+      yp[i] = narrow<T>(norm1(widen(xp[i]), k, mean, inv, r));
     }
   }
 }
 
-template <bool kBulk, bool kCluster>
-cudaError_t launch_smem(const float* x, float* y, float* stats, int planes,
-                        int hw, int cluster, int slice, float eps, int relu,
+template <typename T, bool kBulk, bool kCluster>
+cudaError_t launch_smem(const T* x, T* y, float* stats, int planes, int hw,
+                        int cluster, int slice, float eps, int relu,
                         cudaStream_t stream) {
   // raise the kernel's dynamic shared memory limit once per size
   static int limit = 48 * 1024;
-  const int bytes = 4 * slice;
+  const int bytes = static_cast<int>(sizeof(T)) * slice;
   if (bytes > limit) {
     const cudaError_t e = cudaFuncSetAttribute(
-        instance_norm_smem_kernel<kBulk, kCluster>,
+        instance_norm_smem_kernel<T, kBulk, kCluster>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
     limit = bytes;
@@ -387,19 +437,62 @@ cudaError_t launch_smem(const float* x, float* y, float* stats, int planes,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = kCluster ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, instance_norm_smem_kernel<kBulk, kCluster>,
-                            x, y, stats, hw, slice, eps, relu);
+  return cudaLaunchKernelEx(&cfg,
+                            instance_norm_smem_kernel<T, kBulk, kCluster>, x,
+                            y, stats, hw, slice, eps, relu);
 }
 
-template <bool kBulk>
-cudaError_t launch_smem(const float* x, float* y, float* stats, int planes,
-                        int hw, int cluster, int slice, float eps, int relu,
+template <typename T, bool kBulk>
+cudaError_t launch_smem(const T* x, T* y, float* stats, int planes, int hw,
+                        int cluster, int slice, float eps, int relu,
                         cudaStream_t stream) {
   return cluster > 1
-             ? launch_smem<kBulk, true>(x, y, stats, planes, hw, cluster,
-                                        slice, eps, relu, stream)
-             : launch_smem<kBulk, false>(x, y, stats, planes, hw, cluster,
-                                         slice, eps, relu, stream);
+             ? launch_smem<T, kBulk, true>(x, y, stats, planes, hw, cluster,
+                                           slice, eps, relu, stream)
+             : launch_smem<T, kBulk, false>(x, y, stats, planes, hw, cluster,
+                                            slice, eps, relu, stream);
+}
+
+template <typename T>
+int run(const T* x, T* y, float* stats, int planes, int hw, float eps,
+        int relu, int cluster, cudaStream_t stream) {
+  // elements in 16 bytes: a bulk copy's alignment and size granule
+  constexpr int kAlign = 16 / static_cast<int>(sizeof(T));
+  const uintptr_t x_addr = reinterpret_cast<uintptr_t>(x);
+  const uintptr_t y_addr = reinterpret_cast<uintptr_t>(y);
+  if (cluster == 0) {
+    const int threads = 512;
+    const bool vec = (hw % 4 == 0) && (x_addr % (4 * sizeof(T)) == 0) &&
+                     (y_addr % (4 * sizeof(T)) == 0);
+    if (vec) {
+      instance_norm_stream_kernel<T, true><<<planes, threads, 0, stream>>>(
+          x, y, stats, hw, eps, relu);
+    } else {
+      instance_norm_stream_kernel<T, false><<<planes, threads, 0, stream>>>(
+          x, y, stats, hw, eps, relu);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (cluster < 1 || cluster > kMaxClusterSize ||
+      (cluster & (cluster - 1)) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // each slice a multiple of 16 bytes, so that every slice is 16-byte
+  // aligned (ops/instnorm.py:slice_elems)
+  const int slice = ((hw + cluster - 1) / cluster + kAlign - 1) / kAlign *
+                    kAlign;
+  if (static_cast<int>(sizeof(T)) * slice > kMaxSliceBytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool bulk = (hw % kAlign == 0) && (x_addr % 16 == 0) &&
+                    (y_addr % 16 == 0);
+  const cudaError_t err =
+      bulk ? launch_smem<T, true>(x, y, stats, planes, hw, cluster, slice,
+                                  eps, relu, stream)
+           : launch_smem<T, false>(x, y, stats, planes, hw, cluster, slice,
+                                   eps, relu, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -412,35 +505,12 @@ cudaError_t launch_smem(const float* x, float* y, float* stats, int planes,
 extern "C" int ap_instance_norm(const float* x, float* y, float* stats,
                                 int planes, int hw, float eps, int relu,
                                 int cluster, cudaStream_t stream) {
-  const bool aligned = (hw % 4 == 0) &&
-                       (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
-                       (reinterpret_cast<uintptr_t>(y) % 16 == 0);
-  if (cluster == 0) {
-    const int threads = 512;
-    if (aligned) {
-      instance_norm_stream_kernel<true><<<planes, threads, 0, stream>>>(
-          x, y, stats, hw, eps, relu);
-    } else {
-      instance_norm_stream_kernel<false><<<planes, threads, 0, stream>>>(
-          x, y, stats, hw, eps, relu);
-    }
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (cluster < 1 || cluster > kMaxClusterSize ||
-      (cluster & (cluster - 1)) != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  // each slice a multiple of 4 elements, so that every slice is 16-byte
-  // aligned (ops/instnorm.py:slice_elems)
-  const int slice = ((hw + cluster - 1) / cluster + 3) / 4 * 4;
-  if (4 * slice > kMaxSliceBytes) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaError_t err =
-      aligned ? launch_smem<true>(x, y, stats, planes, hw, cluster, slice,
-                                  eps, relu, stream)
-              : launch_smem<false>(x, y, stats, planes, hw, cluster, slice,
-                                   eps, relu, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return run<float>(x, y, stats, planes, hw, eps, relu, cluster, stream);
+}
+
+// The same on bf16 x and y (statistics and stats fp32).
+extern "C" int ap_instance_norm_bf16(const bf16* x, bf16* y, float* stats,
+                                     int planes, int hw, float eps, int relu,
+                                     int cluster, cudaStream_t stream) {
+  return run<bf16>(x, y, stats, planes, hw, eps, relu, cluster, stream);
 }

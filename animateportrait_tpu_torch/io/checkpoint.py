@@ -4,7 +4,8 @@
 
 A save is one ``torch.save`` of the whole train state (``train_state_dict``:
 the generator's and discriminators' state dicts, both Adam ``state_dict``s,
-the coherence pool and its count, the step), written under a temporary
+the coherence pool and its count, the step, and the compute dtype: a bf16
+run's masters and Adam state are fp32 all the same), written under a temporary
 name and renamed into place, so a crash leaves the previous checkpoint
 whole. The format is the port's own; the JAX package's Orbax trees do not
 load here.
@@ -62,12 +63,18 @@ def train_state_dict(state) -> dict:
     return {"step": int(state.step), "g": state.g.state_dict(),
             "d": state.d.state_dict(), "g_opt": state.g_opt.state_dict(),
             "d_opt": state.d_opt.state_dict(), "pool": state.pool,
-            "pool_count": int(state.pool_count)}
+            "pool_count": int(state.pool_count),
+            "compute_dtype": state.compute_dtype}
 
 
 def load_train_state(state, obj: dict):
     """Load ``train_state_dict``'s dict into ``state``, in place, on the
-    state's devices; returns ``state``."""
+    state's devices; returns ``state``. A checkpoint of another compute
+    dtype than the state's raises: its run would not go on as it was."""
+    saved = obj.get("compute_dtype", "float32")
+    if saved != state.compute_dtype:
+        raise ValueError(f"checkpoint of a {saved} run, restored into a "
+                         f"{state.compute_dtype} state")
     state.g.load_state_dict(obj["g"])
     state.d.load_state_dict(obj["d"])
     state.g_opt.load_state_dict(obj["g_opt"])

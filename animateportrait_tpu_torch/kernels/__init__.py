@@ -96,10 +96,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ap_stft_magnitude.argtypes = [p, i, p, i, p]
     lib.ap_stft_magnitude.restype = i
-    lib.ap_instance_norm.argtypes = [p, p, p, i, i, f, i, i, p]
-    lib.ap_instance_norm.restype = i
-    lib.ap_instance_norm_bwd.argtypes = [p, p, p, p, i, i, i, i, p]
-    lib.ap_instance_norm_bwd.restype = i
+    for name in ("ap_instance_norm", "ap_instance_norm_bf16"):
+        getattr(lib, name).argtypes = [p, p, p, i, i, f, i, i, p]
+        getattr(lib, name).restype = i
+    for name in ("ap_instance_norm_bwd", "ap_instance_norm_bwd_bf16"):
+        getattr(lib, name).argtypes = [p, p, p, p, i, i, i, i, p]
+        getattr(lib, name).restype = i
     return lib
 
 

@@ -11,6 +11,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from animateportrait_tpu_torch.nn import BatchNorm2d
+
 
 class FlowUnetSkipConnectionBlock(nn.Module):
     def __init__(self, outer_nc: int, inner_nc: int,
@@ -21,7 +23,7 @@ class FlowUnetSkipConnectionBlock(nn.Module):
         downconv = nn.Conv2d(outer_nc, inner_nc, 4, 2, 1, bias=False)
         if outermost:
             upconv = nn.ConvTranspose2d(inner_nc * 2, outer_nc, 4, 2, 1)
-            down = [downconv, nn.BatchNorm2d(inner_nc)]
+            down = [downconv, BatchNorm2d(inner_nc)]
         elif innermost:
             upconv = nn.ConvTranspose2d(inner_nc, outer_nc, 4, 2, 1,
                                         bias=False)
@@ -29,9 +31,9 @@ class FlowUnetSkipConnectionBlock(nn.Module):
         else:
             upconv = nn.ConvTranspose2d(inner_nc * 2, outer_nc, 4, 2, 1,
                                         bias=False)
-            down = [nn.LeakyReLU(0.2), downconv, nn.BatchNorm2d(inner_nc)]
+            down = [nn.LeakyReLU(0.2), downconv, BatchNorm2d(inner_nc)]
         self.down = nn.Sequential(*down)
-        self.up = nn.Sequential(nn.ReLU(), upconv, nn.BatchNorm2d(outer_nc))
+        self.up = nn.Sequential(nn.ReLU(), upconv, BatchNorm2d(outer_nc))
         self.submodule = submodule
         self.predict_flow = nn.Sequential(nn.LeakyReLU(0.1),
                                           nn.Conv2d(outer_nc, 2, 3, 1, 1))
@@ -56,9 +58,9 @@ class FlowUnet(nn.Module):
         super().__init__()
         self.conv_downsample = nn.Sequential(
             nn.Conv2d(input_nc, nf, 7, padding=3, bias=False),
-            nn.BatchNorm2d(nf), nn.LeakyReLU(0.1),
+            BatchNorm2d(nf), nn.LeakyReLU(0.1),
             nn.Conv2d(nf, nf * 2, 3, 2, 1, bias=False),
-            nn.BatchNorm2d(nf * 2), nn.LeakyReLU(0.1))
+            BatchNorm2d(nf * 2), nn.LeakyReLU(0.1))
         nc = nf * 2
         block = None
         for level in reversed(range(num_scale)):

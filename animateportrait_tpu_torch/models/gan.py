@@ -21,7 +21,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from animateportrait_tpu_torch.nn import InstanceNorm2d, conv_in_relu
-from animateportrait_tpu_torch.ops.warp import warp_acc_flow
+from animateportrait_tpu_torch.ops.warp import (
+    grid_sample_features, warp_acc_flow)
 
 
 def _stem(cin: int, cout: int) -> nn.Sequential:
@@ -107,7 +108,9 @@ def double_feature_warping(x: torch.Tensor, motion: torch.Tensor,
     level > 0 the three are resized to x's size with align_corners=True
     (the flow also divided by 2**level). The motion warp samples with
     align_corners=False; the flow warp has the ``warp_acc_flow`` quirk and
-    is -1 where ifmask <= 0.5.
+    is -1 where ifmask <= 0.5. The grids and every index computation stay
+    in motion's and flow's dtype (fp32) when x is bf16; only the samples
+    are bf16 (``grid_sample_features``).
     """
     if level > 0:
         size = x.shape[2:]
@@ -118,7 +121,7 @@ def double_feature_warping(x: torch.Tensor, motion: torch.Tensor,
                              align_corners=True)
         ifmask = F.interpolate(ifmask, size=size, mode="bilinear",
                                align_corners=True)
-    x1 = F.grid_sample(x, motion, align_corners=False)
+    x1 = grid_sample_features(x, motion, align_corners=False)
     x2 = warp_acc_flow(x, flow, mask=ifmask)
     return torch.cat([x1, x2], dim=1)
 

@@ -14,7 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from animateportrait_tpu_torch.nn import InstanceNorm2d
+from animateportrait_tpu_torch.nn import BatchNorm2d, InstanceNorm2d
 
 ENC_CHANNELS = (16, 24, 32, 96, 1280)
 HR_CHANNELS = 32
@@ -25,7 +25,7 @@ _MOBILENET_SETTING = ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2),
 
 def _conv_bn(cin, cout, k, stride, pad):
     return nn.Sequential(nn.Conv2d(cin, cout, k, stride, pad, bias=False),
-                         nn.BatchNorm2d(cout), nn.ReLU6())
+                         BatchNorm2d(cout), nn.ReLU6())
 
 
 class InvertedResidual(nn.Module):
@@ -36,12 +36,12 @@ class InvertedResidual(nn.Module):
         layers = []
         if expansion != 1:
             layers += [nn.Conv2d(inp, hidden, 1, 1, 0, bias=False),
-                       nn.BatchNorm2d(hidden), nn.ReLU6()]
+                       BatchNorm2d(hidden), nn.ReLU6()]
         layers += [nn.Conv2d(hidden, hidden, 3, stride, 1, groups=hidden,
                              bias=False),
-                   nn.BatchNorm2d(hidden), nn.ReLU6(),
+                   BatchNorm2d(hidden), nn.ReLU6(),
                    nn.Conv2d(hidden, oup, 1, 1, 0, bias=False),
-                   nn.BatchNorm2d(oup)]
+                   BatchNorm2d(oup)]
         self.conv = nn.Sequential(*layers)
 
     def forward(self, x):
@@ -81,7 +81,7 @@ class IBNorm(nn.Module):
     def __init__(self, c: int):
         super().__init__()
         self.bnorm_channels = c // 2
-        self.bnorm = nn.BatchNorm2d(c // 2)
+        self.bnorm = BatchNorm2d(c // 2)
         self.inorm = InstanceNorm2d()
 
     def forward(self, x):

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from animateportrait_tpu_torch.nn import BatchNorm1d, BatchNorm2d
 from animateportrait_tpu_torch.ops.warp import sample_bilinear
 
 
@@ -28,7 +29,7 @@ class ConvBlock(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride, padding,
                               groups=groups, bias=False)
-        self.bn = nn.BatchNorm2d(cout)
+        self.bn = BatchNorm2d(cout)
         self.prelu = nn.PReLU(cout) if prelu else None
 
     def forward(self, x):
@@ -79,7 +80,7 @@ class GDC(nn.Module):
         super().__init__()
         self.conv_6_dw = _linear_block(512, 512, 7, groups=512)
         self.linear = nn.Linear(512, embedding_size, bias=False)
-        self.bn = nn.BatchNorm1d(embedding_size)
+        self.bn = BatchNorm1d(embedding_size)
 
     def forward(self, x):
         return self.bn(self.linear(self.conv_6_dw(x).flatten(1)))
@@ -155,16 +156,16 @@ class SEBottleneck(nn.Module):
         super().__init__()
         out = planes * 4
         self.conv1 = nn.Conv2d(cin, planes, 1, stride, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(out)
+        self.bn3 = BatchNorm2d(out)
         self.conv4 = nn.Conv2d(out, out // 16, 1)
         self.conv5 = nn.Conv2d(out // 16, out, 1)
         self.downsample = nn.Sequential(
             nn.Conv2d(cin, out, 1, stride, bias=False),
-            nn.BatchNorm2d(out)) if downsample else None
+            BatchNorm2d(out)) if downsample else None
 
     def forward(self, x):
         out = torch.relu(self.bn1(self.conv1(x)))
@@ -184,7 +185,7 @@ class SENet50(nn.Module):
     def __init__(self, layers: tuple = (3, 4, 6, 3)):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         self.maxpool = nn.MaxPool2d(3, 2, 0, ceil_mode=True)
         cin = 64
         for i, (planes, blocks) in enumerate(zip((64, 128, 256, 512),

@@ -12,6 +12,14 @@ path for each layer, the JAX defaults.
   back).
 - LSTMs are ``nn.LSTM(batch_first=True)``, whose gate layout the JAX
   package already keeps.
+- BatchNorm in eval mode on a bf16 input computes flax's
+  ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` op by op in the
+  promoted dtype of the input and whatever the parameters and statistics
+  hold, and rounds the output to the input's dtype, as flax does: in fp32
+  when the statistics are fp32 (the renderer's cast), in bf16 when every
+  leaf is (the training step's). torch's ``batch_norm`` computes in fp32
+  and refuses some of these mixes. ``cast_parameters`` makes the bf16
+  copies of the JAX package's two casts.
 """
 from __future__ import annotations
 
@@ -19,6 +27,40 @@ import torch
 import torch.nn as nn
 
 from animateportrait_tpu_torch.ops.instnorm import instance_norm
+
+
+class _LowPrecisionEval:
+    """Eval-mode BatchNorm on a non-fp32 input, flax's steps in the
+    promoted dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training or x.dtype == torch.float32:
+            return super().forward(x)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mean, var, scale, bias = (t.reshape(shape) for t in (
+            self.running_mean, self.running_var, self.weight, self.bias))
+        # XLA fuses var + eps into the rsqrt: one rounding, of the rsqrt
+        inv = torch.rsqrt(var.float() + self.eps).to(var.dtype)
+        return ((x - mean) * (inv * scale) + bias).to(x.dtype)
+
+
+class BatchNorm2d(_LowPrecisionEval, nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` that also runs a bf16 input in eval mode."""
+
+
+class BatchNorm1d(_LowPrecisionEval, nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` that also runs a bf16 input in eval mode."""
+
+
+def cast_parameters(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast ``module``'s floating parameters, not its buffers, to ``dtype``,
+    in place: the JAX renderer's cast of a net's ``params`` alone, which
+    leaves BatchNorm's statistics fp32 (``module.to(dtype)`` casts every
+    leaf, as the JAX training step's cast does)."""
+    for p in module.parameters():
+        if p.is_floating_point():
+            p.data = p.data.to(dtype)
+    return module
 
 
 class InstanceNorm2d(nn.Module):

@@ -97,6 +97,18 @@ def dense_image_warp(image: torch.Tensor, flow: torch.Tensor
     return sample_bilinear(image, gy - flow[..., 0], gx - flow[..., 1])
 
 
+def grid_sample_features(x: torch.Tensor, grid: torch.Tensor,
+                         **kw) -> torch.Tensor:
+    """``F.grid_sample`` of features ``x`` at an fp32 ``grid``, in x's
+    dtype. A bf16 ``x`` is widened and sampled in fp32, and the samples are
+    rounded to bf16 once: the JAX sampler gathers the bf16 features and
+    lerps them in bf16 with its fp32 weights rounded to bf16, and
+    ``F.grid_sample`` refuses a bf16 input with an fp32 grid."""
+    if x.dtype == grid.dtype:
+        return F.grid_sample(x, grid, **kw)
+    return F.grid_sample(x.to(grid.dtype), grid, **kw).to(x.dtype)
+
+
 def warp_acc_flow(x: torch.Tensor, flow: torch.Tensor,
                   mask: torch.Tensor | None = None,
                   mask_value: float = -1.0) -> torch.Tensor:
@@ -105,14 +117,17 @@ def warp_acc_flow(x: torch.Tensor, flow: torch.Tensor,
     the grid ``pixel + flow`` is normalized with the align_corners=True
     formula ``2 g / (size - 1) - 1`` and then sampled with
     align_corners=False, zeros padding. Where ``mask`` (N, 1, H, W) is
-    <= 0.5 the output is ``mask_value``."""
+    <= 0.5 the output is ``mask_value``. The grid is built in the flow's
+    dtype (fp32: in bf16, gx + flow ~200 would be off by up to half a
+    pixel), whatever x's is."""
     _, _, h, w = x.shape
-    gx = torch.arange(w, dtype=x.dtype, device=x.device)[None, None, :]
-    gy = torch.arange(h, dtype=x.dtype, device=x.device)[None, :, None]
+    gx = torch.arange(w, dtype=flow.dtype, device=x.device)[None, None, :]
+    gy = torch.arange(h, dtype=flow.dtype, device=x.device)[None, :, None]
     nx = 2.0 * (gx + flow[:, 0]) / max(w - 1, 1) - 1.0
     ny = 2.0 * (gy + flow[:, 1]) / max(h - 1, 1) - 1.0
-    out = F.grid_sample(x, torch.stack([nx, ny], dim=-1), mode="bilinear",
-                        padding_mode="zeros", align_corners=False)
+    out = grid_sample_features(x, torch.stack([nx, ny], dim=-1),
+                               mode="bilinear", padding_mode="zeros",
+                               align_corners=False)
     if mask is not None:
         out = torch.where(mask > 0.5, out, torch.full_like(out, mask_value))
     return out

@@ -9,8 +9,18 @@ device: the exact griddata-linear motion grid from a host Delaunay, the
 landmark dot images, FlowUnet's intrinsic flow, the generator's
 ``decode``, the warped-matte blend and the uint8 conversion; each batch's
 frames then go to the host.
+
+``use_bf16`` (the CLI's ``--render_bf16``) runs the per-frame nets in bf16
+as the JAX renderer does: bf16 copies of the trident generator and of
+FlowUnet's parameters (FlowUnet's BatchNorm statistics stay fp32), bf16
+inputs to ``encode_static`` (the matted photo and the source dots), to
+``decode`` (the target dots) and to FlowUnet; the motion grids, the flows
+and their masks stay fp32, and the generator's output is taken back to
+fp32 before the blend. MODNet and the static nets stay fp32.
 """
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -23,6 +33,7 @@ from animateportrait_tpu_torch.models.gan import (
 from animateportrait_tpu_torch.models.modnet import MODNet
 from animateportrait_tpu_torch.models.photo2cartoon import (
     Photo2CartoonGenerator)
+from animateportrait_tpu_torch.nn import cast_parameters
 from animateportrait_tpu_torch.ops.tps import (
     linear_motion_grid, triangulate_frames)
 from animateportrait_tpu_torch.utils.device import (
@@ -70,7 +81,8 @@ class Module2Renderer:
                  output_uint8: bool = False,
                  device: torch.device | str = DEFAULT_DEVICE,
                  style: str = "drawing",
-                 cartoon_g: Photo2CartoonGenerator | None = None):
+                 cartoon_g: Photo2CartoonGenerator | None = None,
+                 use_bf16: bool = False):
         static = {"drawing": ("static_g", static_g),
                   "cartoon": ("cartoon_g", cartoon_g)}
         if style not in static:
@@ -86,6 +98,12 @@ class Module2Renderer:
         self.static_net = static[style][1].to(self.device).eval()
         self.frame_batch = frame_batch
         self.output_uint8 = output_uint8
+        self.dtype = torch.bfloat16 if use_bf16 else torch.float32
+        if use_bf16:
+            # copies: the caller's nets stay fp32
+            self.g = cast_parameters(copy.deepcopy(self.g), self.dtype)
+            self.flowunet = cast_parameters(copy.deepcopy(self.flowunet),
+                                            self.dtype)
 
     def prepare(self, photo: torch.Tensor):
         """photo (1, 3, 256, 256) in [-1, 1] -> (matted photo, mask,
@@ -108,6 +126,15 @@ class Module2Renderer:
         photo_fore = ((photo / 2 + 0.5) * mask + 1 - mask) * 2 - 1
         return photo_fore, mask, fake_static
 
+    def encode(self, photo_fore: torch.Tensor, a_lm68: torch.Tensor
+               ) -> dict[str, torch.Tensor]:
+        """The generator's once-per-photo ``encode_static`` of the matted
+        photo (1, 3, 256, 256) and the source landmarks (1, 68, 2), in the
+        renderer's dtype."""
+        dots = landmark_dot_images(a_lm68, CROP_SIZE)
+        return self.g.encode_static(photo_fore.to(self.dtype),
+                                    dots.to(self.dtype))
+
     def frames(self, g_cache, mask, fake_static, a_lm68, tb_lm68s,
                motions=None, simplices=None) -> torch.Tensor:
         """One frame batch. a_lm68 (1, 68, 2); tb_lm68s (B, 68, 2); either
@@ -121,13 +148,16 @@ class Module2Renderer:
         j1 = kp_to_map_binary((224, 224), a_lm68 * (7.0 / 8.0))
         j2 = kp_to_map_binary((224, 224), tb_lm68s * (7.0 / 8.0))
         flow_out, vis_out, _, _ = self.flowunet(
-            torch.cat([j1.expand(B, -1, -1, -1), j2], dim=1))
+            torch.cat([j1.expand(B, -1, -1, -1), j2], dim=1).to(self.dtype))
         m = (torch.argmax(vis_out, dim=1, keepdim=True) < 2).float()
+        # in bf16, flow_out * 20.0 is rounded to bf16 and the mask makes it
+        # fp32, as JAX promotes it
         flows = F.interpolate(flow_out * 20.0 * m * (8.0 / 7.0), size=(cs, cs),
                               mode="bilinear", align_corners=True)
         fmasks = F.interpolate(m, size=(cs, cs), mode="bilinear",
                                align_corners=True)
-        fake_b = self.g.decode(g_cache, tb_lm_imgs, motions, flows, fmasks)
+        fake_b = self.g.decode(g_cache, tb_lm_imgs.to(self.dtype), motions,
+                               flows, fmasks).float()
         mask1 = F.grid_sample(mask.expand(B, -1, -1, -1), motions,
                               align_corners=True)
         out = ((fake_b / 2 + 0.5) * mask1
@@ -152,8 +182,7 @@ class Module2Renderer:
                                   device=dev).permute(2, 0, 1)[None]
         a68 = torch.as_tensor(a_lm68, dtype=torch.float32, device=dev)[None]
         photo_fore, mask, fake_static = self.prepare(photo_t)
-        g_cache = self.g.encode_static(photo_fore,
-                                       landmark_dot_images(a68, cs))
+        g_cache = self.encode(photo_fore, a68)
         T = tb_lm68s.shape[0]
         fb = self.frame_batch
         pad = (-T) % fb

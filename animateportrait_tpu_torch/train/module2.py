@@ -17,8 +17,19 @@ backward on the card (``ops/instnorm.py``).
 and ``visuals(state, batch, frozen)`` (the JAX ``visuals_fn``).
 ``cfg.remat`` recomputes each generator forward in the backward
 (``torch.utils.checkpoint``, as ``jax.checkpoint`` in JAX); K2 runs again
-in the recompute and K2b takes the statistics of that run. The JAX
-package's bf16 ``compute_dtype`` and its FSDP sharding are not ported.
+in the recompute and K2b takes the statistics of that run.
+
+``cfg.compute_dtype="bfloat16"`` is the JAX package's mixed precision: every
+network forward and backward in bf16, on bf16 casts of the fp32 master
+parameters of G and the Ds (``torch.func.functional_call``; the casts are
+differentiable, so the gradients reach the masters in fp32, as through
+JAX's ``_cast``) and on bf16 copies of the frozen nets, every leaf cast
+(BatchNorm statistics too), made once per ``FrozenNets``. The nets' outputs
+come back to fp32; the losses, the TPS solves, the motion grids, the flows,
+the pool and Adam stay fp32. InstanceNorm runs K2 and K2b in bf16 on the
+card. ``torch.autocast`` is not used: it keeps some ops in fp32 and so
+rounds elsewhere than JAX's all-bf16 activations. The JAX package's FSDP
+sharding is not ported.
 
 Layouts: images (N, C, H, W) in [-1, 1]; landmarks (N, 68, 2) (x, y) in
 crop-size pixels; motion grids (N, H, W, 2) normalized (x, y); face
@@ -26,6 +37,7 @@ windows (N, 4) [x1, x2, y1, y2]; FlowUnet flows (N, 2, H, W).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 
@@ -70,6 +82,9 @@ class Module2Config:
     lr_decay_iters: int = 50     # StepLR step_size for lr_policy='step'
     init_type: str = "normal"    # normal | xavier | kaiming | orthogonal
     init_gain: float = 0.02
+    # "bfloat16": every network forward and backward in bf16, with fp32
+    # master parameters, optimizer, losses and TPS solves
+    compute_dtype: str = "float32"
     # one discriminator pass over each discriminator's inputs stacked along
     # the batch, instead of one pass each (convs and InstanceNorm are
     # per-sample, so the losses are the same)
@@ -125,9 +140,10 @@ class FrozenNets:
 
 @dataclasses.dataclass
 class TrainState:
-    """Generator and discriminators, their Adam states, the coherence pool
-    ``(pool_size, output_nc, H, W)`` and how many of its slots are filled,
-    and the number of updates taken."""
+    """Generator and discriminators (fp32 masters), their Adam states, the
+    coherence pool ``(pool_size, output_nc, H, W)`` and how many of its
+    slots are filled, the number of updates taken, and the compute dtype
+    of the steps that trained them."""
 
     step: int
     g: TridentGeneratorFullIFW
@@ -136,6 +152,7 @@ class TrainState:
     d_opt: torch.optim.Adam
     pool: torch.Tensor
     pool_count: int
+    compute_dtype: str = "float32"
 
 
 @dataclasses.dataclass
@@ -153,6 +170,7 @@ class Grads:
 
 # the batch's (N, H, W, 2) motion grids; every other 4-D entry is NCHW
 GRID_KEYS = ("warp_motion", "warp_motion2")
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the reference's 8 fixed border anchors at 256 px (x, y)
 EDGE_ANCHORS_256 = np.array(
     [[0, 0], [255, 255], [0, 255], [255, 0],
@@ -182,7 +200,9 @@ def extract_landmarks(mfn: MobileFaceNet, imgs: torch.Tensor,
     [x1, x2, y1, y2] of ``imgs`` (N, 1 or 3, H, W) in [-1, 1] (ones outside
     the image), bicubic-resize it to ``out_size`` (torch's half-pixel
     convention), swap RGB to BGR, run MobileFaceNet on [0, 1] and map its
-    [0, 1] landmarks back to window pixels -> (N, 68, 2) (x, y)."""
+    [0, 1] landmarks back to window pixels -> (N, 68, 2) (x, y), fp32. A
+    bf16 ``imgs`` is sampled in fp32 and the crop rounded to bf16 for a
+    bf16 ``mfn``."""
     n = imgs.shape[0]
     imgs = imgs.repeat(1, 3, 1, 1) if imgs.shape[1] == 1 else imgs.flip(1)
     w = wins.to(torch.float32)
@@ -197,7 +217,7 @@ def extract_landmarks(mfn: MobileFaceNet, imgs: torch.Tensor,
     h, w_ = imgs.shape[2:]
     inb = (iy >= 0) & (iy <= h - 1) & (ix >= 0) & (ix <= w_ - 1)
     crop = torch.where(inb[:, None], crop, torch.ones_like(crop))
-    lm, _ = mfn((crop + 1.0) * 0.5)
+    lm, _ = mfn((crop.to(imgs.dtype) + 1.0) * 0.5)
     lm = lm.reshape(n, 68, 2)
     lx = lm[..., 0] * (x2 - x1)[:, None] + x1[:, None]
     ly = lm[..., 1] * (y2 - y1)[:, None] + y1[:, None]
@@ -236,10 +256,13 @@ def flow_warp_fields(flowunet: FlowUnet, lm1: torch.Tensor,
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """flow_network_warp (geomgm_ifw_fore_model.py:69-83): 68-point
     landmarks (N, 68, 2) in crop-size pixels -> (flow (N, 2, size, size),
-    mask (N, 1, size, size))."""
+    mask (N, 1, size, size)), fp32; FlowUnet runs in its parameters'
+    dtype."""
     j1 = kp_to_map_binary((224, 224), lm1[:, :68] * (7.0 / 8.0))
     j2 = kp_to_map_binary((224, 224), lm2[:, :68] * (7.0 / 8.0))
-    flow_out, vis_out, _, _ = flowunet(torch.cat([j1, j2], dim=1))
+    dtype = next(flowunet.parameters()).dtype
+    flow_out, vis_out, _, _ = flowunet(torch.cat([j1, j2], dim=1).to(dtype))
+    flow_out, vis_out = flow_out.float(), vis_out.float()
     mask = (torch.argmax(vis_out, dim=1, keepdim=True) < 2).float()
     flow = flow_out * 20.0 * mask
     warp_flow = F.interpolate(flow * (8.0 / 7.0), size=(size, size),
@@ -362,7 +385,7 @@ def init_state(cfg: Module2Config, gen: torch.Generator,
         step=0, g=g, d=d, g_opt=make_optimizer(cfg, g.parameters()),
         d_opt=make_optimizer(cfg, d.parameters()),
         pool=torch.zeros((cfg.pool_size, cfg.output_nc, h, h), device=dev),
-        pool_count=0)
+        pool_count=0, compute_dtype=cfg.compute_dtype)
 
 
 def make_example_batch(cfg: Module2Config, batch_size: int = 1,
@@ -453,11 +476,37 @@ class Module2TrainStep:
     """The train step of ``cfg`` (``build_train_step``)."""
 
     def __init__(self, cfg: Module2Config):
+        if cfg.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: one of "
+                             f"{sorted(COMPUTE_DTYPES)}")
         self.cfg = cfg
+        self.cdt = COMPUTE_DTYPES[cfg.compute_dtype]
         self.lip_edges = face_lmark_lookup()[:20]
+        self._frozen = None    # (FrozenNets, their compute-dtype copies)
 
     def crit(self, pred: torch.Tensor, real: bool) -> torch.Tensor:
         return gan_loss(pred, real, self.cfg.gan_mode)
+
+    def apply(self, net: nn.Module, *args):
+        """``net(*args)`` in the compute dtype, output fp32: in bf16 on
+        differentiable bf16 casts of its parameters (JAX's ``_cast``). The
+        caller casts the images it passes; G's grids stay fp32."""
+        if self.cdt == torch.float32:
+            return net(*args)
+        params = {k: p.to(self.cdt) for k, p in net.named_parameters()}
+        return torch.func.functional_call(net, params, args).float()
+
+    def frozen_nets(self, frozen: FrozenNets) -> FrozenNets:
+        """The frozen nets in the compute dtype: in bf16, copies with every
+        leaf cast (JAX's ``_cast(frozen.*)``: BatchNorm statistics too),
+        made on the first call with this ``frozen`` and kept."""
+        if self.cdt == torch.float32:
+            return frozen
+        if self._frozen is None or self._frozen[0] is not frozen:
+            self._frozen = (frozen, FrozenNets(*(
+                copy.deepcopy(getattr(frozen, f.name)).to(self.cdt)
+                for f in dataclasses.fields(FrozenNets))))
+        return self._frozen[1]
 
     def d_apply_stacked(self, d: nn.Module, xs: list, reals: list) -> list:
         """The GAN loss of each input against ``d``: one pass over the
@@ -465,17 +514,19 @@ class Module2TrainStep:
         each."""
         if self.cfg.batch_d_passes and len(xs) > 1:
             n = xs[0].shape[0]
-            p = d(torch.cat(xs, dim=0))
+            p = self.apply(d, torch.cat(xs, dim=0).to(self.cdt))
             return [self.crit(p[i * n:(i + 1) * n], r)
                     for i, r in enumerate(reals)]
-        return [self.crit(d(x), r) for x, r in zip(xs, reals)]
+        return [self.crit(self.apply(d, x.to(self.cdt)), r)
+                for x, r in zip(xs, reals)]
 
     @torch.no_grad()
     def forward_shared(self, batch: dict, frozen: FrozenNets) -> dict:
         """Everything upstream of G, which carries no gradient."""
         cfg = self.cfg
+        frozen = self.frozen_nets(frozen)
         real_A = batch["real_A"]
-        mask = (frozen.modnet(real_A) > 0.5).float()
+        mask = (frozen.modnet(real_A.to(self.cdt)).float() > 0.5).float()
         real_A_fore = ((real_A / 2 + 0.5) * mask + 1 - mask) * 2 - 1
         fakeB_static = batch["fakeB_static"]
         if not cfg.blendbg:
@@ -528,17 +579,21 @@ class Module2TrainStep:
     def g_forward(self, g: nn.Module, batch: dict, shared: dict
                   ) -> tuple[torch.Tensor, torch.Tensor]:
         """The two generator forwards (each recomputed in the backward under
-        ``cfg.remat``), blended into the static drawing with blendbg."""
+        ``cfg.remat``), fp32, blended into the static drawing with
+        blendbg. The images go in in the compute dtype, the motion grids,
+        flows and masks in fp32."""
         fakes = []
         for suffix in ("", "2"):
-            args = (shared["real_A_fore"], batch["A_lm"],
-                    batch[f"tB{suffix}_lm"], shared[f"warp_motion{suffix}"],
+            images = (shared["real_A_fore"], batch["A_lm"],
+                      batch[f"tB{suffix}_lm"])
+            args = (*(t.to(self.cdt) for t in images),
+                    shared[f"warp_motion{suffix}"],
                     shared[f"iw_flow{suffix}"], shared[f"if_mask{suffix}"])
             if self.cfg.remat and torch.is_grad_enabled():
                 fake = torch.utils.checkpoint.checkpoint(
-                    g, *args, use_reentrant=False)
+                    self.apply, g, *args, use_reentrant=False)
             else:
-                fake = g(*args)
+                fake = self.apply(g, *args)
             if self.cfg.blendbg:
                 m = shared[f"mask{suffix or 1}"]
                 fb = shared["fakeB_static"]
@@ -563,6 +618,7 @@ class Module2TrainStep:
                shared: dict, frozen: FrozenNets):
         """(G's loss, fake_B, fake_B2, the named losses)."""
         cfg = self.cfg
+        frozen = self.frozen_nets(frozen)
         fake_B, fake_B2 = self.g_forward(g, batch, shared)
         cs = float(cfg.crop_size)
         losses = {}
@@ -577,15 +633,15 @@ class Module2TrainStep:
             losses[f"G_{name}"] = l_local = (l1 + l2) * cfg.lambda_g_a_l
             loss = loss + l_local
         if cfg.coherent:
+            pair = torch.cat([fake_B, fake_B2], dim=1).to(self.cdt)
             losses["G_A_coh"] = l_coh = self.crit(
-                d["d_a_coh"](torch.cat([fake_B, fake_B2], dim=1)), True
-            ) * cfg.lambda_g_a_coh
+                self.apply(d["d_a_coh"], pair), True) * cfg.lambda_g_a_coh
             loss = loss + l_coh
 
         # the geometry loss through the frozen MobileFaceNet
-        fb_lm = extract_landmarks(frozen.mobilefacenet, fake_B,
+        fb_lm = extract_landmarks(frozen.mobilefacenet, fake_B.to(self.cdt),
                                   batch["winB"])
-        fb2_lm = extract_landmarks(frozen.mobilefacenet, fake_B2,
+        fb2_lm = extract_landmarks(frozen.mobilefacenet, fake_B2.to(self.cdt),
                                    batch["winB2"])
         tb = batch["tB_lm_68"][:, :68]
         tb2 = batch["tB2_lm_68"][:, :68]
@@ -635,7 +691,8 @@ class Module2TrainStep:
             s_crop = crop_head_bbox(rep3(shared["fakeB_static"]),
                                     batch["winA"], cfg.face_crop_hw)
             losses["iden_B"] = l_iden = face_loss(
-                frozen.sphere, f_crop, s_crop) * cfg.lambda_face
+                frozen.sphere, f_crop.to(self.cdt), s_crop.to(self.cdt)
+            ).float() * cfg.lambda_face
             loss = loss + l_iden
         losses["G"] = loss
         return loss, fake_B, fake_B2, losses
@@ -718,13 +775,15 @@ class Module2TrainStep:
         (``fake_B_lm_68_vis``/``_vist``, geomgm_ifw_fore_model.py:722-731)."""
         shared = self.forward_shared(batch, frozen)
         fake_B, fake_B2 = self.g_forward(state.g, batch, shared)
-        mfn = frozen.mobilefacenet
+        mfn = self.frozen_nets(frozen).mobilefacenet
         visuals = dict(real_A=batch["real_A"], real_B=batch["real_B"],
                        A_lm=batch["A_lm"], tB_lm=batch["tB_lm"],
                        fakeB_static=shared["fakeB_static"], fake_B=fake_B,
                        fake_B2=fake_B2)
-        aux = dict(fb_lm=extract_landmarks(mfn, fake_B, batch["winB"]),
-                   fb2_lm=extract_landmarks(mfn, fake_B2, batch["winB2"]),
+        aux = dict(fb_lm=extract_landmarks(mfn, fake_B.to(self.cdt),
+                                           batch["winB"]),
+                   fb2_lm=extract_landmarks(mfn, fake_B2.to(self.cdt),
+                                            batch["winB2"]),
                    tb_lm=batch["tB_lm_68"][:, :68],
                    tb2_lm=batch["tB2_lm_68"][:, :68],
                    winB=batch["winB"], winB2=batch["winB2"])

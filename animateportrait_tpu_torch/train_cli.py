@@ -21,9 +21,11 @@ end-of-epoch saves, ``--max_steps`` with its forced final save,
 ``--continue_train`` with ``--load_iter``, and the ``--epoch_count`` step
 offset are the JAX CLI's. Each step's pool draws come from a generator
 seeded by the step number, so a resumed run draws what an uninterrupted one
-would. Not ported: ``--multihost``, ``--data_parallel`` above 1 and
-``--compute_dtype bfloat16``; each is refused with an error that names it.
-``--device`` (default ``cuda``) without a card raises.
+would. ``--compute_dtype bfloat16`` runs the step in bf16 with fp32
+masters (``train/module2.py``), and its checkpoints record it. Not ported:
+``--multihost`` and ``--data_parallel`` above 1; each is refused with an
+error that names it. ``--device`` (default ``cuda``) without a card
+raises.
 """
 from __future__ import annotations
 

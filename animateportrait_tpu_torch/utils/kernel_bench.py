@@ -8,9 +8,11 @@ Helpers, used by ``chip_smoke.py``:
   launch rate.
 - :func:`bound`: the least time the card could take for a function, the
   larger of its bytes over 3.35 TB/s and its fp32 operations over
-  67 TFLOP/s (H100 SXM data sheet), and which of the two bounds it.
+  67 TFLOP/s (H100 SXM data sheet), and which of the two bounds it. The
+  bf16 kernels compute in fp32 too; only their bytes halve.
 - the main path's kernel shapes (``K1_LENGTHS``, ``K2_SHAPES``, and
-  ``K2_BATCH_MIX``, K2's launches in one 8-frame batch), the work each call
+  ``K2_BATCH_MIX``, K2's launches in one 8-frame batch; the bf16 paths'
+  ``K2_BF16_RENDER_SHAPES`` and ``TRAIN_IN_SHAPES``), the work each call
   does (K2b's too), and the one PyTorch call that computes the same
   function (``library_ms``; the port never calls it).
 
@@ -58,6 +60,25 @@ K2_STREAM_SHAPE = (1, 4, 1024, 1024)
 K2_BATCH_MIX = {(8, 128, 128, 128): 2, (8, 256, 64, 64): 23,
                 (8, 8, 256, 256): 1, (8, 16, 128, 128): 1,
                 (8, 16, 64, 64): 1, (8, 64, 256, 256): 1}
+# K2 in bf16 under --render_bf16 (the generator alone is bf16): the decode's
+# batch shapes, then encode_static's once-per-photo planes (the stems at
+# 256^2, the strided convs, the source-landmark transform)
+K2_BF16_RENDER_SHAPES = list(K2_BATCH_MIX) + [
+    (1, 32, 256, 256), (1, 64, 256, 256), (1, 64, 128, 128),
+    (1, 128, 128, 128), (1, 128, 64, 64), (1, 8, 256, 256),
+    (1, 16, 128, 128), (1, 16, 64, 64)]
+# every InstanceNorm shape of the Module2 training step at the bench
+# configuration (batch 4, ngf = ndf = 64), in fp32 and in bf16: the
+# generator's planes, and the discriminators' of 4 (coherence D in the G
+# pass), 8 (two stacked inputs) and 12 (three) images, 31 x 31 with
+# hw % 4 != 0 (scalar loads)
+TRAIN_IN_SHAPES = [
+    (4, 32, 256, 256), (4, 64, 256, 256), (4, 8, 256, 256),
+    (4, 128, 128, 128), (4, 64, 128, 128), (4, 16, 128, 128),
+    (4, 256, 64, 64), (4, 128, 64, 64), (4, 16, 64, 64),
+    (8, 128, 64, 64), (12, 128, 64, 64), (4, 256, 32, 32),
+    (8, 256, 32, 32), (12, 256, 32, 32), (4, 512, 31, 31),
+    (8, 512, 31, 31), (12, 512, 31, 31)]
 
 
 def device_ms(fn, min_launches: int = 50, min_ms: float = 1.0,
@@ -112,20 +133,25 @@ def k1_work(n: int) -> tuple[int, int]:
     return 4 * n + 4 * frames * bins, int(flops)
 
 
-def k2_work(shape) -> tuple[int, int]:
-    """(bytes, fp32 operations) of an InstanceNorm(+ReLU) of an NCHW fp32
-    tensor: read once, written once; ~8 operations an element (the mean,
-    the shifted sums, the normalize and the ReLU)."""
+def k2_work(shape, elem_bytes: int = 4, stats: bool = False
+            ) -> tuple[int, int]:
+    """(bytes, fp32 operations) of an InstanceNorm(+ReLU) of an NCHW tensor
+    of ``elem_bytes`` an element (4 fp32, 2 bf16): read once, written once,
+    and with ``stats`` each plane's 12 bytes of statistics written; ~8
+    operations an element (the mean, the shifted sums, the normalize and
+    the ReLU)."""
     numel = math.prod(shape)
-    return 8 * numel, 8 * numel
+    planes = shape[0] * shape[1]
+    return 2 * elem_bytes * numel + (12 * planes if stats else 0), 8 * numel
 
 
-def k2b_work(shape) -> tuple[int, int]:
+def k2b_work(shape, elem_bytes: int = 4) -> tuple[int, int]:
     """(bytes, fp32 operations) of InstanceNorm's backward from the saved
-    statistics: x and the upstream gradient read once, dx written once;
-    ~10 operations an element (xhat, the ReLU mask, the two sums, dx)."""
+    statistics: x and the upstream gradient read once, dx written once,
+    each plane's 12 bytes of statistics read; ~10 operations an element
+    (xhat, the ReLU mask, the two sums, dx)."""
     numel = math.prod(shape)
-    return 12 * numel, 10 * numel
+    return 3 * elem_bytes * numel + 12 * shape[0] * shape[1], 10 * numel
 
 
 def stft_library(x: torch.Tensor) -> torch.Tensor:
@@ -136,7 +162,8 @@ def stft_library(x: torch.Tensor) -> torch.Tensor:
 
 
 def instance_norm_library(x: torch.Tensor) -> torch.Tensor:
-    """InstanceNorm by one PyTorch call: the yardstick for K2 (no ReLU)."""
+    """InstanceNorm by one PyTorch call, in x's dtype: the yardstick for K2
+    (no ReLU)."""
     return torch.nn.functional.instance_norm(x, eps=1e-5)
 
 

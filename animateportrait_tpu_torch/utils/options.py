@@ -7,9 +7,9 @@ to ``<checkpoints_dir>/<name>/<phase>_opt.txt`` as the reference does
 (base_options.py:89-112).
 
 Not ported yet, and refused with an error that names the flag:
-``--compute_dtype bfloat16`` (it needs K2 and K2b in bf16) and
 ``--data_parallel`` above 1 (one process drives one card). ``--device``
-(default ``cuda``) is where the step runs.
+(default ``cuda``) is where the step runs; ``--compute_dtype bfloat16``
+trains in the JAX package's mixed precision (``train/module2.py``).
 """
 from __future__ import annotations
 
@@ -148,7 +148,9 @@ def build_train_argparser() -> argparse.ArgumentParser:
     # the JAX package's extras
     p.add_argument("--compute_dtype", default="float32",
                    choices=["float32", "bfloat16"],
-                   help="float32 only: bfloat16 is not ported yet")
+                   help="bfloat16: every network forward/backward in bf16 "
+                        "(fp32 master params, optimizer, losses and TPS "
+                        "solves)")
     p.add_argument("--steps_per_epoch", type=int, default=1000)
     p.add_argument("--data_parallel", type=int, default=0,
                    help="0 or 1 only: one process drives one card")
@@ -173,10 +175,6 @@ def to_configs(args: argparse.Namespace
             "supported (the umlvd datasets' landmark/TPS arithmetic is "
             "tied to the load_size->crop_size geometry; other modes "
             "mis-scale landmarks in the reference too)")
-    if args.compute_dtype != "float32":
-        raise SystemExit(
-            f"--compute_dtype {args.compute_dtype} is not ported yet: the "
-            "port trains in float32 (a bf16 step needs K2 and K2b in bf16)")
     if args.data_parallel > 1:
         raise SystemExit(
             f"--data_parallel {args.data_parallel} is not ported yet: the "
@@ -193,6 +191,7 @@ def to_configs(args: argparse.Namespace
         niter=args.niter, niter_decay=args.niter_decay,
         lr_policy=args.lr_policy, lr_decay_iters=args.lr_decay_iters,
         init_type=args.init_type, init_gain=args.init_gain,
+        compute_dtype=args.compute_dtype,
         remat=bool(args.remat),
         steps_per_epoch=args.steps_per_epoch,
         pool_size=args.pool_size, gan_mode=args.gan_mode,

@@ -140,12 +140,14 @@ def write_mtcnn_weights(directory: str, seed: int = 0,
 
 def build_pipeline(nets: dict[str, nn.Module], device: torch.device | str,
                    frame_batch: int = 8, output_uint8: bool = True,
-                   style: str = "drawing", detector=None):
+                   style: str = "drawing", detector=None,
+                   use_bf16: bool = False):
     """The slice's ``TalkingPortraitPipeline`` on ``device``: ``detector``
     (the fixed-box stub when None), ``AudioPipeline(chunk=512)`` without a
     voice encoder, default landmark amplifiers, and the renderer of
     ``style`` (the static net ``nets["static_g"]`` for drawing,
-    ``nets["photo2cartoon"]`` for cartoon)."""
+    ``nets["photo2cartoon"]`` for cartoon), its per-frame nets in bf16 with
+    ``use_bf16`` (``--render_bf16``)."""
     from animateportrait_tpu_torch.pipeline.audio import AudioPipeline
     from animateportrait_tpu_torch.pipeline.end2end import (
         TalkingPortraitPipeline)
@@ -159,7 +161,8 @@ def build_pipeline(nets: dict[str, nn.Module], device: torch.device | str,
         Module2Renderer(nets["generator"], nets["flowunet"], nets["modnet"],
                         nets.get("static_g"), frame_batch=frame_batch,
                         output_uint8=output_uint8, device=device,
-                        style=style, cartoon_g=nets.get("photo2cartoon")))
+                        style=style, cartoon_g=nets.get("photo2cartoon"),
+                        use_bf16=use_bf16))
 
 
 def _face_landmarks(rng: np.random.Generator, size: int) -> np.ndarray:

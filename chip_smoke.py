@@ -65,9 +65,30 @@ Phases, each printing its own lines:
      must be there. Last, the step's ``grads`` at the bench batch on a
      batch of the tree with ``remat`` on and off: every leaf within 1e-5
      of its scale or twice the plain step's own run-to-run spread, and
-     both peak memories.
+     both peak memories;
+  9. the bf16 render (``--render_bf16``): the full-width drawing pipeline
+     of phase 3 with its per-frame nets in bf16, on phase 3's inputs: a
+     warm pass that keeps the generator's bf16 InstanceNorm inputs, then a
+     timed pass with the launch counters zeroed just before it (K2-bf16 and
+     the fp32 K2 of the once-per-photo nets must both launch); the frames'
+     PSNR against phase 3's fp32 frames; K2-bf16 against its plain version
+     on the kept inputs; K2's time per photo and per batch as in phase 3.
+     Then ``cli.main --exp formal/cartoon --render_bf16`` once, counters
+     zeroed before it, the AVI parsed back;
+ 10. the bf16 training step (``compute_dtype="bfloat16"``) at phase 7's
+     configuration: K2-bf16 + K2b-bf16 against float64 and the plain
+     versions on the step's kept bf16 InstanceNorm inputs, their times at
+     each shape, 3 timed steps with the counters zeroed before them
+     (steps/s, peak memory, launches), a profiled step; then ``train_cli
+     --compute_dtype bfloat16`` for 4 steps over phase 8's tree.
 Then the loader's forkserver and multiprocessing's resource tracker are
 stopped, and no process the run started may still be running.
+
+Phase 2 also holds K2-bf16 at the bf16 render shapes and K2b-bf16 at the
+training shapes against their plain versions (K2-bf16 within one bf16 ulp
+of the plain version at each element, or K2_ATOL where that ulp is
+finer; K2b-bf16 within one bf16 ulp of the largest |dx|), and times K2-bf16
+at the render shapes.
 
 Any failure raises, and the script exits non-zero without a result. The
 line before the last is the kernels' JSON record; the last line is
@@ -105,6 +126,15 @@ K2B_RTOL = 1e-5
 # gradient masked by K2's output), as fractions of the largest |dx|
 K2B_F64_RTOL = 1e-5
 K2B_PLAIN_RTOL = 1e-5
+# the bf16 kernels: K2-bf16 within one bf16 ulp of the plain version's
+# output at each element (K2_ATOL where that ulp is finer: both round one
+# fp32 value, summed in other orders); K2b-bf16 within one bf16 ulp of the
+# largest |dx| of the plain version (each rounds dx once), and K2 + K2b in
+# bf16 against float64 autograd on the same bf16 inputs within two
+K2B_BF16_RTOL = 2.0 ** -7
+K2B_BF16_F64_RTOL = 2.0 ** -6
+# phase 9: the bf16 frames against phase 3's fp32 frames (uint8)
+BF16_RENDER_MIN_PSNR = 30.0
 TRAIN_BATCH = 4
 TRAIN_STEPS = 3
 # the readme's drawing training command (readme.md:65)
@@ -159,6 +189,16 @@ def phase1() -> None:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             say(f"[1] ptxas: {line.strip()}")
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| in bf16 ulps at |want| (the spacing of
+    8-bit significands), counting K2_ATOL as one ulp where the spacing is
+    finer."""
+    w = want.double()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126)))
+                     - 7)
+    return float(((got.double() - w).abs() / ulp.clamp_min(K2_ATOL)).max())
 
 
 def timed(fn_kernel, fn_plain, fn_library, work) -> dict:
@@ -244,6 +284,75 @@ def phase2(dev: torch.device) -> dict[str, dict]:
                 rec["instance_norm"] = dict(t)
             del x
         rec["instance_norm"].update(max_abs_err=worst, by_shape=by_shape)
+    rec.update(phase2_bf16(dev))
+    return rec
+
+
+def phase2_bf16(dev: torch.device) -> dict[str, dict]:
+    """K2-bf16 at the bf16 render shapes (and a streaming and an odd plane)
+    against its plain version, timed; K2b-bf16 at the training shapes
+    against its plain version on K2-bf16's statistics."""
+    from animateportrait_tpu_torch.ops import instnorm
+    from animateportrait_tpu_torch.utils.kernel_bench import (
+        K2_BF16_RENDER_SHAPES, TRAIN_IN_SHAPES, instance_norm_library,
+        k2_input, k2_work)
+
+    bf16 = torch.bfloat16
+    worst, worst_ulps, by_shape, rec = 0.0, 0.0, [], {}
+    with torch.inference_mode():
+        for shape in K2_BF16_RENDER_SHAPES + [(1, 4, 1024, 1024),
+                                              (4, 512, 31, 31)]:
+            x = k2_input(shape, dev).to(bf16)
+            for relu in (False, True):
+                got = instnorm.instance_norm(x, relu=relu)
+                want = instnorm.instance_norm_plain(x, relu=relu)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                ulps = bf16_ulps(got, want)
+                worst, worst_ulps = max(worst, err), max(worst_ulps, ulps)
+                if ulps > 1.0:
+                    raise AssertionError(
+                        f"K2-bf16 disagrees with its plain version at "
+                        f"{shape}: {ulps:.2f} ulps")
+            t = timed(lambda: instnorm.instance_norm(x),
+                      lambda: instnorm.instance_norm_plain(x),
+                      lambda: instance_norm_library(x), k2_work(shape, 2))
+            t.update(shape=list(shape), cluster=instnorm.k2_cluster(x))
+            by_shape.append(t)
+            say(f"[2] K2-bf16 instance_norm {shape}: max|kernel-plain|="
+                f"{err:.3e} ({ulps:.2f} bf16 ulps), {t['cluster']} CTA(s) "
+                f"per plane; kernel {t['ms']:.5f} ms, plain "
+                f"{t['plain_ms']:.5f} ms, library {t['library_ms']:.5f} ms, "
+                f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}), "
+                f"{100 * t['share_of_bound']:.1f}% of bound")
+            if shape == K2_TIMED_SHAPE:
+                rec["instance_norm_bf16"] = dict(t)
+            del x
+    rec["instance_norm_bf16"].update(max_abs_err=worst, max_ulps=worst_ulps,
+                                     by_shape=by_shape)
+    worst = 0.0
+    for i, shape in enumerate(TRAIN_IN_SHAPES + [(1, 2, 1024, 1024)]):
+        x = k2_input(shape, dev, seed=i).to(bf16)
+        g = torch.randn(shape, generator=torch.Generator(device=dev)
+                        .manual_seed(i), device=dev).to(bf16)
+        for relu in (False, True):
+            stats = instnorm.empty_stats(x)
+            instnorm._launch(x, torch.empty_like(x), 1e-5, relu,
+                             instnorm.k2_cluster(x), stats)
+            got = instnorm.instance_norm_backward(x, g, stats, relu)
+            want = instnorm.instance_norm_backward_plain(x, g, stats, relu)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            rel = err / float(want.float().abs().max())
+            worst = max(worst, err)
+            if rel > K2B_BF16_RTOL:
+                raise AssertionError(f"K2b-bf16 disagrees with its plain "
+                                     f"version at {shape}: {rel:.2e}")
+        say(f"[2] K2b-bf16 {shape}: max|kernel-plain|={err:.3e} "
+            f"({rel:.2e} of max|dx|, <= {K2B_BF16_RTOL:.2e}), "
+            f"{instnorm.k2b_cluster(x)} CTA(s) per plane")
+        del x, g
+    rec["instance_norm_backward_bf16"] = {"max_abs_err": worst}
     return rec
 
 
@@ -269,33 +378,44 @@ def keep_instance_norm_inputs(nets, by_shape: bool = False
 
 def k2_on_path(kept: dict, tag: str) -> float:
     """K2 against its plain version on the activations a path fed each
-    InstanceNorm; returns the largest |kernel - plain|."""
+    InstanceNorm; returns the largest |kernel - plain|. The bar is K2_ATOL
+    on fp32 activations, one bf16 ulp at each element (``bf16_ulps``) on
+    bf16 ones (K2-bf16)."""
     from animateportrait_tpu_torch.ops.instnorm import (
         instance_norm, instance_norm_plain)
 
-    by_shape = {}
+    by_shape, failed = {}, []
     with torch.inference_mode():
         for key, (x, relu) in kept.items():
             want = instance_norm_plain(x, relu=relu)
-            err = float((instance_norm(x, relu=relu) - want).abs().max())
-            ratio = float((x.mean((2, 3)).abs()
-                           / x.std((2, 3)).clamp_min(1e-12)).max())
-            k = (tuple(x.shape), relu)
-            worst = by_shape.get(k, (0.0, "", 0.0, 0.0))
-            by_shape[k] = max(worst, (err, key, ratio,
-                                      float(want.abs().max())))
-    for (shape, relu), (err, key, ratio, top) in sorted(by_shape.items()):
-        say(f"[{tag}] K2 on path activations {shape} relu={relu}: "
-            f"max|kernel-plain|={err:.3e} (atol {K2_ATOL}) at {key}, "
-            f"max |mean|/std there {ratio:.2f}, max |y| {top:.1f}")
-    err, key, ratio, top = max(by_shape.values())
+            got = instance_norm(x, relu=relu)
+            err = float((got.float() - want.float()).abs().max())
+            bf16 = x.dtype == torch.bfloat16
+            ulps = bf16_ulps(got, want) if bf16 else 0.0
+            if (ulps > 1.0) if bf16 else (err > K2_ATOL):
+                failed.append((key, err, ulps))
+            xf = x.float()
+            ratio = float((xf.mean((2, 3)).abs()
+                           / xf.std((2, 3)).clamp_min(1e-12)).max())
+            k = (tuple(x.shape), relu, x.dtype)
+            worst = by_shape.get(k, (0.0, 0.0, "", 0.0, 0.0))
+            by_shape[k] = max(worst, (err, ulps, key, ratio,
+                                      float(want.float().abs().max())))
+    for (shape, relu, dtype), (err, ulps, key, ratio, top) in sorted(
+            by_shape.items(), key=str):
+        bar = (f"{ulps:.2f} bf16 ulps, <= 1" if dtype == torch.bfloat16
+               else f"atol {K2_ATOL}")
+        say(f"[{tag}] K2 on path activations {shape} {dtype} relu={relu}: "
+            f"max|kernel-plain|={err:.3e} ({bar}) at {key}, max |mean|/std "
+            f"there {ratio:.2f}, max |y| {top:.1f}")
+    err, ulps, key, ratio, top = max(by_shape.values())
     say(f"[{tag}] K2 on path activations: {len(kept)} InstanceNorms, "
         f"{len(by_shape)} shapes, max|kernel-plain|={err:.3e} at {key} "
         f"(max |y| there {top:.1f}; fp32 spacing at |y| = {top:.1f} is "
         f"{float(np.spacing(np.float32(top))):.2e})")
-    if err > K2_ATOL:
+    if failed:
         raise AssertionError(f"K2 disagrees with its plain version on the "
-                             f"main path's activations at {key}: {err}")
+                             f"path's activations: {failed[:4]}")
     return err
 
 
@@ -303,15 +423,15 @@ def k2_time_on_path(renderer, landmarks: np.ndarray, tag: str) -> dict:
     """K2's device time in a renderer, per photo (the static nets and
     encode_static) and per frame batch, each part run once after a warm-up:
     summed from a ``torch.profiler`` trace of the part (0 where CUPTI gives
-    no device time), and as its launches x each shape's ``device_ms``."""
+    no device time), and as its launches x each shape's ``device_ms``, in
+    the dtype each InstanceNorm saw (K2 and K2-bf16 together)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from animateportrait_tpu_torch.nn import InstanceNorm2d
     from animateportrait_tpu_torch.ops.instnorm import instance_norm
     from animateportrait_tpu_torch.ops.tps import triangulate_frames
-    from animateportrait_tpu_torch.pipeline.render import (
-        CROP_SIZE, landmark_dot_images)
+    from animateportrait_tpu_torch.pipeline.render import CROP_SIZE
     from animateportrait_tpu_torch.utils.kernel_bench import (
         K2_BATCH_MIX, device_ms, k2_input)
 
@@ -326,9 +446,7 @@ def k2_time_on_path(renderer, landmarks: np.ndarray, tag: str) -> dict:
 
     def per_photo():
         fore, mask, static = renderer.prepare(photo)
-        cache = renderer.g.encode_static(fore,
-                                         landmark_dot_images(a68, CROP_SIZE))
-        state["args"] = (cache, mask, static)
+        state["args"] = (renderer.encode(fore, a68), mask, static)
 
     def per_batch():
         renderer.frames(*state["args"], a68, lm, None, tris)
@@ -345,16 +463,17 @@ def k2_time_on_path(renderer, landmarks: np.ndarray, tag: str) -> dict:
             counts = {}
 
             def count(mod, args):
-                key = (tuple(args[0].shape), mod.relu)
+                key = (tuple(args[0].shape), mod.relu, args[0].dtype)
                 counts[key] = counts.get(key, 0) + 1
 
             hooks = [m.register_forward_pre_hook(count) for m in norms]
-            launches0 = instance_norm.launches
+            launches0 = instance_norm.launches + instance_norm.launches_bf16
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 fn()
                 torch.cuda.synchronize()
-            launches = instance_norm.launches - launches0
+            launches = (instance_norm.launches + instance_norm.launches_bf16
+                        - launches0)
             for h in hooks:
                 h.remove()
             k2_us = all_us = 0.0
@@ -367,11 +486,11 @@ def k2_time_on_path(renderer, landmarks: np.ndarray, tag: str) -> dict:
                 if "instance_norm" in e.key:
                     k2_us += us
             est = 0.0
-            for (shape, relu), n in counts.items():
-                x = k2_input(shape, dev)
+            for (shape, relu, dtype), n in counts.items():
+                x = k2_input(shape, dev).to(dtype)
                 est += n * device_ms(lambda: instance_norm(x, relu=relu))
             mix = {}
-            for (shape, _), n in counts.items():
+            for (shape, _, _), n in counts.items():
                 mix[shape] = mix.get(shape, 0) + n
             out[part] = dict(launches=launches, profiled_ms=k2_us / 1e3,
                              device_ms=all_us / 1e3, estimated_ms=est,
@@ -433,7 +552,7 @@ def phase3(dev: torch.device, nets) -> dict:
                              f"{launches}")
     k2_err = k2_on_path(kept, "3")
     return {"launches": launches, "landmarks": out.landmarks,
-            "k2_path_err": k2_err,
+            "frames": out.frames, "k2_path_err": k2_err,
             "k2_time": k2_time_on_path(pipe.renderer, out.landmarks, "3")}
 
 
@@ -614,46 +733,51 @@ def phase6(dev: torch.device, landmarks: np.ndarray) -> None:
         raise AssertionError(f"speaker embedding differs: {emb_err}")
 
 
-def k2_gradient_on_path(kept: dict) -> dict:
+def k2_gradient_on_path(kept: dict, tag: str = "7") -> dict:
     """K2's gradient path against autograd in float64 and through the plain
     version on the InstanceNorm inputs of a training step, with a seeded
-    upstream gradient (``kernel_bench.k2_gradient_errors``); and K2b
-    against its plain version on the statistics K2 saved. Returns the
+    upstream gradient in the inputs' dtype (``kernel_bench.
+    k2_gradient_errors``); and K2b against its plain version on the
+    statistics K2 saved. fp32 or bf16 inputs (K2-bf16 and K2b-bf16, with
+    the bf16 bars; their forward is held by ``k2_on_path``). Returns the
     worst errors."""
     from animateportrait_tpu_torch.ops import instnorm
     from animateportrait_tpu_torch.utils.kernel_bench import (
         k2_gradient_errors)
 
     worst, by_shape = {}, {}
+    bf16 = next(iter(kept.values()))[0].dtype == torch.bfloat16
+    rtol, f64_rtol, plain_rtol = ((K2B_BF16_RTOL, K2B_BF16_F64_RTOL,
+                                   K2B_BF16_RTOL) if bf16 else
+                                  (K2B_RTOL, K2B_F64_RTOL, K2B_PLAIN_RTOL))
     for i, (key, (x, relu)) in enumerate(sorted(kept.items())):
         gen = torch.Generator(device=x.device).manual_seed(i)
-        g = torch.randn(x.shape, generator=gen, device=x.device)
+        g = torch.randn(x.shape, generator=gen, device=x.device).to(x.dtype)
         stats = instnorm.empty_stats(x)
         instnorm._launch(x, torch.empty_like(x), 1e-5, relu,
-                         instnorm.cluster_size(x.shape[2] * x.shape[3]),
-                         stats)
+                         instnorm.k2_cluster(x), stats)
         want = instnorm.instance_norm_backward_plain(x, g, stats, relu)
         errs = k2_gradient_errors(x, g, relu)
         errs["k2b_abs"] = float((instnorm.instance_norm_backward(
-            x, g, stats, relu) - want).abs().max())
-        errs["k2b"] = errs["k2b_abs"] / float(want.abs().max())
+            x, g, stats, relu).float() - want.float()).abs().max())
+        errs["k2b"] = errs["k2b_abs"] / float(want.float().abs().max())
         for k, v in errs.items():
             worst[k] = max(worst.get(k, 0), v)
         k = (tuple(x.shape), relu)
         by_shape[k] = {n: max(by_shape.get(k, {}).get(n, 0), v)
                        for n, v in errs.items()}
     for (shape, relu), e in sorted(by_shape.items()):
-        say(f"[7] K2 gradient path {shape} relu={relu}, of max|dx|: K2b "
-            f"vs plain {e['k2b']:.2e} (<= {K2B_RTOL}); K2+K2b vs float64 "
-            f"{e['vs_f64']:.2e} (<= {K2B_F64_RTOL}), vs plain autograd "
-            f"{e['vs_plain']:.2e} (<= {K2B_PLAIN_RTOL}); plain autograd vs "
-            f"float64 {e['plain_vs_f64']:.2e}; ReLU mask elements float64 "
-            f"puts across the kink: {e['flips']}")
-    say(f"[7] K2 gradient path on {len(kept)} InstanceNorm inputs of a "
+        say(f"[{tag}] K2 gradient path {shape} {x.dtype} relu={relu}, of "
+            f"max|dx|: K2b vs plain {e['k2b']:.2e} (<= {rtol:.2e}); K2+K2b "
+            f"vs float64 {e['vs_f64']:.2e} (<= {f64_rtol:.2e}), vs plain "
+            f"autograd {e['vs_plain']:.2e} (<= {plain_rtol:.2e}); plain "
+            f"autograd vs float64 {e['plain_vs_f64']:.2e}; ReLU mask "
+            f"elements float64 puts across the kink: {e['flips']}")
+    say(f"[{tag}] K2 gradient path on {len(kept)} InstanceNorm inputs of a "
         f"step, {len(by_shape)} shapes: worst {worst}")
-    if not (worst["k2b"] <= K2B_RTOL and worst["vs_f64"] <= K2B_F64_RTOL
-            and worst["vs_plain"] <= K2B_PLAIN_RTOL
-            and worst["fwd"] <= K2_ATOL):
+    if not (worst["k2b"] <= rtol and worst["vs_f64"] <= f64_rtol
+            and worst["vs_plain"] <= plain_rtol
+            and (bf16 or worst["fwd"] <= K2_ATOL)):
         raise AssertionError(f"K2's gradient path disagrees: {worst}")
     return worst
 
@@ -678,11 +802,12 @@ def count_instance_norms(nets) -> tuple[dict, list]:
     return counts, hooks
 
 
-def time_training_shapes(dev: torch.device, counts: dict) -> dict:
+def time_training_shapes(dev: torch.device, counts: dict, tag: str = "7",
+                         dtype: torch.dtype = torch.float32) -> dict:
     """K2 (the training forward, which saves statistics) and K2b at each
-    InstanceNorm shape of a step, without ReLU (the library calls have
-    none): device times of kernel, plain version and library call, bound
-    and share; launches per step of each."""
+    InstanceNorm shape of a step, in ``dtype``, without ReLU (the library
+    calls have none): device times of kernel, plain version and library
+    call, bound and share; launches per step of each."""
     from animateportrait_tpu_torch.ops import instnorm
     from animateportrait_tpu_torch.utils.kernel_bench import (
         instance_norm_backward_library, instance_norm_library, k2_input,
@@ -695,29 +820,33 @@ def time_training_shapes(dev: torch.device, counts: dict) -> dict:
     rows = []
     with torch.no_grad():
         for shape, (n_fwd, n_bwd) in sorted(per_shape.items()):
-            x = k2_input(shape, dev)
+            x = k2_input(shape, dev).to(dtype)
             g = torch.randn(shape, generator=torch.Generator(device=dev)
-                            .manual_seed(7), device=dev)
+                            .manual_seed(7), device=dev).to(dtype)
             y = torch.empty_like(x)
             stats = instnorm.empty_stats(x)
-            k = instnorm.cluster_size(shape[2] * shape[3])
-            kb = instnorm.cluster_size(shape[2] * shape[3], elem_bytes=8)
+            k, kb = instnorm.k2_cluster(x), instnorm.k2b_cluster(x)
+            e = x.element_size()
             fwd = timed(lambda: instnorm._launch(x, y, 1e-5, False, k, stats),
                         lambda: instnorm.instance_norm_plain(x),
-                        lambda: instance_norm_library(x), k2_work(shape))
+                        lambda: instance_norm_library(x),
+                        k2_work(shape, e, stats=True))
             with torch.enable_grad():
                 lib = instance_norm_backward_library(x, g)
-                bwd = timed(lambda: instnorm.instance_norm_backward(
-                    x, g, stats), lambda: instnorm.instance_norm_backward_plain(
-                        x, g, stats), lib, k2b_work(shape))
+                bwd = timed(
+                    lambda: instnorm.instance_norm_backward(x, g, stats),
+                    lambda: instnorm.instance_norm_backward_plain(x, g, stats),
+                    lib, k2b_work(shape, e))
             rows.append(dict(shape=list(shape), k2_launches=n_fwd,
                              k2b_launches=n_bwd, k2_ctas=k, k2b_ctas=kb,
                              k2=fwd, k2b=bwd))
-            say(f"[7] {shape} per step: K2 x{n_fwd} ({k} CTA/plane) "
-                f"{fwd['ms'] * 1e3:.2f} us, plain {fwd['plain_ms'] * 1e3:.2f}"
-                f", library {fwd['library_ms'] * 1e3:.2f}, bound "
-                f"{fwd['bound_ms'] * 1e3:.2f} ({100 * fwd['share_of_bound']:.0f}"
-                f"%); K2b x{n_bwd} ({kb} CTA/plane) {bwd['ms'] * 1e3:.2f} us, "
+            say(f"[{tag}] {shape} {dtype} per step: K2 x{n_fwd} ({k} "
+                f"CTA/plane) {fwd['ms'] * 1e3:.2f} us, plain "
+                f"{fwd['plain_ms'] * 1e3:.2f}, library "
+                f"{fwd['library_ms'] * 1e3:.2f}, bound "
+                f"{fwd['bound_ms'] * 1e3:.2f} "
+                f"({100 * fwd['share_of_bound']:.0f}%); K2b x{n_bwd} ({kb} "
+                f"CTA/plane) {bwd['ms'] * 1e3:.2f} us, "
                 f"plain {bwd['plain_ms'] * 1e3:.2f}, library "
                 f"{bwd['library_ms'] * 1e3:.2f}, bound "
                 f"{bwd['bound_ms'] * 1e3:.2f} "
@@ -1072,7 +1201,7 @@ def remat_check(dev: torch.device, root: str) -> dict:
             "k2_launches": (k0, k1)}
 
 
-def phase8(dev: torch.device) -> dict:
+def phase8(dev: torch.device, tmp: str) -> dict:
     from animateportrait_tpu_torch import train_cli
     from animateportrait_tpu_torch.io.checkpoint import CheckpointManager
     from animateportrait_tpu_torch.ops.instnorm import (
@@ -1082,101 +1211,323 @@ def phase8(dev: torch.device) -> dict:
     from animateportrait_tpu_torch.utils.options import to_configs
     from animateportrait_tpu_torch.utils.smoke import write_umlvd_tree
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        root = write_umlvd_tree(os.path.join(tmp, "data"), n_photos=16,
-                                n_styles=16, clips=2, frames=8, size=512,
-                                seed=0, png_filter=4)
-        say(f"[8] wrote the synthetic UMLVD-IFW tree (16 photos, 16 "
-            f"drawings, 2 clips x 8 frames, 512^2, Paeth rows) in "
-            f"{time.perf_counter() - t0:.1f} s")
-        host = host_image_times(root)
-        ck = os.path.join(tmp, "ck")
-        argv = ["--dataroot", root, *README_DRAWING, "--crop_size", "256",
-                "--load_size", "286", "--ngf", "64", "--ndf", "64",
-                "--batch_size", str(TRAIN_BATCH), "--num_threads", "8",
-                "--save_latest_freq", "4", "--display_freq", "4",
-                "--update_html_freq", "4", "--print_freq", "1",
-                "--checkpoints_dir", ck, "--frozen_dir",
-                os.path.join(tmp, "frozen"), "--device", "cuda"]
-        cfg, _ = to_configs(train_cli.build_argparser().parse_args(argv))
+    t0 = time.perf_counter()
+    root = write_umlvd_tree(os.path.join(tmp, "data"), n_photos=16,
+                            n_styles=16, clips=2, frames=8, size=512,
+                            seed=0, png_filter=4)
+    say(f"[8] wrote the synthetic UMLVD-IFW tree (16 photos, 16 "
+        f"drawings, 2 clips x 8 frames, 512^2, Paeth rows) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    host = host_image_times(root)
+    ck = os.path.join(tmp, "ck")
+    argv = ["--dataroot", root, *README_DRAWING, "--crop_size", "256",
+            "--load_size", "286", "--ngf", "64", "--ndf", "64",
+            "--batch_size", str(TRAIN_BATCH), "--num_threads", "8",
+            "--save_latest_freq", "4", "--display_freq", "4",
+            "--update_html_freq", "4", "--print_freq", "1",
+            "--checkpoints_dir", ck, "--frozen_dir",
+            os.path.join(tmp, "frozen"), "--device", "cuda"]
+    cfg, _ = to_configs(train_cli.build_argparser().parse_args(argv))
 
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        instance_norm.launches = instance_norm_backward.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    instance_norm.launches = instance_norm_backward.launches = 0
+    t0 = time.perf_counter()
+    run = train_cli.main(argv + ["--max_steps", str(CLI_STEPS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"instance_norm": instance_norm.launches,
+                "instance_norm_backward": instance_norm_backward.launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    recs = {r.step: r for r in run.records}
+    if sorted(recs) != list(range(1, CLI_STEPS + 1)):
+        raise AssertionError(f"logged steps {sorted(recs)}")
+    timed = [recs[i] for i in range(3, CLI_STEPS + 1)]
+    sps = len(timed) / (recs[CLI_STEPS].t_end - recs[2].t_end)
+    data_share = sum(r.data_s for r in timed) / sum(
+        r.data_s + r.comp_s for r in timed)
+    say(f"[8] train_cli.main, the readme's drawing command at crop 256, "
+        f"ngf = ndf = 64, batch {TRAIN_BATCH}, 8 loader workers: "
+        f"{CLI_STEPS} steps in {wall:.1f} s of wall time (workers' start, "
+        f"init, saves and visuals included); steps 3-{CLI_STEPS}: "
+        f"{sps:.3f} steps/s with the data loading, data-wait share "
+        f"{100 * data_share:.1f}% (whole run {100 * run.data_share:.1f}%)"
+        f"; per step data/compute s: "
+        + ", ".join(f"{r.step}: {r.data_s:.3f}/{r.comp_s:.3f}"
+                    for r in run.records))
+    say(f"[8] peak memory {peak / 2 ** 30:.2f} GiB; kernel launches in "
+        f"the run: {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the trainer's path never "
+                             f"launched: {launches}")
+
+    exp = os.path.join(ck, "training", "drawing1")
+    mgr = CheckpointManager(os.path.join(exp, "checkpoints"))
+    saved = (mgr.all_steps(), sorted(os.listdir(
+        os.path.join(exp, "checkpoints", "latest"))))
+    if saved != ([CLI_STEPS], [f"{CLI_STEPS}.pt"]):
+        raise AssertionError(f"checkpoint steps {saved}")
+    run2 = train_cli.main(argv + ["--max_steps", str(CLI_STEPS + 2),
+                                  "--continue_train"])
+    if run2.resumed_from != CLI_STEPS or run2.state.step != CLI_STEPS + 2:
+        raise AssertionError(f"resumed from {run2.resumed_from}, ended "
+                             f"at {run2.state.step}")
+    fresh = mgr.restore(CLI_STEPS, m2.init_state(
+        cfg, torch.Generator().manual_seed(5), dev))
+    diff = states_equal(run.state, fresh)
+    if diff:
+        raise AssertionError(f"restored state differs from the saved "
+                             f"one at {diff[:8]}")
+    with open(os.path.join(exp, "loss_log.txt")) as f:
+        log = f.read()
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    images = sorted(os.listdir(os.path.join(exp, "web", "images")))
+    png = read_image(os.path.join(exp, "web", "images", images[0]))
+    if not (f"iters: {CLI_STEPS + 2}," in log and len(rows) == 10
+            and all(np.isfinite(v) for r in rows for v in r.values())
+            and len(images) == 2 * 11
+            and png.shape == (cfg.crop_size, cfg.crop_size, 3)
+            and os.path.exists(os.path.join(exp, "web", "index.html"))
+            and os.path.exists(os.path.join(exp, "train_opt.txt"))):
+        raise AssertionError(f"trainer outputs: {len(rows)} metric rows, "
+                             f"{len(images)} gallery images {png.shape}")
+    say(f"[8] --continue_train resumed at step {run2.resumed_from} and "
+        f"ended at {run2.state.step}; the state restored from the "
+        f"step-{CLI_STEPS} checkpoint equals the saved one bit for bit; "
+        f"loss_log.txt and metrics.jsonl hold {len(rows)} finite rows, "
+        f"the gallery {len(images)} PNGs ({images[0]} reads back as "
+        f"{png.shape}) and index.html; losses at step "
+        f"{rows[-1]['iters']}: G {rows[-1]['G']:.4f}, D_A "
+        f"{rows[-1]['D_A']:.4f}")
+    del run, run2, fresh
+    torch.cuda.empty_cache()
+    remat = remat_check(dev, root)
+    return {"launches": launches, "steps_per_s": sps, "data_share": data_share,
+            "peak_bytes": peak, "host": host, "remat": remat, "root": root,
+            "argv": argv}
+
+
+def zero_counters() -> None:
+    """Every kernel's launch counters to 0."""
+    from animateportrait_tpu_torch.ops.instnorm import (
+        instance_norm, instance_norm_backward)
+    from animateportrait_tpu_torch.ops.stft import stft_magnitude
+
+    stft_magnitude.launches = 0
+    for fn in (instance_norm, instance_norm_backward):
+        fn.launches = fn.launches_bf16 = 0
+
+
+def read_counters() -> dict[str, int]:
+    """Every kernel's launch counter, by the kernel's name in the JSON
+    line."""
+    from animateportrait_tpu_torch.ops.instnorm import (
+        instance_norm, instance_norm_backward)
+    from animateportrait_tpu_torch.ops.stft import stft_magnitude
+
+    return {"stft_magnitude": stft_magnitude.launches,
+            "instance_norm": instance_norm.launches,
+            "instance_norm_bf16": instance_norm.launches_bf16,
+            "instance_norm_backward": instance_norm_backward.launches,
+            "instance_norm_backward_bf16":
+                instance_norm_backward.launches_bf16}
+
+
+def phase9(dev: torch.device, main_run: dict) -> dict:
+    from animateportrait_tpu_torch import cli
+    from animateportrait_tpu_torch.utils.smoke import (
+        build_pipeline, full_width_nets, make_wav, write_mtcnn_weights)
+    from animateportrait_tpu_torch.utils.video import read_avi, write_wav
+
+    nets = full_width_nets(seed=0)
+    pipe = build_pipeline(nets, dev, frame_batch=8, output_uint8=True,
+                          use_bf16=True)
+    photo = np.random.default_rng(0).uniform(0, 255, (512, 512, 3)).astype(
+        np.uint8)
+    kept, hooks = keep_instance_norm_inputs({"g": pipe.renderer.g})
+    with torch.inference_mode():
         t0 = time.perf_counter()
-        run = train_cli.main(argv + ["--max_steps", str(CLI_STEPS)])
+        pipe(photo, make_wav(6.0, seed=1))
+        torch.cuda.synchronize()
+        say(f"[9] warm pass {time.perf_counter() - t0:.3f} s (keeps the "
+            f"generator's bf16 InstanceNorm inputs)")
+        for h in hooks:
+            h.remove()
+        zero_counters()
+        t0 = time.perf_counter()
+        out = pipe(photo, make_wav(6.0, seed=2))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_counters()
+    T = out.frames.shape[0]
+    p = psnr(out.frames, main_run["frames"], peak=255.0)
+    stages = ", ".join(f"{k} {v:.3f} s" for k, v in out.stage_seconds.items())
+    say(f"[9] timed --render_bf16 pass: {T} frames in {dt:.3f} s = "
+        f"{T / dt:.2f} frames/s (smoke figure, not a benchmark); stages: "
+        f"{stages}")
+    say(f"[9] kernel launches in the timed pass: {launches}; frames vs "
+        f"phase 3's fp32 frames on the same inputs: PSNR {p:.2f} dB (>= "
+        f"{BF16_RENDER_MIN_PSNR})")
+    if out.frames.shape != main_run["frames"].shape:
+        raise AssertionError(f"bf16 frames {out.frames.shape}")
+    if min(launches[k] for k in ("stft_magnitude", "instance_norm",
+                                 "instance_norm_bf16")) <= 0:
+        raise AssertionError(f"a kernel of the bf16 render never launched: "
+                             f"{launches}")
+    if not p >= BF16_RENDER_MIN_PSNR:
+        raise AssertionError(f"bf16 frames at {p:.2f} dB from the fp32 ones")
+    err = k2_on_path(kept, "9")
+    k2_time = k2_time_on_path(pipe.renderer, out.landmarks, "9")
+    del pipe, nets, kept
+
+    with tempfile.TemporaryDirectory() as tmp:
+        photo_path = write_photo(os.path.join(tmp, "portrait.ppm"))
+        wav_path = write_wav(os.path.join(tmp, "speech.wav"),
+                             make_wav(6.0, seed=3))
+        ckpt = os.path.join(tmp, "ckpt")
+        write_mtcnn_weights(os.path.join(ckpt, "mtcnn"), seed=0)
+        zero_counters()
+        t0 = time.perf_counter()
+        res = cli.main(["--jpg", photo_path, "--audio", wav_path, "--exp",
+                        "formal/cartoon", "--device", "cuda",
+                        "--frame_batch", "8", "--render_bf16", "--ckpt_dir",
+                        ckpt, "--output", os.path.join(tmp, "out")])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"instance_norm": instance_norm.launches,
-                    "instance_norm_backward": instance_norm_backward.launches}
-        peak = torch.cuda.max_memory_allocated(dev)
-        recs = {r.step: r for r in run.records}
-        if sorted(recs) != list(range(1, CLI_STEPS + 1)):
-            raise AssertionError(f"logged steps {sorted(recs)}")
-        timed = [recs[i] for i in range(3, CLI_STEPS + 1)]
-        sps = len(timed) / (recs[CLI_STEPS].t_end - recs[2].t_end)
-        data_share = sum(r.data_s for r in timed) / sum(
-            r.data_s + r.comp_s for r in timed)
-        say(f"[8] train_cli.main, the readme's drawing command at crop 256, "
-            f"ngf = ndf = 64, batch {TRAIN_BATCH}, 8 loader workers: "
-            f"{CLI_STEPS} steps in {wall:.1f} s of wall time (workers' start, "
-            f"init, saves and visuals included); steps 3-{CLI_STEPS}: "
-            f"{sps:.3f} steps/s with the data loading, data-wait share "
-            f"{100 * data_share:.1f}% (whole run {100 * run.data_share:.1f}%)"
-            f"; per step data/compute s: "
-            + ", ".join(f"{r.step}: {r.data_s:.3f}/{r.comp_s:.3f}"
-                        for r in run.records))
-        say(f"[8] peak memory {peak / 2 ** 30:.2f} GiB; kernel launches in "
-            f"the run: {launches}")
-        if min(launches.values()) <= 0:
-            raise AssertionError(f"a kernel of the trainer's path never "
-                                 f"launched: {launches}")
+        cli_launches = read_counters()
+        avi = read_avi(res.path)
+    piped = sum(res.stage_seconds.values())
+    say(f"[9] cli.main --exp formal/cartoon --render_bf16: {res.frames} "
+        f"frames, pipeline + mux {piped:.3f} s = {res.frames / piped:.2f} "
+        f"frames/s; cli.main wall {wall:.3f} s; kernel launches "
+        f"{cli_launches}; the AVI reads back as {avi['frames'].shape} at "
+        f"{avi['fps']} fps")
+    if avi["frames"].shape != (res.frames, 256, 256, 3) or min(
+            cli_launches[k] for k in ("stft_magnitude", "instance_norm",
+                                      "instance_norm_bf16")) <= 0:
+        raise AssertionError(f"bf16 CLI run: {avi['frames'].shape}, "
+                             f"{cli_launches}")
+    return {"launches": launches, "cli_launches": cli_launches,
+            "frames_per_s": T / dt, "psnr_vs_fp32": p, "k2_path_err": err,
+            "k2_time": k2_time}
 
-        exp = os.path.join(ck, "training", "drawing1")
-        mgr = CheckpointManager(os.path.join(exp, "checkpoints"))
-        saved = (mgr.all_steps(), sorted(os.listdir(
-            os.path.join(exp, "checkpoints", "latest"))))
-        if saved != ([CLI_STEPS], [f"{CLI_STEPS}.pt"]):
-            raise AssertionError(f"checkpoint steps {saved}")
-        run2 = train_cli.main(argv + ["--max_steps", str(CLI_STEPS + 2),
-                                      "--continue_train"])
-        if run2.resumed_from != CLI_STEPS or run2.state.step != CLI_STEPS + 2:
-            raise AssertionError(f"resumed from {run2.resumed_from}, ended "
-                                 f"at {run2.state.step}")
-        fresh = mgr.restore(CLI_STEPS, m2.init_state(
-            cfg, torch.Generator().manual_seed(5), dev))
-        diff = states_equal(run.state, fresh)
-        if diff:
-            raise AssertionError(f"restored state differs from the saved "
-                                 f"one at {diff[:8]}")
-        with open(os.path.join(exp, "loss_log.txt")) as f:
-            log = f.read()
-        with open(os.path.join(exp, "metrics.jsonl")) as f:
-            rows = [json.loads(line) for line in f]
-        images = sorted(os.listdir(os.path.join(exp, "web", "images")))
-        png = read_image(os.path.join(exp, "web", "images", images[0]))
-        if not (f"iters: {CLI_STEPS + 2}," in log and len(rows) == 10
-                and all(np.isfinite(v) for r in rows for v in r.values())
-                and len(images) == 2 * 11
-                and png.shape == (cfg.crop_size, cfg.crop_size, 3)
-                and os.path.exists(os.path.join(exp, "web", "index.html"))
-                and os.path.exists(os.path.join(exp, "train_opt.txt"))):
-            raise AssertionError(f"trainer outputs: {len(rows)} metric rows, "
-                                 f"{len(images)} gallery images {png.shape}")
-        say(f"[8] --continue_train resumed at step {run2.resumed_from} and "
-            f"ended at {run2.state.step}; the state restored from the "
-            f"step-{CLI_STEPS} checkpoint equals the saved one bit for bit; "
-            f"loss_log.txt and metrics.jsonl hold {len(rows)} finite rows, "
-            f"the gallery {len(images)} PNGs ({images[0]} reads back as "
-            f"{png.shape}) and index.html; losses at step "
-            f"{rows[-1]['iters']}: G {rows[-1]['G']:.4f}, D_A "
-            f"{rows[-1]['D_A']:.4f}")
-        del run, run2, fresh
-        torch.cuda.empty_cache()
-        remat = remat_check(dev, root)
-    return {"launches": launches, "steps_per_s": sps, "data_share": data_share,
-            "peak_bytes": peak, "host": host, "remat": remat}
+
+def phase10(dev: torch.device, trainer: dict) -> dict:
+    from animateportrait_tpu_torch import train_cli
+    from animateportrait_tpu_torch.io.checkpoint import CheckpointManager
+    from animateportrait_tpu_torch.train import module2 as m2
+    from animateportrait_tpu_torch.utils.options import to_configs
+
+    cfg = m2.Module2Config(batch_d_passes=True, compute_dtype="bfloat16")
+    state = m2.init_state(cfg, torch.Generator().manual_seed(0), dev)
+    frozen = m2.init_frozen_random(torch.Generator().manual_seed(1), dev)
+    batch = m2.make_random_batch(cfg, TRAIN_BATCH, torch.Generator(
+        device=dev).manual_seed(2), dev)
+    step = m2.build_train_step(cfg)
+    pool_gen = torch.Generator().manual_seed(3)
+
+    kept, hooks = keep_instance_norm_inputs({"g": state.g, "d": state.d},
+                                            by_shape=True)
+    counts, count_hooks = count_instance_norms(
+        [state.g, state.d, step.frozen_nets(frozen).modnet])
+    t0 = time.perf_counter()
+    step.step(state, batch, frozen, pool_gen)
+    torch.cuda.synchronize()
+    say(f"[10] warm bf16 step {time.perf_counter() - t0:.3f} s (keeps the "
+        f"bf16 InstanceNorm inputs)")
+    for h in hooks + count_hooks:
+        h.remove()
+    if {x.dtype for x, _ in kept.values()} != {torch.bfloat16}:
+        raise AssertionError("an InstanceNorm of the bf16 step saw fp32")
+    fwd_err = k2_on_path(kept, "10")
+    worst = k2_gradient_on_path(kept, "10")
+    del kept
+    rows = time_training_shapes(dev, counts, "10", torch.bfloat16)
+
+    g0 = next(state.g.parameters()).detach().clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counters()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        metrics = step.step(state, batch, frozen, pool_gen)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    prof = profiled_ms(lambda: step.step(state, batch, frozen, pool_gen))
+    losses = {k: float(v) for k, v in metrics.items()}
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    say(f"[10] timed: {TRAIN_STEPS} bf16 steps in {dt:.3f} s = "
+        f"{TRAIN_STEPS / dt:.3f} steps/s (batch {TRAIN_BATCH}, smoke "
+        f"figure, not a benchmark); peak memory {peak / 2 ** 30:.2f} GiB; "
+        f"launches per step {per_step}")
+    say(f"[10] profiled bf16 step: device time {prof['all']:.3f} ms "
+        f"({100 * prof['all'] / (1e3 * dt / TRAIN_STEPS):.1f}% of a timed "
+        f"step's wall time), K2-bf16 {prof['k2']:.3f} ms, K2b-bf16 "
+        f"{prof['k2b']:.3f} ms")
+    for k in prof["top"]:
+        say(f"[10]   {k['ms']:9.3f} ms in {k['calls']:4d} calls: {k['name']}")
+    say(f"[10] losses after step {state.step}: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in losses.items()))
+    n_fwd = sum(counts.values())
+    n_bwd = sum(n for (_, _, grad), n in counts.items() if grad)
+    got = tuple(per_step[k] for k in ("instance_norm_bf16",
+                                      "instance_norm_backward_bf16",
+                                      "instance_norm"))
+    if got != (n_fwd, n_bwd, 0):
+        raise AssertionError(f"launches per step {per_step}, InstanceNorm "
+                             f"calls {n_fwd}, of them recorded {n_bwd}")
+    with torch.no_grad():
+        moved = float((next(state.g.parameters()) - g0).abs().max())
+    if not (all(np.isfinite(v) for v in losses.values()) and moved > 0
+            and {p.dtype for p in state.g.parameters()} == {torch.float32}):
+        raise AssertionError(f"bf16 step: losses {losses}, G moved {moved}")
+    est = {"k2": sum(r["k2_launches"] * r["k2"]["ms"] for r in rows),
+           "k2b": sum(r["k2b_launches"] * r["k2b"]["ms"] for r in rows)}
+    say(f"[10] launches x per-shape time per step: K2-bf16 {est['k2']:.3f} "
+        f"ms, K2b-bf16 {est['k2b']:.3f} ms")
+    del state, frozen, batch, step
+    torch.cuda.empty_cache()
+
+    # the trainer, bf16, over phase 8's tree
+    ck = os.path.join(os.path.dirname(trainer["root"]), "ck_bf16")
+    argv = trainer["argv"] + ["--checkpoints_dir", ck, "--compute_dtype",
+                              "bfloat16", "--max_steps", "4"]
+    cfg_cli, _ = to_configs(train_cli.build_argparser().parse_args(argv))
+    zero_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    run = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cli_launches = read_counters()
+    cli_peak = torch.cuda.max_memory_allocated(dev)
+    recs = {r.step: r for r in run.records}
+    sps = 2 / (recs[4].t_end - recs[2].t_end)
+    saved = CheckpointManager(os.path.join(
+        ck, "training", "drawing1", "checkpoints")).restore(4, None)
+    say(f"[10] train_cli.main --compute_dtype bfloat16 (phase 8's command, "
+        f"4 steps): {wall:.1f} s of wall time; steps 3-4 {sps:.3f} steps/s "
+        f"with the data; peak {cli_peak / 2 ** 30:.2f} GiB; launches "
+        f"{cli_launches}; the step-4 checkpoint holds a "
+        f"{saved['compute_dtype']} run's fp32 masters")
+    if not (run.state.step == 4 and saved["compute_dtype"] == "bfloat16"
+            and cfg_cli.compute_dtype == "bfloat16"
+            and min(cli_launches["instance_norm_bf16"],
+                    cli_launches["instance_norm_backward_bf16"]) > 0
+            and {v.dtype for v in saved["g"].values()} == {torch.float32}):
+        raise AssertionError(f"bf16 trainer: step {run.state.step}, "
+                             f"{cli_launches}, {saved['compute_dtype']}")
+    del run, saved
+    torch.cuda.empty_cache()
+    return {"launches": launches, "per_step": per_step, "rows": rows,
+            "worst": worst, "fwd_err": fwd_err, "profiled": prof,
+            "estimated": est, "steps_per_s": TRAIN_STEPS / dt,
+            "peak_bytes": peak, "cli_launches": cli_launches,
+            "cli_steps_per_s": sps}
 
 
 def child_processes() -> list[str]:
@@ -1229,56 +1580,86 @@ def main() -> None:
         rec["instance_norm"]["max_abs_err"], cli_run["k2_path_err"])
     phase6(dev, main_run["landmarks"])
     train = phase7(dev)
-    trainer = phase8(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = phase8(dev, tmp)
+        render_bf16 = phase9(dev, main_run)
+        train_bf16 = phase10(dev, trainer)
     stop_processes()
     say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
-    sources = {"stft_magnitude": ("animateportrait_tpu_torch/csrc/stft.cu",
-                                  K1_REPLACES),
-               "instance_norm": ("animateportrait_tpu_torch/csrc/instnorm.cu",
-                                 K2_REPLACES),
-               "instance_norm_backward": (
-                   "animateportrait_tpu_torch/csrc/instnorm_bwd.cu",
-                   K2B_REPLACES)}
-    # K2b's headline numbers: the shape that moves the most bytes in a step
-    head = max(train["rows"], key=lambda r: r["k2b_launches"]
-               * np.prod(r["shape"]))
-    rec["instance_norm_backward"] = dict(
-        head["k2b"], max_abs_err=train["worst"]["k2b_abs"],
-        shape=head["shape"],
-        launches_per_step=train["per_step"]["instance_norm_backward"],
-        path_err=train["worst"],
-        by_shape=[dict(r["k2b"], shape=r["shape"], cluster=r["k2b_ctas"],
-                       launches_per_step=r["k2b_launches"])
-                  for r in train["rows"]])
-    rec["instance_norm"]["train_by_shape"] = [
-        dict(r["k2"], shape=r["shape"], cluster=r["k2_ctas"],
-             launches_per_step=r["k2_launches"]) for r in train["rows"]]
+    src = "animateportrait_tpu_torch/csrc/"
+    sources = {"stft_magnitude": (src + "stft.cu", K1_REPLACES),
+               "instance_norm": (src + "instnorm.cu", K2_REPLACES),
+               "instance_norm_backward": (src + "instnorm_bwd.cu",
+                                          K2B_REPLACES),
+               "instance_norm_bf16": (src + "instnorm.cu", K2_REPLACES),
+               "instance_norm_backward_bf16": (src + "instnorm_bwd.cu",
+                                               K2B_REPLACES)}
+    for name, run in (("instance_norm_backward", train),
+                      ("instance_norm_backward_bf16", train_bf16)):
+        # K2b's headline numbers: the shape that moves the most bytes in a
+        # step
+        head = max(run["rows"], key=lambda r: r["k2b_launches"]
+                   * np.prod(r["shape"]))
+        rec[name] = dict(
+            head["k2b"], max_abs_err=max(rec.get(name, {}).get(
+                "max_abs_err", 0.0), run["worst"]["k2b_abs"]),
+            shape=head["shape"],
+            launches_per_step=run["per_step"][name],
+            path_err=run["worst"],
+            by_shape=[dict(r["k2b"], shape=r["shape"], cluster=r["k2b_ctas"],
+                           launches_per_step=r["k2b_launches"])
+                      for r in run["rows"]])
+    for name, run in (("instance_norm", train),
+                      ("instance_norm_bf16", train_bf16)):
+        rec[name]["train_by_shape"] = [
+            dict(r["k2"], shape=r["shape"], cluster=r["k2_ctas"],
+                 launches_per_step=r["k2_launches"]) for r in run["rows"]]
     rec["instance_norm"]["ms_by_path"] = {
         "cartoon_cli": cli_run["k2_time"],
         "drawing_pipeline": main_run["k2_time"]}
-    for name, key in (("instance_norm", "k2"),
-                      ("instance_norm_backward", "k2b")):
+    # per photo: the fp32 K2 of MODNet and the static net, and K2-bf16 of
+    # encode_static; per batch: K2-bf16 alone
+    rec["instance_norm_bf16"]["ms_by_path"] = {
+        "drawing_pipeline_bf16": render_bf16["k2_time"]}
+    rec["instance_norm_bf16"]["max_abs_err"] = max(
+        rec["instance_norm_bf16"]["max_abs_err"], render_bf16["k2_path_err"],
+        train_bf16["fwd_err"])
+    for name, run, key in (("instance_norm", train, "k2"),
+                           ("instance_norm_backward", train, "k2b"),
+                           ("instance_norm_bf16", train_bf16, "k2"),
+                           ("instance_norm_backward_bf16", train_bf16,
+                            "k2b")):
+        path = "train_step_bf16" if name.endswith("bf16") else "train_step"
         rec[name]["ms_by_path"] = dict(
-            rec[name].get("ms_by_path", {}), train_step=dict(
-                launches_per_step=train["per_step"][name],
-                profiled_ms=train["profiled"][key],
-                device_ms=train["profiled"]["all"],
-                estimated_ms=train["estimated"][key]))
+            rec[name].get("ms_by_path", {}), **{path: dict(
+                launches_per_step=run["per_step"][name],
+                profiled_ms=run["profiled"][key],
+                device_ms=run["profiled"]["all"],
+                estimated_ms=run["estimated"][key])})
     launches = {
         "cartoon_cli": cli_run["launches"], "drawing_pipeline":
         main_run["launches"], "train_step": train["launches"],
-        "train_cli": trainer["launches"]}
-    # "launches": K1's and K2's on the user's entry point (phase 5, the
-    # cartoon CLI run), K2b's in the timed training steps (phase 7);
-    # "launches_by_path" has every path's
+        "train_cli": trainer["launches"],
+        "cartoon_cli_bf16": render_bf16["cli_launches"],
+        "drawing_pipeline_bf16": render_bf16["launches"],
+        "train_step_bf16": train_bf16["launches"],
+        "train_cli_bf16": train_bf16["cli_launches"]}
+    # "launches": K1's, K2's and K2-bf16's on the user's entry point (the
+    # cartoon CLI runs of phases 5 and 9), K2b's and K2b-bf16's in the timed
+    # training steps (phases 7 and 10); "launches_by_path" has every path's
+    main_path = {"stft_magnitude": "cartoon_cli",
+                 "instance_norm": "cartoon_cli",
+                 "instance_norm_backward": "train_step",
+                 "instance_norm_bf16": "cartoon_cli_bf16",
+                 "instance_norm_backward_bf16": "train_step_bf16"}
     say(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": repl,
-         "launches": launches["train_step" if name == "instance_norm_backward"
-                              else "cartoon_cli"][name],
+        {"name": name, "route": "cuda", "source": src_path,
+         "replaces": repl,
+         "launches": launches[main_path[name]][name],
          "launches_by_path": {path: n.get(name, 0)
                               for path, n in launches.items()},
          **rec[name]}
-        for name, (src, repl) in sources.items()]}))
+        for name, (src_path, repl) in sources.items()]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -368,7 +368,7 @@ def test_cli_drawing_output_name_and_gray_frames(inputs):
 def test_cli_rejects_what_it_does_not_run(inputs, tmp_path, capsys):
     d, png, wav, ckpt = inputs
     base = ["--audio", wav, "--ckpt_dir", ckpt, "--output", str(tmp_path)]
-    for flag in (["--warp_mode", "tps"], ["--render_bf16"], ["--video", wav]):
+    for flag in (["--warp_mode", "tps"], ["--video", wav]):
         with pytest.raises(SystemExit) as e:
             cli.main(["--jpg", png, *base, *flag, *TINY])
         assert e.value.code == 2

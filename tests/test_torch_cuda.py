@@ -493,3 +493,225 @@ def test_remat_grads_match_on_the_card(cuda_device):
             spread = float((getattr(again, net)[k] - v).abs().max())
             err = float((getattr(remat, net)[k] - v).abs().max())
             assert err <= max(1e-5 * scale, 2 * spread), (k, err, spread)
+
+
+# --- bf16: K2 and K2b on bf16 tensors -----------------------------------------
+
+# every bf16 InstanceNorm shape of the two bf16 paths that the fp32 lists do
+# not hold already: the render decode's and the training step's planes; the
+# 31 x 31 planes (hw odd), a plane of hw % 8 == 4 (14 x 14: 16-byte slices
+# impossible, scalar loads), an odd plane and the streaming branch
+BF16_SHAPES = sorted(set(
+    [(8, 128, 128, 128), (8, 256, 64, 64), (8, 8, 256, 256),
+     (8, 64, 256, 256), (1, 64, 512, 512), (1, 128, 256, 256),
+     (2, 6, 14, 14), (2, 3, 5, 7), (1, 4, 1024, 1024)] + TRAIN_IN_SHAPES))
+
+
+# K2b-bf16: one bf16 ulp of the largest |dx|
+K2B_BF16_RTOL = 2.0 ** -7
+
+
+def dx_within_bf16_ulp(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """|got - want| within one bf16 ulp of the largest |want|."""
+    return maxdiff(got.float().cpu(), want.float().cpu()) <= \
+        K2B_BF16_RTOL * float(want.float().abs().max())
+
+
+def within_bf16_ulp(got: torch.Tensor, want: torch.Tensor,
+                    atol: float = K2_ATOL) -> bool:
+    """Every element of ``got`` within one bf16 ulp of ``want`` at its
+    magnitude (the spacing of 8-bit significands), or within ``atol`` where
+    that ulp is smaller than the fp32 statistics' own error (|y| < ~1e-3:
+    two fp32 summation orders put y ~1e-6 apart before the rounding)."""
+    w = want.detach().double().cpu()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126)))
+                     - 7)
+    diff = (got.detach().double().cpu() - w).abs()
+    return bool((diff <= torch.clamp(ulp, min=atol)).all())
+
+
+def _k2_bf16_case(shape, relu, device, seed=0):
+    """bf16 activations (means up to tens of standard deviations), a bf16
+    upstream gradient and K2-bf16's saved statistics."""
+    x = k2_input(shape, device, seed=seed).bfloat16()
+    g = torch.randn(shape, generator=torch.Generator(device=device)
+                    .manual_seed(seed + 1), device=device).bfloat16()
+    stats = instnorm.empty_stats(x)
+    instnorm._launch(x, torch.empty_like(x), 1e-5, relu,
+                     instnorm.k2_cluster(x), stats)
+    return x, g, stats
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+@pytest.mark.parametrize("relu", [False, True])
+def test_k2_bf16_kernel_matches_plain(cuda_device, shape, relu):
+    """Within one bf16 ulp of the plain version at every element (both
+    round the same fp32 value, up to the order of the fp32 sums)."""
+    x = k2_input(shape, cuda_device, seed=5).bfloat16()
+    n = instnorm.instance_norm.launches_bf16
+    with torch.inference_mode():
+        got = instnorm.instance_norm(x, relu=relu)
+        want = instnorm.instance_norm_plain(x, relu=relu)
+    assert got.dtype == torch.bfloat16
+    assert instnorm.instance_norm.launches_bf16 == n + 1
+    assert within_bf16_ulp(got, want)
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+@pytest.mark.parametrize("relu", [False, True])
+def test_k2b_bf16_kernel_matches_plain(cuda_device, shape, relu):
+    """K2-bf16's statistics are the plain version's; K2b-bf16 within one bf16
+    ulp of the largest |dx| of the plain version on the same statistics."""
+    x, g, stats = _k2_bf16_case(shape, relu, cuda_device)
+    assert maxdiff(stats.cpu(), instnorm.instance_norm_stats_plain(x).cpu()) \
+        <= 1e-5 * float(stats.abs().max())
+    n = instnorm.instance_norm_backward.launches_bf16
+    got = instnorm.instance_norm_backward(x, g, stats, relu)
+    want = instnorm.instance_norm_backward_plain(x, g, stats, relu)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert instnorm.instance_norm_backward.launches_bf16 == n + 1
+    assert dx_within_bf16_ulp(got, want)
+
+
+# the bf16 slices: 2 bytes an element for K2 (so the 512^2 fp32 plane's 8
+# CTAs become 8 of 64 KB and 256^2 takes 2), 4 for K2b; scalar paths
+@pytest.mark.parametrize("shape,k2,k2b", [
+    ((2, 3, 64, 64), 1, 1), ((2, 4, 256, 256), 2, 4),
+    ((1, 4, 512, 512), 8, 8), ((1, 2, 1024, 1024), 0, 0),
+    ((1, 2, 257, 255), 2, 4), ((3, 5, 31, 31), 1, 1)])
+@pytest.mark.parametrize("relu", [False, True])
+def test_bf16_every_cluster_size(cuda_device, shape, k2, k2b, relu):
+    x, g, stats = _k2_bf16_case(shape, relu, cuda_device, seed=3)
+    assert (instnorm.k2_cluster(x), instnorm.k2b_cluster(x)) == (k2, k2b)
+    with torch.inference_mode():
+        y = instnorm.instance_norm(x, relu=relu)
+    want = instnorm.instance_norm_plain(x, relu=relu)
+    assert within_bf16_ulp(y, want)
+    got = instnorm.instance_norm_backward(x, g, stats, relu)
+    want = instnorm.instance_norm_backward_plain(x, g, stats, relu)
+    assert dx_within_bf16_ulp(got, want)
+
+
+def test_bf16_unaligned_input_takes_scalar_loads(cuda_device):
+    # a contiguous view 2 bytes into its buffer: no 16-byte bulk copies
+    # and no 8-byte vectors
+    buf = k2_input((1, 1, 1, 1 + 4 * 64 * 64), cuda_device).bfloat16() \
+        .reshape(-1)
+    x = buf[1:].view(4, 1, 64, 64)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    with torch.inference_mode():
+        got = instnorm.instance_norm(x, relu=True)
+    want = instnorm.instance_norm_plain(x, relu=True)
+    assert within_bf16_ulp(got, want)
+    gbuf = torch.randn(buf.shape, device=cuda_device).bfloat16()
+    g = gbuf[1:].view(4, 1, 64, 64)
+    stats = instnorm.instance_norm_stats_plain(x)
+    got = instnorm.instance_norm_backward(x, g, stats, True)
+    want = instnorm.instance_norm_backward_plain(x, g, stats, True)
+    assert dx_within_bf16_ulp(got, want)
+
+
+@pytest.mark.parametrize("relu", [False, True])
+def test_k2_bf16_gradient_path_matches_plain_autograd(cuda_device, relu):
+    """Autograd through K2-bf16 (K2b-bf16 in the backward) against autograd
+    through the plain version: the same function in fp32, rounded once."""
+    x, g, _ = _k2_bf16_case((4, 64, 128, 128), relu, cuda_device, seed=6)
+    xk = x.clone().requires_grad_()
+    xp = x.clone().requires_grad_()
+    dk = torch.autograd.grad(instnorm.instance_norm(xk, relu=relu), xk, g)[0]
+    dp = torch.autograd.grad(instnorm.instance_norm_plain(xp, relu=relu), xp,
+                             g)[0]
+    assert dk.dtype == dp.dtype == torch.bfloat16
+    assert dx_within_bf16_ulp(dk, dp)
+
+
+def test_bf16_counters_and_dtype_checks(cuda_device):
+    x = _act((2, 4, 8, 8)).to(cuda_device)
+    f32, b16 = (instnorm.instance_norm.launches,
+                instnorm.instance_norm.launches_bf16)
+    with torch.inference_mode():
+        instnorm.instance_norm(x)
+        instnorm.instance_norm(x.bfloat16(), relu=True)
+        instnorm.instance_norm_plain(x.bfloat16())
+        with pytest.raises(TypeError, match="bfloat16"):
+            instnorm.instance_norm(x.half())
+        stats = instnorm.instance_norm_stats_plain(x)
+        with pytest.raises(ValueError, match="not x's"):
+            instnorm.instance_norm_backward(x.bfloat16(), x, stats)
+    assert instnorm.instance_norm.launches == f32 + 1
+    assert instnorm.instance_norm.launches_bf16 == b16 + 1
+
+
+def test_small_bf16_renderer_card_matches_host(cuda_device):
+    """``use_bf16`` on the card (K2-bf16) and on the CPU (its plain
+    version): two bf16 renders of the same nets, each ~39 dB from fp32 on
+    the CPU at these widths (tests/test_torch_bf16_render.py), so held to
+    30 dB of each other; K2-bf16 launches, and fp32 K2 for MODNet."""
+    import copy
+
+    from animateportrait_tpu_torch.models.flowunet import FlowUnet
+    from animateportrait_tpu_torch.models.gan import (
+        ResnetStyle2Generator, TridentGeneratorFullIFW)
+    from animateportrait_tpu_torch.models.modnet import MODNet
+    from animateportrait_tpu_torch.pipeline.render import Module2Renderer
+    from animateportrait_tpu_torch.utils.smoke import init_random_
+
+    g = torch.Generator().manual_seed(0)
+    nets = [init_random_(n, g) for n in (
+        TridentGeneratorFullIFW(output_nc=1, ngf=8, n_blocks=3, div=3,
+                                disp=3),
+        FlowUnet(nf=4, num_scale=3, max_nf=64), MODNet(),
+        ResnetStyle2Generator(ngf=8, n_blocks=2))]
+    rng = np.random.default_rng(0)
+    photo = rng.uniform(-1, 1, (256, 256, 3)).astype(np.float32)
+    a68 = rng.uniform(70, 190, (68, 2)).astype(np.float32)
+    tb68 = a68 + rng.uniform(-2, 2, (3, 68, 2)).astype(np.float32)
+    f32, b16 = (instnorm.instance_norm.launches,
+                instnorm.instance_norm.launches_bf16)
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        r = Module2Renderer(*copy.deepcopy(nets), frame_batch=2, device=dev,
+                            use_bf16=True)
+        with torch.inference_mode():
+            outs.append(r(photo, a68, tb68))
+    assert instnorm.instance_norm.launches > f32
+    assert instnorm.instance_norm.launches_bf16 > b16
+    assert outs[0].dtype == np.float32 and np.isfinite(outs[0]).all()
+    assert psnr(outs[0], outs[1]) >= 30.0
+
+
+def test_bf16_training_step_on_the_card(cuda_device):
+    """One bf16 step at the small configuration: every InstanceNorm forward
+    through K2-bf16 and every backward through K2b-bf16, finite losses
+    within 2e-2 of the host's bf16 step, fp32 masters that move."""
+    from animateportrait_tpu_torch.train import module2 as m2
+
+    cfg = m2.Module2Config(crop_size=64, ngf=8, ndf=8, pool_size=4,
+                           compute_dtype="bfloat16")
+    batch = m2.make_random_batch(cfg, 1, torch.Generator().manual_seed(2),
+                                 "cpu")
+    out = {}
+    counts = (instnorm.instance_norm.launches,
+              instnorm.instance_norm_backward.launches,
+              instnorm.instance_norm.launches_bf16,
+              instnorm.instance_norm_backward.launches_bf16)
+    for where in (cuda_device, torch.device("cpu")):
+        state = m2.init_state(cfg, torch.Generator().manual_seed(0), where)
+        frozen = m2.init_frozen_random(torch.Generator().manual_seed(1),
+                                       where)
+        g0 = next(state.g.parameters()).detach().clone()
+        out[where.type] = m2.build_train_step(cfg).step(
+            state, {k: v.to(where) for k, v in batch.items()}, frozen,
+            torch.Generator().manual_seed(3))
+        assert {p.dtype for p in state.g.parameters()} == {torch.float32}
+        assert float((next(state.g.parameters()) - g0).abs().max()) > 0
+    now = (instnorm.instance_norm.launches,
+           instnorm.instance_norm_backward.launches,
+           instnorm.instance_norm.launches_bf16,
+           instnorm.instance_norm_backward.launches_bf16)
+    assert now[:2] == counts[:2]                  # no fp32 InstanceNorm
+    assert now[2] > counts[2] and now[3] > counts[3]
+    for k, v in out["cpu"].items():
+        assert np.isfinite(float(out["cuda"][k])), k
+        np.testing.assert_allclose(float(out["cuda"][k]), float(v),
+                                   rtol=2e-2, err_msg=k)

@@ -90,9 +90,17 @@ def test_to_configs_match_jax(argv):
                                   ["--data_parallel", "2"],
                                   ["--multihost", "1"]])
 def test_refused_flags_exit_with_their_name(tmp_path, flag):
+    """The flags the port does not run exit with their name; a bf16 step is
+    no longer refused, and its config carries the dtype (the bf16 trainer
+    itself runs in tests/test_torch_bf16_train.py)."""
+    argv = ["--dataroot", str(tmp_path), "--device", "cpu", *flag]
+    if flag[1] == "bfloat16":
+        m2cfg, _ = toptions.to_configs(train_cli.build_argparser()
+                                       .parse_args(argv))
+        assert m2cfg.compute_dtype == "bfloat16"
+        return
     with pytest.raises(SystemExit, match=f"{flag[0]} .*not ported yet"):
-        train_cli.main(["--dataroot", str(tmp_path), "--device", "cpu",
-                        *flag])
+        train_cli.main(argv)
 
 
 def test_cuda_device_without_a_card_raises(tmp_path):
