@@ -1,12 +1,15 @@
 """Command line of the PyTorch/CUDA port, the reference driver's surface
 (``main_end2end_module2.py``) as the JAX package's ``cli.py`` has it:
 
-    python -m animateportrait_tpu_torch.cli --jpg photo.png \\
-        --audio speech.wav --exp formal/cartoon --ckpt_dir checkpoints
+    python -m animateportrait_tpu_torch.cli --jpg photo.jpg \\
+        --audio speech.wav --exp formal/drawing --ckpt_dir checkpoints \\
+        --warp_mode tps
 
 writes ``<output>/<photo>-<audio>/output_<exp>.avi``: uncompressed RGB
-frames and the 16-bit PCM speech (``utils/video.py``). The photo is PNG or
-binary PPM/PGM (``utils/image.py:read_image``); JPEG is not read yet.
+frames and the 16-bit PCM speech (``utils/video.py``). The photo is a
+baseline JPEG, a PNG of any kind or a binary PPM/PGM, read as
+``cv2.imread`` reads it, EXIF orientation included
+(``utils/image.py:read_image``; progressive JPEGs are refused by name).
 
 Checkpoints are the reference's torch files, loaded as they are: the same
 wrapper keys as the JAX CLI (``model``, ``G``, ``model_g_face_id``,
@@ -15,12 +18,21 @@ wrapper keys as the JAX CLI (``model``, ``G``, ``model_g_face_id``,
 dropped by name (``io/reference.py``). A missing checkpoint gets seeded
 random weights with a warning, as in the JAX CLI: the pipeline runs end to
 end, but the output is no portrait animation. The MTCNN weights
-(``<ckpt_dir>/mtcnn/{pnet,rnet,onet}.npy``) are required. FAN3D is not
-ported yet, so a FAN checkpoint in ``--ckpt_dir`` is an error: the JAX CLI
-would use it and give other output. Not ported either: ``--video``,
-``--render_dp`` and ``--warp_mode tps``; argparse rejects them.
-``--render_bf16`` runs the renderer's per-frame nets in bf16
-(``pipeline/render.py``), through K2 in bf16 on the card.
+(``<ckpt_dir>/mtcnn/{pnet,rnet,onet}.npy``) are required.
+
+The 68 source landmarks come from face_alignment's FAN (``3DFAN4`` /
+``2DFAN4``, ``models/fan3d.py``) when ``find_fan_checkpoints`` finds one
+under ``--ckpt_dir`` (or its ``face_alignment/``), with z from its depth
+net when that is there too (0 without it, which the pipeline does not
+read); a FAN checkpoint that is found but does not load strictly is an
+error. Without one, the CLI warns and uses the 5-point canonical-face
+fit, as the JAX CLI does.
+
+``--warp_mode tps`` builds each frame batch's motion grid with the
+on-device thin-plate spline instead of the reference's griddata-linear
+grid (``pipeline/render.py``). ``--render_bf16`` runs the renderer's
+per-frame nets in bf16, through K2 in bf16 on the card. Not ported:
+``--video`` and ``--render_dp``; argparse rejects them.
 
 ``--device`` (default ``cuda``) is where every net runs; without a CUDA
 device, ``cuda`` is an error, never a silent fall back to the CPU.
@@ -29,7 +41,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import glob
 import os
 import pickle
 import sys
@@ -41,14 +52,11 @@ import torch
 from animateportrait_tpu_torch.io.reference import (
     MODNET_TRAINING_HEADS, load_or_init)
 
-FAN_CKPT_NAMES = ("3DFAN4-4a694010b9.zip", "3DFAN4-7835d9f11d.pth.tar",
-                  "3DFAN4.pth", "2DFAN4-cd938726ad.zip",
-                  "2DFAN4-11f355bf06.pth.tar", "2DFAN4.pth")
-
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("animateportrait_tpu_torch")
-    p.add_argument("--jpg", help="input face photo (PNG or binary PPM/PGM)")
+    p.add_argument("--jpg", help="input face photo (baseline JPEG, PNG or "
+                   "binary PPM/PGM)")
     p.add_argument("--audio", help="input speech wav")
     p.add_argument("--rerun", type=int, default=0,
                    help="accepted for reference-CLI parity; the pipeline "
@@ -84,10 +92,11 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="run the per-frame nets (trident generator + "
                         "intrinsic-flow Unet) in bfloat16; the "
                         "once-per-photo nets stay fp32")
-    p.add_argument("--warp_mode", default="linear", choices=["linear"],
-                   help="per-frame warp grids: the reference's "
-                   "griddata-linear semantics (the JAX CLI's 'tps' is not "
-                   "ported)")
+    p.add_argument("--warp_mode", default="linear",
+                   choices=["linear", "tps"],
+                   help="per-frame warp grids: 'linear' is the reference's "
+                   "griddata-linear grid (host Delaunay); 'tps' the "
+                   "on-device thin-plate spline")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device for every net (default cuda)")
@@ -114,17 +123,43 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def find_fan_checkpoint(ckpt_dir: str) -> str | None:
-    """A face_alignment FAN checkpoint under <ckpt_dir>[/face_alignment],
-    looked up as the JAX package's ``models/fan3d.py`` does."""
-    for root in (ckpt_dir, os.path.join(ckpt_dir, "face_alignment")):
-        for n in FAN_CKPT_NAMES:
-            if os.path.exists(os.path.join(root, n)):
-                return os.path.join(root, n)
-        found = sorted(glob.glob(os.path.join(root, "*FAN4*.pth*")))
-        if found:
-            return found[0]
-    return None
+def build_landmark_fn(ckpt_dir: str, detector, device: torch.device):
+    """The FAN3D landmark hook (``models/fan3d.py:make_fan_landmark_fn``)
+    when ``find_fan_checkpoints`` finds a FAN checkpoint under
+    ``ckpt_dir``, with the depth net when it finds that too; None, with
+    the JAX CLI's warning, when there is no FAN. A checkpoint that is found
+    and does not load is an error."""
+    from animateportrait_tpu_torch.io.reference import (
+        load_fa_state_dict, load_into)
+    from animateportrait_tpu_torch.models import fan3d
+
+    fan_path, depth_path = fan3d.find_fan_checkpoints(ckpt_dir)
+    if fan_path is None:
+        print("[animateportrait_tpu_torch] WARNING: no face_alignment FAN "
+              f"checkpoint found under {ckpt_dir} (looked for "
+              "3DFAN4*/2DFAN4*.pth). Falling back to the canonical-face "
+              "5-pt fit: every subject gets the same jaw/brow/lip geometry "
+              "up to a similarity transform, so output will NOT track this "
+              "face's actual shape. Place a face_alignment checkpoint in "
+              "the checkpoint dir to fix this.", file=sys.stderr)
+        return None
+    nets = []
+    for path, net in ((fan_path, fan3d.FAN3D()),
+                      (depth_path, fan3d.ResNetDepth())):
+        if path is None:
+            nets.append(None)
+            continue
+        try:
+            nets.append(load_into(net, load_fa_state_dict(path)))
+        except Exception as e:
+            raise SystemExit(f"cannot load the face_alignment checkpoint "
+                             f"{path}: {type(e).__name__}: {e}") from e
+    if depth_path is None:
+        print("[animateportrait_tpu_torch] FAN loaded without the depth "
+              "net; z comes out 0 (the driver overwrites z anyway)",
+              file=sys.stderr)
+    return fan3d.make_fan_landmark_fn(
+        fan3d.FaceAlignment3D(nets[0], nets[1], device=device), detector)
 
 
 def build_pipeline(args):
@@ -147,14 +182,6 @@ def build_pipeline(args):
     cd = args.ckpt_dir
     style = "drawing" if "drawing" in args.exp else "cartoon"
 
-    fan = find_fan_checkpoint(cd)
-    if fan:
-        raise SystemExit(
-            f"found the FAN checkpoint {fan}: FAN3D is not ported to "
-            "animateportrait_tpu_torch yet, and without it the output would "
-            "differ from the JAX CLI's on the same inputs. Move it out of "
-            f"{cd} to use the 5-point canonical-face fit, or run the JAX "
-            "CLI (animateportrait).")
     mtcnn_dir = os.path.join(cd, "mtcnn")
     paths = [os.path.join(mtcnn_dir, f"{n}.npy") for n in ("pnet", "rnet",
                                                             "onet")]
@@ -165,10 +192,7 @@ def build_pipeline(args):
     detector = mtcnn.MTCNNDetector(mtcnn.load_pnet(paths[0]),
                                    mtcnn.load_rnet(paths[1]),
                                    mtcnn.load_onet(paths[2]), device=device)
-    print("[animateportrait_tpu_torch] WARNING: FAN3D is not ported; the 68 "
-          "source landmarks come from the canonical-face 5-point fit, so "
-          "the output does not track this face's own shape.",
-          file=sys.stderr)
+    landmark_fn = build_landmark_fn(cd, detector, device)
 
     autovc = load_or_init(os.path.join(cd, args.load_AUTOVC_name),
                           AutoVCGenerator(), "autovc", unwrap="model")
@@ -208,7 +232,9 @@ def build_pipeline(args):
         Module2Renderer(generator, flow, modnet, static_g,
                         frame_batch=args.frame_batch, output_uint8=True,
                         device=device, style=style, cartoon_g=cartoon_g,
-                        use_bf16=args.render_bf16))
+                        use_bf16=args.render_bf16,
+                        motion_mode=args.warp_mode),
+        landmark_fn=landmark_fn)
 
 
 def load_train_embs(ckpt_dir: str) -> dict:

@@ -17,9 +17,9 @@ that one gives: images (C, H, W) float32, landmarks (68, 2) (x, y), face
 windows (4,) int32 and the Delaunay simplices ``tri_motion`` /
 ``tri_motion2`` (the train step evaluates the warp grids from them).
 Images are decoded and resized on the host without PIL
-(``utils/image.py``: ``load_image``, ``resize_bicubic_pil``), byte for byte
-as PIL does it; the PNG reader refuses JPEG, so a ``Photo/**/*.jpg`` the
-JAX dataset would read is an error here.
+(``utils/image.py``: ``load_images``, ``resize_bicubic_pil``), byte for
+byte as PIL does it, the ``Photo/**/*.jpg`` photos through the port's JPEG
+decoder (``utils/jpeg.py``) with PIL's semantics (no EXIF rotation).
 
 ``loader(...)`` feeds the train step from ``--num_threads`` worker
 processes: the main process draws each batch's indices and one seed per
@@ -41,7 +41,7 @@ import torch
 
 from animateportrait_tpu_torch.ops.tps import triangulate_frames
 from animateportrait_tpu_torch.utils.image import (
-    draw_dots, load_images, png_size, resize_bicubic_pil)
+    draw_dots, load_images, image_size, resize_bicubic_pil)
 
 FLIP_REMAP = np.array(
     [16, 15, 14, 13, 12, 11, 10, 9, 8, 7, 6, 5, 4, 3, 2, 1, 0,
@@ -275,8 +275,8 @@ class UMLVDIFWDataset:
                                      params, normalize=False)
             return out
 
-        A_size = png_size(A_path)
-        B_size = png_size(B_path)
+        A_size = image_size(A_path)
+        B_size = image_size(B_path)
         pA = _get_params2(cfg, A_size, rng)
         pB = _get_params2(cfg, B_size, rng)
         A = load_group(A_path, "A", A_size, pA)
@@ -304,7 +304,7 @@ class UMLVDIFWDataset:
 
             win1 = read_win(B1_path)
             win2 = read_win(B2_path)
-            B1_size = png_size(B1_path)
+            B1_size = image_size(B1_path)
             p1 = _get_params3(cfg, B1_size, win1, win2, rng)
             for name, path in (("B1_img", B1_path), ("B2_img", B2_path)):
                 item[name] = loads.add(path, cfg.output_nc == 1, p1)

@@ -446,3 +446,64 @@ def senet50_state_dict(variables: Tree, layers: tuple = (3, 4, 6, 3)
                 _batchnorm(sd, f"{theirs}.downsample.1",
                            pb["down_bn"]["bn"], sb["down_bn"]["bn"])
     return sd
+
+
+def _fa_convblock(sd: dict, name: str, p: Tree, s: Tree) -> None:
+    """face_alignment ConvBlock: conv1-3 without bias, bn1-3, and the
+    shortcut ``downsample`` = Sequential(BN, ReLU, Conv1x1) when present."""
+    for i in (1, 2, 3):
+        _conv2d(sd, f"{name}.conv{i}", p[f"conv{i}"])
+        _batchnorm(sd, f"{name}.bn{i}", p[f"bn{i}"]["bn"], s[f"bn{i}"]["bn"])
+    if "ds_conv" in p:
+        _batchnorm(sd, f"{name}.downsample.0", p["ds_bn"]["bn"],
+                   s["ds_bn"]["bn"])
+        _conv2d(sd, f"{name}.downsample.2", p["ds_conv"])
+
+
+def fan3d_state_dict(variables: Tree, num_modules: int = 4
+                     ) -> dict[str, torch.Tensor]:
+    """Inverse of ``load_fan3d_params``: FAN3D variables -> a face_alignment
+    2DFAN4/3DFAN4 state dict."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: dict = {}
+    _conv2d(sd, "conv1", p["conv1"])
+    _batchnorm(sd, "bn1", p["bn1"]["bn"], s["bn1"]["bn"])
+    for name in ("conv2", "conv3", "conv4"):
+        _fa_convblock(sd, name, p[name], s[name])
+    for m in range(num_modules):
+        hp, hs = p[f"m{m}"], s[f"m{m}"]
+        for block in hp:
+            _fa_convblock(sd, f"m{m}.{block}", hp[block], hs[block])
+        _fa_convblock(sd, f"top_m_{m}", p[f"top_m_{m}"], s[f"top_m_{m}"])
+        _conv2d(sd, f"conv_last{m}", p[f"conv_last{m}"])
+        _batchnorm(sd, f"bn_end{m}", p[f"bn_end{m}"]["bn"],
+                   s[f"bn_end{m}"]["bn"])
+        _conv2d(sd, f"l{m}", p[f"l{m}"])
+        if m < num_modules - 1:
+            _conv2d(sd, f"bl{m}", p[f"bl{m}"])
+            _conv2d(sd, f"al{m}", p[f"al{m}"])
+    return sd
+
+
+def depth_state_dict(variables: Tree, layers: tuple = (3, 8, 36, 3)
+                     ) -> dict[str, torch.Tensor]:
+    """Inverse of ``load_depth_params``: ResNetDepth variables -> a
+    face_alignment ``depth`` state dict."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: dict = {}
+    _conv2d(sd, "conv1", p["conv1"])
+    _batchnorm(sd, "bn1", p["bn1"]["bn"], s["bn1"]["bn"])
+    for li, blocks in enumerate(layers):
+        for b in range(blocks):
+            ours, theirs = f"layer{li + 1}_{b}", f"layer{li + 1}.{b}"
+            pb, sb = p[ours], s[ours]
+            for i in (1, 2, 3):
+                _conv2d(sd, f"{theirs}.conv{i}", pb[f"conv{i}"])
+                _batchnorm(sd, f"{theirs}.bn{i}", pb[f"bn{i}"]["bn"],
+                           sb[f"bn{i}"]["bn"])
+            if "ds_conv" in pb:
+                _conv2d(sd, f"{theirs}.downsample.0", pb["ds_conv"])
+                _batchnorm(sd, f"{theirs}.downsample.1", pb["ds_bn"]["bn"],
+                           sb["ds_bn"]["bn"])
+    _dense(sd, "fc", p["fc"])
+    return sd

@@ -8,7 +8,10 @@ A torch checkpoint is unwrapped as the JAX CLIs unwrap it (a module's
 a leading ``module.``, and goes into the net by a strict
 ``load_state_dict``, less the keys a ``drop`` pattern names. Both CLIs load
 through ``load_or_init``: a missing file gives seeded random weights and a
-warning, as in the JAX package.
+warning, as in the JAX package. face_alignment's FAN and depth checkpoints
+(``.pth.tar`` state dicts or torchscript ``.zip`` archives) load through
+``load_fa_state_dict``, strictly, and are never replaced by random
+weights.
 
 ``load_frozen`` fills the training step's four frozen nets from
 ``--frozen_dir``: a ``<role>.flax.npz`` that the JAX package's
@@ -49,6 +52,18 @@ def load_state_dict(path: str, unwrap: str | None = None) -> dict:
     return {(k[len("module."):] if k.startswith("module.") else k):
             torch.as_tensor(v) for k, v in obj.items()
             if torch.is_tensor(v) or isinstance(v, np.ndarray)}
+
+
+def load_fa_state_dict(path: str) -> dict:
+    """A face_alignment checkpoint -> {key: tensor}: a torchscript ``.zip``
+    archive (the package's newer releases) through ``torch.jit.load``, a
+    ``.pth.tar`` / ``.pth`` state dict through ``load_state_dict``, as the
+    JAX CLI reads them (``cli.py:_load_fa_statedict``)."""
+    if path.endswith(".zip"):
+        sd = torch.jit.load(path, map_location="cpu").state_dict()
+        return {(k[len("module."):] if k.startswith("module.") else k):
+                v.detach() for k, v in sd.items()}
+    return load_state_dict(path)
 
 
 def load_into(net: torch.nn.Module, sd: dict,

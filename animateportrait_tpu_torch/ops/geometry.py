@@ -1,9 +1,10 @@
 """68-point face-landmark geometry. Port of the parts of
 ``animateportrait_tpu/ops/geometry.py`` that the slice runs:
 ``norm_input_face`` and ``add_naive_eye`` on the host (numpy, as there),
-``area_of_signed_polygon`` on tensors.
+``area_of_signed_polygon``, ``best_fit_transform`` and ``icp`` on tensors.
 
-Reference: Module1/util/utils.py:348-393 and Module1/util/geo_math.py:34.
+Reference: Module1/util/utils.py:348-393, Module1/util/geo_math.py:34 and
+Module1/util/icp.py.
 """
 from __future__ import annotations
 
@@ -76,3 +77,46 @@ def area_of_signed_polygon(pts: torch.Tensor) -> torch.Tensor:
     xn = torch.roll(x, -1, dims=-1)
     yn = torch.roll(y, -1, dims=-1)
     return 0.5 * torch.sum(x * yn - xn * y, dim=-1)
+
+
+def best_fit_transform(A: torch.Tensor, B: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Least-squares rigid transform (R, t) taking the point set A (n, m)
+    onto B by SVD (Module1/util/icp.py:5-50). Returns (the (m + 1) x
+    (m + 1) homogeneous T, R, t)."""
+    m = A.shape[1]
+    ca, cb = A.mean(0), B.mean(0)
+    H = (A - ca).T @ (B - cb)
+    U, _, Vt = torch.linalg.svd(H)
+    d = torch.sign(torch.linalg.det(Vt.T @ U.T))
+    D = torch.diag(torch.cat([torch.ones(m - 1, dtype=A.dtype,
+                                         device=A.device), d[None]]))
+    R = Vt.T @ D @ U.T
+    t = cb - R @ ca
+    T = torch.eye(m + 1, dtype=A.dtype, device=A.device)
+    T[:m, :m] = R
+    T[:m, m] = t
+    return T, R, t
+
+
+def icp(A: torch.Tensor, B: torch.Tensor, max_iterations: int = 50,
+        tolerance: float = 1e-4) -> tuple[torch.Tensor, torch.Tensor]:
+    """Iterative closest point registration of A onto B
+    (Module1/util/icp.py:77-113): each step moves A's current copy by the
+    rigid fit to its nearest points of B, until the mean distance changes
+    by less than ``tolerance``. Returns (the homogeneous transform from A
+    to where it ended, the last mean distance)."""
+    src = A
+    prev = torch.zeros((), dtype=A.dtype, device=A.device)
+    err = prev
+    for _ in range(max_iterations):
+        d2 = torch.sum((src[:, None, :] - B[None, :, :]) ** 2, dim=-1)
+        dist, idx = torch.min(d2, dim=1)
+        _, R, t = best_fit_transform(src, B[idx])
+        src = src @ R.T + t
+        err = torch.sqrt(dist).mean()
+        if torch.abs(prev - err) < tolerance:
+            break
+        prev = err
+    T, _, _ = best_fit_transform(A, src)
+    return T, err

@@ -2,9 +2,11 @@
 ``animateportrait_tpu/pipeline/end2end.py``.
 
 The stages pass numpy arrays, as in the JAX package: detect (device, with
-the NMS loops on the host), align (host), audio features (device),
-landmark prediction (device), landmark un-normalization, blinks and
-smoothing (host), rendering (device). The JAX pipeline's background
+the NMS loops on the host), align (host), the 68 source landmarks (FAN3D
+and its depth net on the device through ``landmark_fn`` when one is given,
+timed as the "fan" stage; else the 5-point canonical-face fit), audio
+features (device), landmark prediction (device), landmark
+un-normalization, blinks and smoothing (host), rendering (device). The JAX pipeline's background
 warm-up thread existed to overlap XLA compiles; PyTorch compiles nothing,
 so the port has no such thread.
 """
@@ -14,6 +16,7 @@ import dataclasses
 import os
 import pickle
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -41,12 +44,11 @@ class PipelineOutputs:
     fps: float = FPS
 
 
-def face_shape(five: np.ndarray):
-    """5 aligned points -> (raw 68x3 shape in aligned-512 pixels,
-    normalized shape, scale, shift): the canonical-face fit (FAN3D is not
-    ported yet), the manual lip/eye adjustment
-    (main_end2end_module2.py:195-198) and ``norm_input_face``."""
-    shape_3d = estimate_landmarks_from_5pt(five)
+def face_shape(shape_3d: np.ndarray):
+    """68 x 3 landmarks in aligned-512 pixels -> (the raw shape, normalized
+    shape, scale, shift): the manual lip/eye adjustment
+    (main_end2end_module2.py:195-198), then ``norm_input_face``."""
+    shape_3d = np.array(shape_3d, np.float64)
     shape_3d[49:54, 1] += 1.0
     shape_3d[55:60, 1] -= 1.0
     shape_3d[[37, 38, 43, 44], 1] -= 2.0
@@ -79,14 +81,20 @@ def write_stage_dumps(dump_dir: str, mel_autovc: np.ndarray,
 
 
 class TalkingPortraitPipeline:
-    """photo (BGR uint8) + wav (array or path) -> frames."""
+    """photo (BGR uint8) + wav (array or path) -> frames.
+
+    landmark_fn: the aligned BGR 512 photo -> its (68, 3) landmarks (the
+    CLI's FAN3D hook, ``models/fan3d.py:make_fan_landmark_fn``); without
+    one, the 5-point canonical-face fit."""
 
     def __init__(self, detector, landmark_predictor: LandmarkPredictor,
-                 audio_pipeline: AudioPipeline, renderer: Module2Renderer):
+                 audio_pipeline: AudioPipeline, renderer: Module2Renderer,
+                 landmark_fn: Callable[[np.ndarray], np.ndarray] | None = None):
         self.detector = detector
         self.predictor = landmark_predictor
         self.audio = audio_pipeline
         self.renderer = renderer
+        self.landmark_fn = landmark_fn
 
     def __call__(self, img_bgr: np.ndarray, wav: np.ndarray | str,
                  gender: str = "F",
@@ -117,8 +125,15 @@ class TalkingPortraitPipeline:
         boxes, lms = detect(img_bgr, self.detector)
         mark("detect")
         aligned, five = align_detections(img_bgr, boxes, lms)
-        raw_shape, norm_shape, scale, shift = face_shape(five)
-        mark("align")
+        if self.landmark_fn is None:
+            raw_shape, norm_shape, scale, shift = face_shape(
+                estimate_landmarks_from_5pt(five))
+            mark("align")
+        else:
+            mark("align")
+            raw_shape, norm_shape, scale, shift = face_shape(
+                self.landmark_fn(aligned))
+            mark("fan")
         feats = self.audio(wav, gender)
         if dump_dir:
             write_stage_dumps(dump_dir, feats.mel_autovc, feats.spk_emb,

@@ -5,7 +5,12 @@ Module1/src/approaches/train_audio2landmark.py:101-351,594-617).
 Per 512-frame segment, on the device: the pos branch, Savitzky-Golay
 smoothing, the close-mouth blend, the content branch with its min-K
 calibration, and the inverse-lip fix; then the nose-top revision and a
-final 5-tap smoothing over the whole track.
+final 5-tap smoothing over the whole track. Two optional post passes of
+the reference's ``__train_pass__`` (:313-331) follow on the host:
+``centerize_face`` moves every frame's centroid to the face id's, and
+``no_y_rotation`` registers each frame's nose-and-eyes "T" to the
+canonical face by ICP (``ops/geometry.py:icp``) and removes the rotation
+about the x axis.
 """
 from __future__ import annotations
 
@@ -15,7 +20,9 @@ import torch
 from animateportrait_tpu_torch.models.audio2landmark import (
     Audio2landmarkContent, Audio2landmarkPos)
 from animateportrait_tpu_torch.ops.filters import savgol_filter
-from animateportrait_tpu_torch.ops.geometry import area_of_signed_polygon
+from animateportrait_tpu_torch.ops.geometry import (
+    area_of_signed_polygon, icp)
+from animateportrait_tpu_torch.utils import assets
 from animateportrait_tpu_torch.utils.device import (
     DEFAULT_DEVICE, resolve_device)
 
@@ -156,10 +163,12 @@ class LandmarkPredictor:
         return solve_inverse_lip(fl_dis + baseline + face_id[0:1])
 
     def __call__(self, au_windows: np.ndarray, emb: np.ndarray,
-                 face_id: np.ndarray) -> np.ndarray:
+                 face_id: np.ndarray, centerize_face: bool = False,
+                 no_y_rotation: bool = False) -> np.ndarray:
         """au_windows (T, 18, 80), emb (256,), face_id (1, 204) -> (T, 204).
         Segments of 512 windows; a trailing segment under 10 frames is
-        dropped, as in the reference (:284-285)."""
+        dropped, as in the reference (:284-285). centerize_face and
+        no_y_rotation are the reference's optional post passes."""
         dev = self.device
         aus = torch.as_tensor(au_windows, dtype=torch.float32, device=dev)
         fid = torch.as_tensor(face_id, dtype=torch.float32,
@@ -171,4 +180,39 @@ class LandmarkPredictor:
                 for j in range(0, T, SEG_BS)
                 if aus[j: j + SEG_BS].shape[0] >= 10]
         fl = revise_nose_top(torch.cat(outs, dim=0))
-        return savgol_filter(fl, 5, 3).cpu().numpy()
+        out = savgol_filter(fl, 5, 3).cpu().numpy()
+        if centerize_face:
+            out = centerize(out, np.asarray(face_id, np.float32))
+        if no_y_rotation:
+            out = remove_y_rotation(out)
+        return out
+
+
+def centerize(fl: np.ndarray, face_id: np.ndarray) -> np.ndarray:
+    """Every frame's centroid moved to the face id's (:313-318); fl
+    (T, 204), face_id (1, 204)."""
+    std_m = face_id.reshape(1, 68, 3).mean(axis=1, keepdims=True)
+    f = fl.reshape(-1, 68, 3)
+    return (f - f.mean(axis=1, keepdims=True) + std_m).reshape(-1, 204)
+
+
+def remove_y_rotation(fl: np.ndarray) -> np.ndarray:
+    """Per frame: ICP of the "T" points (``assets.T_SHAPE_IDX``) onto the
+    canonical face's, in the frame's dtype; the rotation's x Euler angle
+    set to 0, yaw and roll kept; the frame less the ICP translation taken
+    through the new rotation and translated back (:320-331). fl (T, 204)."""
+    from scipy.spatial.transform import Rotation
+
+    idx = list(assets.T_SHAPE_IDX)
+    std_t = torch.as_tensor(assets.std_face_landmarks()[idx],
+                            dtype=torch.float32)
+    out = fl.reshape(-1, 68, 3).copy()
+    for i in range(out.shape[0]):
+        T, _ = icp(torch.as_tensor(out[i, idx], dtype=torch.float32), std_t)
+        T = T.numpy()
+        rot = Rotation.from_matrix(T[:3, :3]).as_euler("xyz")
+        rot = Rotation.from_euler("xyz", [0.0, rot[1], rot[2]]).as_matrix()
+        pts = out[i] - T[:3, 3]
+        out[i] = (np.hstack([rot, T[:3, 3:4]])
+                  @ np.hstack([pts, np.ones((68, 1))]).T).T
+    return out.reshape(-1, 204)

@@ -4,11 +4,19 @@ styles. Port of ``animateportrait_tpu/pipeline/render.py:Module2Renderer``
 
 Once per photo: the MODNet matte, the static stylization (the drawing net
 at 512 px, or Photo2Cartoon at 256 px), and the generator's
-frame-invariant ``encode_static``. Per frame batch, on the
-device: the exact griddata-linear motion grid from a host Delaunay, the
-landmark dot images, FlowUnet's intrinsic flow, the generator's
-``decode``, the warped-matte blend and the uint8 conversion; each batch's
-frames then go to the host.
+frame-invariant ``encode_static``. Per frame batch, on the device: the
+motion grid, the landmark dot images, FlowUnet's intrinsic flow, the
+generator's ``decode``, the warped-matte blend and the uint8 conversion;
+each batch's frames then go to the host.
+
+``motion_mode`` picks the motion grid, as in the JAX renderer: "linear"
+(the default) is the reference's griddata-linear grid, exact, from a host
+Delaunay of each frame's control points and a dense barycentric
+evaluation on the device (``ops/tps.py:linear_motion_grid``); "tps" (the
+CLI's ``--warp_mode tps``) fits a polyharmonic spline to each frame's
+landmark correspondence on the device (``ops/tps.py:
+motion_grid_from_landmarks``, a ``linalg.solve`` per frame), with no host
+step, for both styles and under ``use_bf16``.
 
 ``use_bf16`` (the CLI's ``--render_bf16``) runs the per-frame nets in bf16
 as the JAX renderer does: bf16 copies of the trident generator and of
@@ -35,7 +43,7 @@ from animateportrait_tpu_torch.models.photo2cartoon import (
     Photo2CartoonGenerator)
 from animateportrait_tpu_torch.nn import cast_parameters
 from animateportrait_tpu_torch.ops.tps import (
-    linear_motion_grid, triangulate_frames)
+    linear_motion_grid, motion_grid_from_landmarks, triangulate_frames)
 from animateportrait_tpu_torch.utils.device import (
     DEFAULT_DEVICE, resolve_device)
 
@@ -82,7 +90,7 @@ class Module2Renderer:
                  device: torch.device | str = DEFAULT_DEVICE,
                  style: str = "drawing",
                  cartoon_g: Photo2CartoonGenerator | None = None,
-                 use_bf16: bool = False):
+                 use_bf16: bool = False, motion_mode: str = "linear"):
         static = {"drawing": ("static_g", static_g),
                   "cartoon": ("cartoon_g", cartoon_g)}
         if style not in static:
@@ -90,6 +98,10 @@ class Module2Renderer:
         if static[style][1] is None:
             raise ValueError(f"Module2Renderer: style {style!r} needs "
                              f"{static[style][0]}")
+        if motion_mode not in ("linear", "tps"):
+            raise ValueError(f"Module2Renderer: unknown motion_mode "
+                             f"{motion_mode!r}")
+        self.motion_mode = motion_mode
         self.device = resolve_device(device)
         self.style = style
         self.g = generator.to(self.device).eval()
@@ -137,11 +149,15 @@ class Module2Renderer:
 
     def frames(self, g_cache, mask, fake_static, a_lm68, tb_lm68s,
                motions=None, simplices=None) -> torch.Tensor:
-        """One frame batch. a_lm68 (1, 68, 2); tb_lm68s (B, 68, 2); either
-        ``motions`` (B, 256, 256, 2) or the ``simplices`` of each frame."""
+        """One frame batch. a_lm68 (1, 68, 2); tb_lm68s (B, 68, 2); the
+        ``motions`` (B, 256, 256, 2), or the ``simplices`` of each frame
+        for the linear grid, or neither for the TPS grid."""
         B = tb_lm68s.shape[0]
         cs = CROP_SIZE
-        if motions is None:
+        if motions is None and simplices is None:
+            motions = motion_grid_from_landmarks(a_lm68.expand(B, 68, 2),
+                                                 tb_lm68s, cs)
+        elif motions is None:
             motions = linear_motion_grid(a_lm68.expand(B, 68, 2), tb_lm68s,
                                          simplices, cs)
         tb_lm_imgs = landmark_dot_images(tb_lm68s, cs)
@@ -175,7 +191,7 @@ class Module2Renderer:
         nc is 1 for drawing, 3 for cartoon.
 
         motions: optional (T, 256, 256, 2) grids that replace the
-        Delaunay-linear ones (the reference's griddata grids)."""
+        renderer's own (the reference's griddata grids)."""
         dev = self.device
         cs = CROP_SIZE
         photo_t = torch.as_tensor(photo, dtype=torch.float32,
@@ -190,7 +206,7 @@ class Module2Renderer:
         mo_p = tris_p = None
         if motions is not None:
             mo_p = np.concatenate([motions, np.repeat(motions[-1:], pad, 0)])
-        else:
+        elif self.motion_mode == "linear":
             tris_p = triangulate_frames(tb68_p, cs)
         outs = []
         for j in range(0, tb68_p.shape[0], fb):

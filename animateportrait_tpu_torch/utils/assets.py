@@ -15,6 +15,9 @@ import os
 import numpy as np
 
 ASSET_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "assets")
+# the nose bridge, nose tip and eye corners: the rigid "T" the ICP of the
+# landmark post-pass registers to the canonical face
+T_SHAPE_IDX = (27, 28, 29, 30, 33, 36, 39, 42, 45)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,12 +1,26 @@
 """Host image IO and resize without OpenCV or PIL.
 
-``read_image`` stands in for ``cv2.imread`` (the JAX CLI's reader): BGR
-uint8 from 8-bit non-interlaced PNG (gray, RGB, RGBA; the alpha channel is
-dropped, as OpenCV does) and from binary PPM/PGM. Anything else, JPEG
-included, raises an error that names what it reads. ``load_image`` stands
-in for ``PIL.Image.open(path).convert("RGB" | "L")`` (the training data
-layer's reader) on the same formats, ``png_size`` for ``.size``, and
+``read_image`` stands in for ``cv2.imread(path)`` (the JAX CLI's reader):
+BGR uint8 from JPEG, PNG and binary PPM/PGM. ``load_image(s)`` stands in
+for ``PIL.Image.open(path).convert("RGB" | "L")`` (the training data
+layer's reader) on the same formats, ``image_size`` for ``.size``, and
 ``write_png`` writes 8-bit gray or RGB PNGs with a chosen row filter.
+
+JPEG goes through the port's own baseline decoder (``utils/jpeg.py``),
+which gives libjpeg-turbo's samples byte for byte. The two readers differ
+where OpenCV and PIL do: ``read_image`` applies the EXIF orientation (1-8)
+as ``cv2.imread`` does, ``load_image`` does not. PNG: every colour type
+(gray, RGB, palette, gray + alpha, RGBA), bit depths 1-16 and Adam7
+interlace; alpha and ``tRNS`` are dropped, as both readers drop them for
+RGB and gray output; gray below 8 bits is scaled to 0-255. 16-bit
+samples keep their high byte, except 16-bit gray in ``load_image``, which
+PIL opens as ``I;16`` and clips to 255 when it converts.
+
+``resize_linear`` is ``cv2.resize(img, (w, h), interpolation=INTER_LINEAR)``
+on uint8, byte for byte: OpenCV's fp32 source coordinates, 11-bit weights,
+an integer horizontal pass (clamped columns), and its vector path's
+vertical pass, ``((b0 * (S0 >> 4)) >> 16) + ((b1 * (S1 >> 4)) >> 16) + 2)
+>> 2``, whose rows are clamped but whose weights are not.
 
 ``resize_bicubic_pil`` is ``PIL.Image.resize(..., Image.BICUBIC)`` byte for
 byte: PIL's a = -0.5 cubic, its support widened by the downscale factor,
@@ -34,15 +48,23 @@ import zlib
 
 import numpy as np
 
-READS = ("PNG (8-bit, non-interlaced: gray, RGB, RGBA)",
+from animateportrait_tpu_torch.utils import jpeg
+
+READS = ("baseline JPEG (utils/jpeg.py)",
+         "PNG (any colour type and bit depth, Adam7 included)",
          "binary PPM (P6) and PGM (P5) with maxval 255")
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
-_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}       # colour type -> samples per pixel
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # colour type -> samples
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+               4: (8, 16), 6: (8, 16)}
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _unsupported(path: str, what: str) -> ValueError:
     return ValueError(f"read_image: {path} is {what}; the port reads "
-                      + " and ".join(READS))
+                      + ", ".join(READS))
 
 
 def _unfilter_row(kind: int, line: np.ndarray, prior: np.ndarray,
@@ -179,9 +201,49 @@ def _split_rows(raw: bytes, h: int, w: int, bpp: int
     return kinds, rows[:, 1:].reshape(h, w, bpp)
 
 
-def _png_rows(path: str, data: bytes) -> tuple[np.ndarray, np.ndarray]:
-    """A PNG file's rows: (filters (H,), filtered bytes (H, W, channels))."""
-    pos, idat, hdr = 8, [], None
+def _unfilter(kinds: np.ndarray, lines: np.ndarray) -> np.ndarray:
+    """One image's rows, by the cheaper of the row loop and the
+    wavefront."""
+    h, w, bpp = lines.shape
+    if _slow_bytes(kinds, lines) <= _WAVEFRONT_BYTES_PER_STEP * (h + w):
+        return _unfilter_rows(kinds, lines)
+    return _unfilter_wavefront(np.repeat(kinds[:, None], bpp, 1), lines)
+
+
+def _png_samples(raw: np.ndarray, w: int, depth: int, ctype: int,
+                 palette: np.ndarray | None) -> np.ndarray:
+    """Unfiltered rows (H, row bytes) of one image or Adam7 pass ->
+    (H, W, C) samples: palette indices looked up (C = 3), alpha dropped,
+    gray below 8 bits scaled to 0-255, 16 bits kept as uint16 for gray and
+    cut to the high byte for the other types."""
+    h = raw.shape[0]
+    ch = _PNG_CHANNELS[ctype]
+    if depth < 8:
+        bits = np.unpackbits(raw, axis=1).reshape(h, -1, depth)
+        weights = 1 << np.arange(depth - 1, -1, -1)
+        px = (bits * weights).sum(-1)[:, :w].astype(np.uint8)[..., None]
+        if ctype == 0:
+            px = px * np.uint8(255 // ((1 << depth) - 1))
+    elif depth == 16:
+        px = raw.reshape(h, w, ch, 2).astype(np.uint16)
+        px = (px[..., 0] << 8) | px[..., 1]
+        if ctype != 0:
+            px = (px >> 8).astype(np.uint8)
+    else:
+        px = raw.reshape(h, w, ch)
+    if ctype == 3:
+        return palette[px[..., 0]]
+    if ctype in (4, 6):                  # drop alpha
+        px = px[..., :ch - 1]
+    return px
+
+
+def _png_parse(path: str, data: bytes):
+    """A PNG file -> (its filtered rows, one (filters (H,), filtered bytes
+    (H, W, bpp)) per Adam7 pass or one in all, and the function that makes
+    samples (H, W, C) from their unfiltered bytes). A row's filter unit is
+    its pixel's bytes, or one byte below 8 bits a pixel."""
+    pos, idat, hdr, plte = 8, [], None, None
     while pos + 8 <= len(data):
         n, tag = struct.unpack(">I4s", data[pos: pos + 8])
         body = data[pos + 8: pos + 8 + n]
@@ -191,6 +253,8 @@ def _png_rows(path: str, data: bytes) -> tuple[np.ndarray, np.ndarray]:
             raise ValueError(f"read_image: {path}: corrupt PNG chunk {tag}")
         if tag == b"IHDR":
             hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif tag == b"IDAT":
             idat.append(body)
         elif tag == b"IEND":
@@ -199,14 +263,48 @@ def _png_rows(path: str, data: bytes) -> tuple[np.ndarray, np.ndarray]:
     if hdr is None or not idat:
         raise ValueError(f"read_image: {path}: PNG without IHDR or IDAT")
     w, h, depth, ctype, _, _, interlace = hdr
-    if depth != 8 or ctype not in _PNG_CHANNELS or interlace:
+    if ctype not in _PNG_DEPTHS or depth not in _PNG_DEPTHS[ctype] or (
+            interlace > 1):
         raise _unsupported(path, f"a PNG of bit depth {depth}, colour type "
                            f"{ctype}, interlace {interlace}")
-    return _split_rows(zlib.decompress(b"".join(idat)), h, w,
-                       _PNG_CHANNELS[ctype])
+    palette = None
+    if ctype == 3:
+        if plte is None:
+            raise ValueError(f"read_image: {path}: palette PNG without PLTE")
+        palette = np.zeros((256, 3), np.uint8)
+        palette[:len(plte)] = plte[:256]
+    bits = _PNG_CHANNELS[ctype] * depth
+    bpp = max(1, bits // 8)
+    raw = zlib.decompress(b"".join(idat))
+    passes, sizes = [], []
+    for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        nbytes = ph * (-(-pw * bits // 8) + 1)
+        unit = -(-pw * bits // 8) // bpp
+        passes.append(_split_rows(raw[:nbytes], ph, unit, bpp))
+        sizes.append((x0, y0, dx, dy, pw))
+        raw = raw[nbytes:]
+    if raw:
+        raise ValueError("read_image: PNG image data has the wrong length")
+
+    def finish(unfiltered: list[np.ndarray]) -> np.ndarray:
+        parts = [_png_samples(u.reshape(u.shape[0], -1), pw, depth, ctype,
+                              palette)
+                 for u, (_, _, _, _, pw) in zip(unfiltered, sizes)]
+        if not interlace:
+            return parts[0]
+        out = np.zeros((h, w, parts[0].shape[2]), parts[0].dtype)
+        for part, (x0, y0, dx, dy, _) in zip(parts, sizes):
+            out[y0::dy, x0::dx] = part
+        return out
+
+    return passes, finish
 
 
-def _read_pnm(path: str, data: bytes) -> np.ndarray:
+def _pnm_header(data: bytes) -> tuple[int, int, int, int]:
+    """A binary PPM/PGM's (width, height, maxval, offset of the samples)."""
     fields, pos = [], 2
     while len(fields) < 3:
         while pos < len(data) and data[pos: pos + 1].isspace():
@@ -219,57 +317,103 @@ def _read_pnm(path: str, data: bytes) -> np.ndarray:
             end += 1
         fields.append(int(data[pos:end]))
         pos = end
-    w, h, maxval = fields
+    return fields[0], fields[1], fields[2], pos + 1
+
+
+def _png_rows(path: str, data: bytes) -> tuple[np.ndarray, np.ndarray]:
+    """A non-interlaced PNG's rows: (filters (H,), filtered bytes (H, W,
+    bpp))."""
+    passes, _ = _png_parse(path, data)
+    if len(passes) != 1:
+        raise ValueError(f"read_image: {path}: an interlaced PNG")
+    return passes[0]
+
+
+def _read_pnm(path: str, data: bytes) -> np.ndarray:
+    w, h, maxval, offset = _pnm_header(data)
     if maxval != 255:
         raise _unsupported(path, f"a PNM with maxval {maxval}")
     ch = 3 if data[:2] == b"P6" else 1
-    px = np.frombuffer(data, np.uint8, count=w * h * ch, offset=pos + 1)
+    px = np.frombuffer(data, np.uint8, count=w * h * ch, offset=offset)
     return px.reshape(h, w, ch)
 
 
-def _decode_many(paths: list[str]) -> list[np.ndarray]:
-    """Image files -> their samples, each (H, W, 1) gray, (H, W, 3) RGB or
-    (H, W, 4) RGBA uint8. The PNGs of one size whose Average and Paeth
-    rows make the wavefront the cheaper method decode in one wavefront,
-    their byte columns side by side; the others by the row loop."""
+def _orient(px: np.ndarray, orientation: int) -> np.ndarray:
+    """EXIF orientation 1-8 applied as ``cv2.imread`` applies it
+    (``ExifTransform``: a transpose for 5-8, then the flips)."""
+    if orientation >= 5:
+        px = px.transpose(1, 0, 2)
+    flip = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}
+    for axis in flip.get(orientation, ()):
+        px = np.flip(px, axis)
+    return np.ascontiguousarray(px)
+
+
+def _eight_bits(px: np.ndarray, reader: str) -> np.ndarray:
+    """16-bit gray to uint8: the high byte (OpenCV), or clipped to 255
+    (PIL's ``I;16`` conversions)."""
+    if px.dtype != np.uint16:
+        return px
+    if reader == "cv2":
+        return (px >> 8).astype(np.uint8)
+    return np.minimum(px, 255).astype(np.uint8)
+
+
+def _decode_many(paths: list[str], reader: str) -> list[np.ndarray]:
+    """Image files -> their samples, each (H, W, 1) gray or (H, W, 3) RGB
+    uint8, with ``reader``'s ("cv2" or "pil") semantics. The 8-bit
+    non-interlaced PNGs of one size whose Average and Paeth rows make the
+    wavefront the cheaper method decode in one wavefront, their byte
+    columns side by side; the other PNGs by the cheaper method alone."""
     out: list = [None] * len(paths)
     pending: dict[tuple[int, int], list] = {}
     for i, path in enumerate(paths):
         with open(path, "rb") as f:
             data = f.read()
         if data.startswith(_PNG_SIG):
-            kinds, lines = _png_rows(path, data)
-            if _slow_bytes(kinds, lines):
+            passes, finish = _png_parse(path, data)
+            kinds, lines = passes[0]
+            if len(passes) == 1 and _slow_bytes(kinds, lines):
                 pending.setdefault(lines.shape[:2], []).append(
-                    (i, kinds, lines))
+                    (i, kinds, lines, finish))
             else:
-                out[i] = _unfilter_rows(kinds, lines)
+                out[i] = _eight_bits(finish([_unfilter(k, ln)
+                                             for k, ln in passes]), reader)
         elif data[:2] in (b"P5", b"P6"):
             out[i] = _read_pnm(path, data)
-        elif data.startswith(b"\xff\xd8\xff"):
-            raise _unsupported(path, "a JPEG")
+        elif jpeg.is_jpeg(data):
+            try:
+                dec = jpeg.decode(data)
+            except jpeg.JPEGUnsupported as e:
+                raise _unsupported(path, str(e)) from None
+            except (ValueError, IndexError, KeyError) as e:
+                raise ValueError(f"read_image: {path}: {e}") from e
+            out[i] = (_orient(dec.samples, dec.orientation)
+                      if reader == "cv2" else dec.samples)
         else:
             raise _unsupported(path, "in a format it does not know")
     for (h, w), group in pending.items():
-        slow = sum(_slow_bytes(k, ln) for _, k, ln in group)
+        slow = sum(_slow_bytes(k, ln) for _, k, ln, _ in group)
         if slow <= _WAVEFRONT_BYTES_PER_STEP * (h + w):
-            for i, kinds, lines in group:
-                out[i] = _unfilter_rows(kinds, lines)
+            for i, kinds, lines, finish in group:
+                out[i] = _eight_bits(finish([_unfilter_rows(kinds, lines)]),
+                                     reader)
             continue
         px = _unfilter_wavefront(
             np.concatenate([np.repeat(k[:, None], ln.shape[2], 1)
-                            for _, k, ln in group], 1),
-            np.concatenate([ln for _, _, ln in group], 2))
+                            for _, k, ln, _ in group], 1),
+            np.concatenate([ln for _, _, ln, _ in group], 2))
         col = 0
-        for i, _, lines in group:
-            out[i] = px[:, :, col:col + lines.shape[2]]
+        for i, _, lines, finish in group:
+            out[i] = _eight_bits(finish([px[:, :, col:col + lines.shape[2]]]),
+                                 reader)
             col += lines.shape[2]
     return out
 
 
 def read_image(path: str) -> np.ndarray:
     """An image file -> (H, W, 3) BGR uint8, as ``cv2.imread`` gives it."""
-    px = _decode_many([path])[0]
+    px = _decode_many([path], "cv2")[0]
     return np.repeat(px, 3, 2) if px.shape[2] == 1 else px[:, :, 2::-1].copy()
 
 
@@ -286,9 +430,9 @@ def _pil_mode(px: np.ndarray, grayscale: bool) -> np.ndarray:
 def load_images(paths: list[str], grayscale: list[bool]) -> list[np.ndarray]:
     """Image files as ``PIL.Image.open(path).convert("L" | "RGB")`` gives
     them: (H, W) gray or (H, W, 3) RGB uint8 each, decoded together
-    (``_decode_many``). Alpha is dropped; RGB goes to gray by PIL's ITU-R
-    601-2 integer formula (L = (19595 R + 38470 G + 7471 B + 2^15) >> 16)."""
-    return [_pil_mode(px, g) for px, g in zip(_decode_many(paths),
+    (``_decode_many``). RGB goes to gray by PIL's ITU-R 601-2 integer
+    formula (L = (19595 R + 38470 G + 7471 B + 2^15) >> 16)."""
+    return [_pil_mode(px, g) for px, g in zip(_decode_many(paths, "pil"),
                                                grayscale)]
 
 
@@ -297,16 +441,19 @@ def load_image(path: str, grayscale: bool = False) -> np.ndarray:
     return load_images([path], [grayscale])[0]
 
 
-def png_size(path: str) -> tuple[int, int]:
-    """(width, height) of a PNG from its IHDR chunk alone, as
-    ``PIL.Image.open(path).size`` gives it."""
+def image_size(path: str) -> tuple[int, int]:
+    """(width, height) of a PNG (its IHDR), a JPEG (its frame header) or a
+    PNM, as ``PIL.Image.open(path).size`` gives it: no EXIF rotation."""
     with open(path, "rb") as f:
-        head = f.read(24)
-    if not head.startswith(_PNG_SIG) or head[12:16] != b"IHDR":
-        if head.startswith(b"\xff\xd8\xff"):
-            raise _unsupported(path, "a JPEG")
-        raise _unsupported(path, "not a PNG")
-    return struct.unpack(">II", head[16:24])
+        head = f.read(65536)
+    if head.startswith(_PNG_SIG) and head[12:16] == b"IHDR":
+        return struct.unpack(">II", head[16:24])
+    if jpeg.is_jpeg(head):
+        with open(path, "rb") as f:
+            return jpeg.size(f.read())
+    if head[:2] in (b"P5", b"P6"):
+        return _pnm_header(head)[:2]
+    raise _unsupported(path, "in a format it does not know")
 
 
 def _filter_rows(px: np.ndarray, kind: int, bpp: int) -> np.ndarray:
@@ -397,6 +544,46 @@ def resize_bicubic(img: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
     out = sum(rows[iy[:, k]] * wy[(slice(None), k, None) + trail]
               for k in range(4))
     return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def _linear_taps(n_in: int, n_out: int, clamp: bool
+                 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per output index: the first source index and the two 11-bit
+    weights of OpenCV's fixed-point linear resize (``resize.cpp``: the
+    fp32 coordinate ``(d + 0.5) * scale - 0.5``, its fraction, each weight
+    x 2048 rounded half to even). ``clamp``, for the columns: an index
+    before the first or at or past the last source column takes that
+    column with weight (2048, 0)."""
+    f = ((np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = (f - s.astype(np.float32)).astype(np.float32)
+    if clamp:
+        for edge, at in ((s < 0, 0), (s >= n_in - 1, n_in - 1)):
+            f[edge] = 0
+            s[edge] = at
+    one = np.float32(2048)
+    return (s, np.rint((np.float32(1) - f) * one).astype(np.int64),
+            np.rint(f * one).astype(np.int64))
+
+
+def resize_linear(img: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
+    """uint8 (H, W[, C]) -> uint8 (out_h, out_w[, C]), as ``cv2.resize(img,
+    (out_w, out_h), interpolation=cv2.INTER_LINEAR)``."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise TypeError(f"resize_linear takes uint8, got {img.dtype}")
+    h, w = img.shape[:2]
+    trail = (None,) * (img.ndim - 2)
+    x = img.astype(np.int64)
+    sx, a0, a1 = _linear_taps(w, out_hw[1], clamp=True)
+    cols = (x[:, sx] * a0[(slice(None),) + trail]
+            + x[:, np.minimum(sx + 1, w - 1)] * a1[(slice(None),) + trail])
+    sy, b0, b1 = _linear_taps(h, out_hw[0], clamp=False)
+    top = cols[np.clip(sy, 0, h - 1)] >> 4
+    bottom = cols[np.clip(sy + 1, 0, h - 1)] >> 4
+    rows = (slice(None), None) + trail
+    out = (((b0[rows] * top) >> 16) + ((b1[rows] * bottom) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8)
 
 
 _PIL_PRECISION_BITS = 22          # 32 - 8 - 2, Resample.c

@@ -1,8 +1,9 @@
 """Inputs and weights for smoke runs of the slice (no checkpoints needed):
 the fixed-box stub detector and the synthetic speech WAV that the JAX
 package's ``bench.py:bench_e2e`` uses, seeded random weights, seeded
-random MTCNN weights biased to detect faces, and a seeded synthetic
-UMLVD-IFW training tree (``write_umlvd_tree``)."""
+random MTCNN weights biased to detect faces, seeded random face_alignment
+FAN and depth checkpoints (``write_fan_checkpoints``), and a seeded
+synthetic UMLVD-IFW training tree (``write_umlvd_tree``)."""
 from __future__ import annotations
 
 import os
@@ -138,16 +139,40 @@ def write_mtcnn_weights(directory: str, seed: int = 0,
     return directory
 
 
+def write_fan_checkpoints(directory: str, seed: int = 0,
+                          num_modules: int = 4,
+                          depth_layers: tuple = (3, 8, 36, 3)
+                          ) -> tuple[str, str]:
+    """Seeded random face_alignment checkpoints under ``directory``, by the
+    public package's names: ``3DFAN4-7835d9f11d.pth.tar`` (FAN3D of
+    ``num_modules``) and ``depth-2a464da4ea.pth.tar`` (ResNetDepth of
+    ``depth_layers``), each a plain state dict. The weights are torch's
+    default init from ``torch.manual_seed(seed)``, whose scale keeps the
+    deep nets' activations finite; the BatchNorm statistics are the
+    init's (mean 0, var 1)."""
+    from animateportrait_tpu_torch.models.fan3d import FAN3D, ResNetDepth
+
+    os.makedirs(directory, exist_ok=True)
+    torch.manual_seed(seed)
+    paths = (os.path.join(directory, "3DFAN4-7835d9f11d.pth.tar"),
+             os.path.join(directory, "depth-2a464da4ea.pth.tar"))
+    for path, net in zip(paths, (FAN3D(num_modules=num_modules),
+                                 ResNetDepth(layers=depth_layers))):
+        torch.save(net.state_dict(), path)
+    return paths
+
+
 def build_pipeline(nets: dict[str, nn.Module], device: torch.device | str,
                    frame_batch: int = 8, output_uint8: bool = True,
                    style: str = "drawing", detector=None,
-                   use_bf16: bool = False):
+                   use_bf16: bool = False, motion_mode: str = "linear"):
     """The slice's ``TalkingPortraitPipeline`` on ``device``: ``detector``
     (the fixed-box stub when None), ``AudioPipeline(chunk=512)`` without a
     voice encoder, default landmark amplifiers, and the renderer of
     ``style`` (the static net ``nets["static_g"]`` for drawing,
     ``nets["photo2cartoon"]`` for cartoon), its per-frame nets in bf16 with
-    ``use_bf16`` (``--render_bf16``)."""
+    ``use_bf16`` (``--render_bf16``), its motion grids by ``motion_mode``
+    (``--warp_mode``)."""
     from animateportrait_tpu_torch.pipeline.audio import AudioPipeline
     from animateportrait_tpu_torch.pipeline.end2end import (
         TalkingPortraitPipeline)
@@ -162,7 +187,7 @@ def build_pipeline(nets: dict[str, nn.Module], device: torch.device | str,
                         nets.get("static_g"), frame_batch=frame_batch,
                         output_uint8=output_uint8, device=device,
                         style=style, cartoon_g=nets.get("photo2cartoon"),
-                        use_bf16=use_bf16))
+                        use_bf16=use_bf16, motion_mode=motion_mode))
 
 
 def _face_landmarks(rng: np.random.Generator, size: int) -> np.ndarray:

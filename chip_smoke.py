@@ -80,7 +80,23 @@ Phases, each printing its own lines:
      versions on the step's kept bf16 InstanceNorm inputs, their times at
      each shape, 3 timed steps with the counters zeroed before them
      (steps/s, peak memory, launches), a profiled step; then ``train_cli
-     --compute_dtype bfloat16`` for 4 steps over phase 8's tree.
+     --compute_dtype bfloat16`` for 4 steps over phase 8's tree;
+ 11. the user's own photo: the committed JPEG fixtures
+     (``animateportrait_tpu_torch/assets``: 4:2:0 quality 90 with restart
+     markers and EXIF orientation 6, and a gray one) decoded by both
+     readers to the SHA-256 that PIL and OpenCV gave, with the host ms per
+     512^2 image (median of 5); seeded full-width FAN3D (4 modules) and
+     ResNetDepth (3, 8, 36, 3) checkpoints in face_alignment's layout;
+     ``cli.main --exp formal/drawing --warp_mode tps`` on the JPEG and a
+     6 s WAV, the launch counters zeroed just before it (K1 and K2 must
+     launch), the AVI parsed back, the stage seconds with the FAN stage;
+     FAN's heatmaps, z and landmarks card against host and its ms per
+     photo; the drawing pipeline of phase 3 with TPS grids on phase 3's
+     inputs (frames/s, PSNR against phase 3's linear frames, the mean
+     distance of the TPS grid from the griddata-linear one); a 2-frame
+     TPS render card against host; and ``train_cli`` for 8 steps over
+     phase 8's tree with its photos replaced by the JPEG fixture (steps/s
+     and the data-wait share over steps 3-8 beside phase 8's).
 Then the loader's forkserver and multiprocessing's resource tracker are
 stopped, and no process the run started may still be running.
 
@@ -150,6 +166,10 @@ CLI_STEPS = 8        # phase 8's first run; --continue_train adds 2
 # tree's for a bias an InstanceNorm cancels, whose gradient is rounding
 # noise), with cuDNN's deterministic algorithms
 REMAT_RTOL = 1e-5
+# phase 11: the committed JPEG fixtures (tests/torch_jpeg_fixtures.py),
+# and FAN3D's heatmaps card against host (fp32, TF32 off; 4 hourglasses)
+JPEG_FIXTURES = ("portrait_420_rst_exif6.jpg", "portrait_gray.jpg")
+FAN_ATOL = 1e-3
 
 
 def say(msg: str) -> None:
@@ -553,6 +573,7 @@ def phase3(dev: torch.device, nets) -> dict:
     k2_err = k2_on_path(kept, "3")
     return {"launches": launches, "landmarks": out.landmarks,
             "frames": out.frames, "k2_path_err": k2_err,
+            "frames_per_s": out.frames.shape[0] / dt,
             "k2_time": k2_time_on_path(pipe.renderer, out.landmarks, "3")}
 
 
@@ -1530,6 +1551,313 @@ def phase10(dev: torch.device, trainer: dict) -> dict:
             "cli_steps_per_s": sps}
 
 
+def jpeg_tree(root: str, dest: str) -> str:
+    """A copy of phase 8's UMLVD-IFW tree whose photos are copies of the
+    committed JPEG fixture: ``Photo/<name>.jpg`` in place of each
+    ``<name>.png``, and the files found by the photo's path (its dot image,
+    masks and static stylization) renamed to ``.jpg`` beside it, their bytes still PNG (both
+    readers go by the bytes, not the name)."""
+    import glob
+    import shutil
+
+    from animateportrait_tpu_torch.utils.assets import ASSET_DIR
+
+    shutil.copytree(root, dest)
+    fixture = os.path.join(ASSET_DIR, JPEG_FIXTURES[0])
+    for photo in glob.glob(os.path.join(dest, "Photo", "**", "*.png"),
+                           recursive=True):
+        stem = os.path.splitext(photo)[0]
+        os.remove(photo)
+        shutil.copyfile(fixture, stem + ".jpg")
+        for sub in ("/Alm/MTCNN/", "/Amask/nose/", "/Amask/eyes/",
+                    "/Amask/lips/", "/fakeB_static/"):
+            twin = stem.replace("/Photo/", sub) + ".png"
+            os.rename(twin, os.path.splitext(twin)[0] + ".jpg")
+    return dest
+
+
+def decode_fixtures() -> dict:
+    """Phase 11's first step: the committed JPEG fixtures decoded by both
+    readers, each decode's SHA-256 against the one PIL and OpenCV gave
+    (``assets/jpeg_fixtures.json``); the host ms per 512^2 image, median
+    of 5."""
+    import hashlib
+
+    from animateportrait_tpu_torch.utils import image
+    from animateportrait_tpu_torch.utils.assets import ASSET_DIR
+
+    with open(os.path.join(ASSET_DIR, "jpeg_fixtures.json")) as f:
+        table = json.load(f)
+    ms = {}
+    for name in JPEG_FIXTURES:
+        path = os.path.join(ASSET_DIR, name)
+        reads = {"pil_rgb": lambda: image.load_image(path),
+                 "pil_l": lambda: image.load_image(path, grayscale=True),
+                 "cv2_bgr": lambda: image.read_image(path)}
+        for key, read in reads.items():
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                px = np.ascontiguousarray(read())
+                times.append(time.perf_counter() - t0)
+            got = {"sha256": hashlib.sha256(px.tobytes()).hexdigest(),
+                   "shape": list(px.shape)}
+            if got != table[name][key]:
+                raise AssertionError(f"{name} as {key}: {got}, PIL/OpenCV "
+                                     f"gave {table[name][key]}")
+            ms[f"{name}:{key}"] = float(np.median(times) * 1e3)
+    say("[11] the JPEG fixtures decode to PIL's and OpenCV's SHA-256 "
+        "(4:2:0 q90, restart every 4 MCUs, EXIF 6; and gray); host ms per "
+        "512^2 image, median of 5: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()))
+    return ms
+
+
+class _Recorder:
+    """A pipeline's renderer that records the source and target landmarks
+    of each call (numpy) and passes every call and attribute through."""
+
+    def __init__(self, renderer):
+        self.renderer = renderer
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(self.renderer, name)
+
+    def __call__(self, photo, a68, tb68, *args, **kwargs):
+        self.calls.append((np.asarray(a68, np.float32),
+                           np.asarray(tb68, np.float32)))
+        return self.renderer(photo, a68, tb68, *args, **kwargs)
+
+
+def near_tie(host: np.ndarray, card: np.ndarray, err: float) -> bool:
+    """Whether the card's decode of one (64, 64) heatmap may differ from
+    the host's only because the two differ by ``err``: its peak is within
+    2 err of the host's peak value, and where the peaks agree, a
+    neighbour pair whose order sets the quarter-pixel shift is within
+    2 err."""
+    h, w = host.shape
+    hy, hx = np.unravel_index(np.argmax(host), host.shape)
+    cy, cx = np.unravel_index(np.argmax(card), card.shape)
+    if (hy, hx) != (cy, cx):
+        return bool(host[cy, cx] >= host[hy, hx] - 2 * err)
+    pairs = [(host[hy, min(hx + 1, w - 1)], host[hy, max(hx - 1, 0)]),
+             (host[min(hy + 1, h - 1), hx], host[max(hy - 1, 0), hx])]
+    return any(abs(a - b) <= 2 * err for a, b in pairs)
+
+
+def fan_card_vs_host(dev: torch.device, ckpt: str, img_bgr: np.ndarray
+                     ) -> dict:
+    """FAN3D + ResNetDepth from the checkpoints in ``ckpt`` on the card and
+    on the host, on one crop of ``img_bgr``: heatmaps and raw z max|diff|,
+    the landmarks that differ, and the card's ms per photo (median of 5
+    after a warm-up): the nets alone, and crop + nets + transforms."""
+    from animateportrait_tpu_torch.io.reference import (
+        load_fa_state_dict, load_into)
+    from animateportrait_tpu_torch.models import fan3d
+
+    fan_path, depth_path = fan3d.find_fan_checkpoints(ckpt)
+    rgb = np.ascontiguousarray(img_bgr[:, :, ::-1])
+    h, w = rgb.shape[:2]
+    box = (w * 0.25, h * 0.2, w * 0.75, h * 0.8)
+    crop = fan3d.fa_crop(rgb, *fan3d.bbox_to_center_scale(box))
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        fa = fan3d.FaceAlignment3D(
+            load_into(fan3d.FAN3D(), load_fa_state_dict(fan_path)),
+            load_into(fan3d.ResNetDepth(), load_fa_state_dict(depth_path)),
+            device=where)
+        hm, preds, z = fa.heatmaps_and_depth(crop)
+        out[where.type] = (hm.cpu().numpy(), z.cpu().numpy(),
+                           fa.landmarks_from_box(rgb, box))
+        if where.type == "cuda":
+            times = {"nets": [], "photo": []}
+            for _ in range(6):
+                for key, fn in (("nets", lambda: fa.heatmaps_and_depth(crop)),
+                                ("photo", lambda: fa.landmarks_from_box(
+                                    rgb, box))):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    times[key].append(time.perf_counter() - t0)
+            ms = {k: float(np.median(v[1:]) * 1e3) for k, v in times.items()}
+        del fa
+    (hc, zc, lc), (hh, zh, lh) = out["cuda"], out["cpu"]
+    err = float(np.abs(hc - hh).max())
+    differ = np.flatnonzero((lc[:, :2] != lh[:, :2]).any(1))
+    res = {"hm_err": err, "z_err": float(np.abs(zc - zh).max()),
+           "hm_scale": float(np.abs(hh).max()), "differ": len(differ),
+           "unexplained": [int(c) for c in differ
+                           if not near_tie(hh[0, c], hc[0, c], err)],
+           "ms": ms}
+    say(f"[11] FAN3D (4 modules) + ResNetDepth (3, 8, 36, 3) card vs host: "
+        f"heatmaps max|diff| {res['hm_err']:.3e} (of max |h| "
+        f"{res['hm_scale']:.3e}), raw z max|diff| {res['z_err']:.3e}, "
+        f"{res['differ']} of 68 landmarks differ in x or y (not at a "
+        f"near-tie of the heatmaps: {res['unexplained']}); card ms per "
+        f"photo, median of 5: nets {ms['nets']:.2f}, crop + nets + "
+        f"transforms {ms['photo']:.2f}")
+    if not (res["hm_err"] <= FAN_ATOL and not res["unexplained"]
+            and np.isfinite(zc).all() and np.isfinite(lc).all()):
+        raise AssertionError(f"FAN card vs host: {res}")
+    return res
+
+
+def phase11(dev: torch.device, main_run: dict, trainer: dict) -> dict:
+    """The user's own photo: the JPEG fixtures, seeded full-width FAN and
+    depth checkpoints, ``cli.main --exp formal/drawing --warp_mode tps``
+    on the JPEG, card against host for FAN and a TPS render batch, the
+    drawing pipeline with TPS grids against phase 3's linear ones, and the
+    trainer over JPEG photos."""
+    from animateportrait_tpu_torch import cli, train_cli
+    from animateportrait_tpu_torch.ops.tps import (
+        linear_motion_grid, motion_grid_from_landmarks, triangulate_frames)
+    from animateportrait_tpu_torch.utils.assets import ASSET_DIR
+    from animateportrait_tpu_torch.utils.image import read_image
+    from animateportrait_tpu_torch.utils.smoke import (
+        build_pipeline, full_width_nets, make_wav, write_fan_checkpoints,
+        write_mtcnn_weights)
+    from animateportrait_tpu_torch.utils.video import read_avi, write_wav
+
+    ms = decode_fixtures()
+    jpg = os.path.join(ASSET_DIR, JPEG_FIXTURES[0])
+    with tempfile.TemporaryDirectory() as tmp:
+        wav_path = write_wav(os.path.join(tmp, "speech.wav"),
+                             make_wav(6.0, seed=3))
+        ckpt = os.path.join(tmp, "ckpt")
+        write_mtcnn_weights(os.path.join(ckpt, "mtcnn"), seed=0)
+        t0 = time.perf_counter()
+        write_fan_checkpoints(os.path.join(ckpt, "face_alignment"), seed=0)
+        say(f"[11] wrote seeded FAN3D (4 modules) and ResNetDepth "
+            f"(3, 8, 36, 3) checkpoints in face_alignment's layout in "
+            f"{time.perf_counter() - t0:.1f} s")
+        argv = ["--jpg", jpg, "--audio", wav_path, "--exp",
+                "formal/drawing", "--warp_mode", "tps", "--device", "cuda",
+                "--frame_batch", "8", "--ckpt_dir", ckpt, "--output",
+                os.path.join(tmp, "out")]
+        zero_counters()
+        t0 = time.perf_counter()
+        res = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        avi = read_avi(res.path)
+        fan = fan_card_vs_host(dev, ckpt, read_image(jpg))
+    T = res.frames
+    piped = sum(res.stage_seconds.values())
+    stages = ", ".join(f"{k} {v:.3f} s" for k, v in res.stage_seconds.items())
+    say(f"[11] cli.main --exp formal/drawing --warp_mode tps on the JPEG "
+        f"with FAN + depth: {T} frames, pipeline + mux {piped:.3f} s = "
+        f"{T / piped:.2f} frames/s (smoke figure; phase 3's linear "
+        f"pipeline {main_run['frames_per_s']:.2f}); cli.main wall "
+        f"{wall:.3f} s; stages: {stages}")
+    say(f"[11] kernel launches in the CLI run: {launches}; the AVI reads "
+        f"back as {avi['frames'].shape} at {avi['fps']} fps")
+    if min(launches["stft_magnitude"], launches["instance_norm"]) <= 0:
+        raise AssertionError(f"a kernel of the JPEG + FAN + tps CLI path "
+                             f"never launched: {launches}")
+    if "fan" not in res.stage_seconds or avi["frames"].shape != (
+            T, 256, 256, 3) or avi["fps"] != 62.5:
+        raise AssertionError(f"CLI run: stages {list(res.stage_seconds)}, "
+                             f"AVI {avi['frames'].shape}")
+
+    # the drawing pipeline of phase 3 with TPS grids, on its inputs
+    nets = full_width_nets(seed=0)
+    pipe = build_pipeline(nets, dev, frame_batch=8, output_uint8=True,
+                          motion_mode="tps")
+    pipe.renderer = _Recorder(pipe.renderer)
+    photo = np.random.default_rng(0).uniform(0, 255, (512, 512, 3)).astype(
+        np.uint8)
+    with torch.inference_mode():
+        pipe(photo, make_wav(6.0, seed=1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipe(photo, make_wav(6.0, seed=2))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        # the renderer's own source and target landmarks, the first two
+        # batches (the linear grid's per-pixel, per-triangle temporaries
+        # grow with the frame count)
+        a68, tb68 = pipe.renderer.calls[-1]
+        lm = torch.as_tensor(tb68[:16], device=dev)
+        src = torch.as_tensor(a68, device=dev)[None].expand_as(lm)
+        tps = motion_grid_from_landmarks(src, lm)
+        lin = linear_motion_grid(src, lm, torch.as_tensor(triangulate_frames(
+            tb68[:16], 256), device=dev))
+        gap = ((tps - lin).abs() * 127.5).flatten()
+        dev_px = (gap.mean().item(), torch.quantile(gap, 0.99).item(),
+                  gap.max().item())
+    pipe.renderer = pipe.renderer.renderer
+    p_lin = psnr(out.frames, main_run["frames"], peak=255.0)
+    say(f"[11] drawing pipeline, tps grids, phase 3's inputs: "
+        f"{out.frames.shape[0]} frames in {dt:.3f} s = "
+        f"{out.frames.shape[0] / dt:.2f} frames/s (phase 3, linear: "
+        f"{main_run['frames_per_s']:.2f}); frames vs phase 3's linear "
+        f"frames PSNR {p_lin:.2f} dB; the TPS grid against the "
+        f"griddata-linear one on the renderer's landmarks, first 16 "
+        f"frames: mean {dev_px[0]:.4f} px, 99th percentile "
+        f"{dev_px[1]:.4f} px, max {dev_px[2]:.4f} px (x and y apart)")
+
+    # card against host: a 2-frame TPS render batch
+    photo_f = np.random.default_rng(4).uniform(-1, 1, (256, 256, 3)).astype(
+        np.float32)
+    tb68 = (main_run["landmarks"][:2, :, :2] * 0.5).astype(np.float32)
+    frames = {}
+    for where in (dev, torch.device("cpu")):
+        r = build_pipeline(copy.deepcopy(nets), where, frame_batch=2,
+                           output_uint8=False, motion_mode="tps").renderer
+        with torch.inference_mode():
+            frames[where.type] = r(photo_f, tb68.mean(0), tb68)
+    p_render = psnr(frames["cuda"], frames["cpu"], peak=2.0)
+    say(f"[11] card vs host: 2-frame tps render PSNR {p_render:.2f} dB "
+        f"(>= 40)")
+    if not p_render >= 40.0:
+        raise AssertionError(f"tps render card vs host {p_render:.2f} dB")
+    del pipe, nets
+
+    # the trainer over JPEG photos
+    root = jpeg_tree(trainer["root"], os.path.join(
+        os.path.dirname(trainer["root"]), "data_jpeg"))
+    argv = trainer["argv"] + ["--dataroot", root, "--checkpoints_dir",
+                              os.path.join(os.path.dirname(root), "ck_jpeg"),
+                              "--max_steps", str(CLI_STEPS)]
+    zero_counters()
+    t0 = time.perf_counter()
+    run = train_cli.main(argv)
+    torch.cuda.synchronize()
+    twall = time.perf_counter() - t0
+    tl = read_counters()
+    recs = {r.step: r for r in run.records}
+    timed = [recs[i] for i in range(3, CLI_STEPS + 1)]
+    sps = len(timed) / (recs[CLI_STEPS].t_end - recs[2].t_end)
+    share = sum(r.data_s for r in timed) / sum(r.data_s + r.comp_s
+                                               for r in timed)
+    host = trainer["host"]
+    say(f"[11] train_cli.main over the tree with JPEG photos (phase 8's "
+        f"command, {CLI_STEPS} steps): {twall:.1f} s of wall time; steps "
+        f"3-{CLI_STEPS}: {sps:.3f} steps/s with the data, data-wait share "
+        f"{100 * share:.1f}%, whole run {100 * run.data_share:.1f}% "
+        f"(phase 8, PNG photos: {trainer['steps_per_s']:.3f} steps/s, "
+        f"{100 * trainer['data_share']:.1f}%); per step data/compute s: "
+        + ", ".join(f"{r.step}: {r.data_s:.3f}/{r.comp_s:.3f}"
+                    for r in run.records)
+        + f"; host ms per 512^2 photo: JPEG "
+        f"{ms[JPEG_FIXTURES[0] + ':pil_rgb']:.1f}, phase 8's Paeth PNG "
+        f"{host['photo_ms']:.1f}; launches {tl}")
+    if run.state.step != CLI_STEPS or min(tl["instance_norm"],
+                                  tl["instance_norm_backward"]) <= 0:
+        raise AssertionError(f"trainer over JPEG photos: step "
+                             f"{run.state.step}, {tl}")
+    del run
+    torch.cuda.empty_cache()
+    return {"launches": launches, "frames_per_s": T / piped,
+            "tps_frames_per_s": out.frames.shape[0] / dt,
+            "tps_psnr_vs_linear": p_lin, "tps_grid_px": dev_px,
+            "jpeg_ms": ms, "fan": fan, "data_share": share,
+            "steps_per_s": sps, "train_launches": tl}
+
+
 def child_processes() -> list[str]:
     """The processes whose parent is this one, as "pid command"."""
     out = []
@@ -1584,6 +1912,7 @@ def main() -> None:
         trainer = phase8(dev, tmp)
         render_bf16 = phase9(dev, main_run)
         train_bf16 = phase10(dev, trainer)
+        user_photo = phase11(dev, main_run, trainer)
     stop_processes()
     say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     src = "animateportrait_tpu_torch/csrc/"
@@ -1643,7 +1972,9 @@ def main() -> None:
         "cartoon_cli_bf16": render_bf16["cli_launches"],
         "drawing_pipeline_bf16": render_bf16["launches"],
         "train_step_bf16": train_bf16["launches"],
-        "train_cli_bf16": train_bf16["cli_launches"]}
+        "train_cli_bf16": train_bf16["cli_launches"],
+        "user_photo_cli": user_photo["launches"],
+        "train_cli_jpeg": user_photo["train_launches"]}
     # "launches": K1's, K2's and K2-bf16's on the user's entry point (the
     # cartoon CLI runs of phases 5 and 9), K2b's and K2b-bf16's in the timed
     # training steps (phases 7 and 10); "launches_by_path" has every path's

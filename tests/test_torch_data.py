@@ -4,7 +4,7 @@ on the CPU at small sizes (sources of 128^2 or less, load 72, crop 64):
 - ``resize_bicubic_pil`` byte-equal to PIL's bicubic resize, gray and RGB,
   up and down;
 - the PNG reader (the row loop and the wavefront, ``read_image``,
-  ``load_image``, ``png_size``) byte-equal to OpenCV and PIL on files that
+  ``load_image``, ``image_size``) byte-equal to OpenCV and PIL on files that
   ``write_png`` wrote with each of the five row filters, and on files PIL
   and OpenCV wrote;
 - ``draw_dots`` equal to ``cv2.circle`` with centres at and past the
@@ -74,7 +74,7 @@ def test_png_filters_read_back_exactly(tmp_path, png_filter, shape):
     for gray in (False, True):
         want = np.asarray(Image.open(path).convert("L" if gray else "RGB"))
         np.testing.assert_array_equal(image.load_image(path, gray), want)
-    assert image.png_size(path) == Image.open(path).size
+    assert image.image_size(path) == Image.open(path).size
 
 
 @pytest.mark.parametrize("writer", ["pil", "cv2"])
@@ -117,11 +117,16 @@ def test_files_of_one_size_decode_together(tmp_path):
 
 
 def test_reader_refuses_jpeg_by_name(tmp_path):
+    """A JPEG of a kind the decoder does not read (here progressive) is
+    refused by name; its size reads, as PIL's ``.size`` does."""
     path = str(tmp_path / "photo.jpg")
-    cv2.imwrite(path, np.zeros((8, 8, 3), np.uint8))
-    for fn in (image.read_image, image.load_image, image.png_size):
-        with pytest.raises(ValueError, match="photo.jpg is a JPEG"):
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(path,
+                                                        progressive=True)
+    for fn in (image.read_image, image.load_image):
+        with pytest.raises(ValueError,
+                           match="photo.jpg is a progressive JPEG"):
             fn(path)
+    assert image.image_size(path) == Image.open(path).size
 
 
 @pytest.mark.parametrize("crop_size", [64, 512])
