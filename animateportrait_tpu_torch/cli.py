@@ -28,11 +28,21 @@ read); a FAN checkpoint that is found but does not load strictly is an
 error. Without one, the CLI warns and uses the 5-point canonical-face
 fit, as the JAX CLI does.
 
+``--video clip.avi`` takes the photo from the clip's first frame and the
+speech from its soundtrack, as the JAX CLI's ``_split_video`` does with
+OpenCV and ffmpeg, without either (``utils/video.py``): the first frame
+of a raw or Motion-JPEG AVI goes through the port's quality-95 JPEG
+encoder and decoder (``utils/jpeg.py``), as ``cv2.imwrite`` then
+``cv2.imread`` take it, under the name ``frame``; the soundtrack is read
+when it is 16 kHz mono 16-bit PCM, which ffmpeg's ``-ar 16000 -ac 1``
+passes through unchanged, under the name ``audio``. ``--audio`` wins over
+the soundtrack; another container, codec or track is refused by name.
+
 ``--warp_mode tps`` builds each frame batch's motion grid with the
 on-device thin-plate spline instead of the reference's griddata-linear
 grid (``pipeline/render.py``). ``--render_bf16`` runs the renderer's
 per-frame nets in bf16, through K2 in bf16 on the card. Not ported:
-``--video`` and ``--render_dp``; argparse rejects them.
+``--render_dp`` (one card); argparse rejects it.
 
 ``--device`` (default ``cuda``) is where every net runs; without a CUDA
 device, ``cuda`` is an error, never a silent fall back to the CPU.
@@ -58,6 +68,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--jpg", help="input face photo (baseline JPEG, PNG or "
                    "binary PPM/PGM)")
     p.add_argument("--audio", help="input speech wav")
+    p.add_argument("--video", help="input video (raw or Motion-JPEG AVI): "
+                   "its first frame becomes the photo, its 16 kHz mono PCM "
+                   "track the speech unless --audio is given")
     p.add_argument("--rerun", type=int, default=0,
                    help="accepted for reference-CLI parity; the pipeline "
                    "keeps no stage files to redo")
@@ -263,6 +276,24 @@ class RunResult:
     stage_seconds: dict[str, float]    # pipeline stages + "mux"
 
 
+def split_video(video_path: str, audio_path: str | None
+                ) -> tuple[np.ndarray, str, np.ndarray | None, str | None]:
+    """``--video`` (JAX ``cli.py:_split_video``): the first frame through
+    a quality-95 JPEG and back, as ``cv2.imwrite`` then ``cv2.imread``
+    take it (BGR), and, without ``--audio``, the clip's soundtrack.
+    Returns (photo, its name, the speech or None, its name or None)."""
+    from animateportrait_tpu_torch.utils import jpeg, video
+
+    try:
+        frame = video.read_first_frame(video_path)
+        img = jpeg.decode_jpeg(jpeg.encode_jpeg(frame))
+        if audio_path:
+            return img, "frame", None, None
+        return img, "frame", video.read_pcm_track(video_path), "audio"
+    except (OSError, ValueError) as e:
+        raise SystemExit(f"--video {video_path}: {e}") from e
+
+
 def main(argv=None) -> RunResult:
     from animateportrait_tpu_torch.pipeline.audio import load_wav
     from animateportrait_tpu_torch.utils.image import read_image
@@ -276,8 +307,8 @@ def main(argv=None) -> RunResult:
               file=sys.stderr, flush=True)
 
     args = build_argparser().parse_args(argv)
-    if not args.jpg or not args.audio:
-        raise SystemExit("need --jpg and --audio")
+    if not (args.jpg or args.video) or not (args.audio or args.video):
+        raise SystemExit("need --jpg and --audio (or --video)")
     if torch.device(args.device).type == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit(f"--device {args.device}: no CUDA device "
@@ -285,11 +316,18 @@ def main(argv=None) -> RunResult:
         # fp32 as the JAX package computes it (matmul precision highest)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    try:
-        img = read_image(args.jpg)
-    except (OSError, ValueError) as e:
-        raise SystemExit(f"cannot read {args.jpg}: {e}") from e
-    wav = load_wav(args.audio)
+    wav = None
+    if args.video:
+        img, photo_name, wav, audio_name = split_video(args.video, args.audio)
+    else:
+        try:
+            img = read_image(args.jpg)
+        except (OSError, ValueError) as e:
+            raise SystemExit(f"cannot read {args.jpg}: {e}") from e
+        photo_name = os.path.splitext(os.path.basename(args.jpg))[0]
+    if wav is None:
+        wav = load_wav(args.audio)
+        audio_name = os.path.splitext(os.path.basename(args.audio))[0]
     emb_runs: list[tuple[str, np.ndarray | None]] = [("", None)]
     if args.reuse_train_emb_list:
         embs = load_train_embs(args.ckpt_dir)
@@ -303,9 +341,7 @@ def main(argv=None) -> RunResult:
     stage("building the pipeline")
     pipeline = build_pipeline(args)
     stage("pipeline built")
-    audio_name = os.path.splitext(os.path.basename(args.audio))[0]
-    base = "{}-{}".format(os.path.splitext(os.path.basename(args.jpg))[0],
-                          audio_name)
+    base = f"{photo_name}-{audio_name}"
     os.makedirs(os.path.join(args.output, base), exist_ok=True)
     result = None
     for key, emb in emb_runs:

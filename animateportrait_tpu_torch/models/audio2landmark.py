@@ -164,7 +164,9 @@ class Encoder(nn.Module):
 class Audio2landmarkPos(nn.Module):
     """Speaker-aware position branch. forward(au (T,18,80), emb (T,256),
     face_id (*,204), z (T,128)): the whole segment is ONE transformer
-    sequence (batch 1), as the reference's ``comb_encode.unsqueeze(0)``."""
+    sequence (batch 1), as the reference's ``comb_encode.unsqueeze(0)``.
+    With a leading batch (au (B,T,18,80), emb (B,T,256), face_id
+    (B,*,204), z (B,T,128)) each of the B segments is its own sequence."""
 
     def __init__(self, audio_feat_size: int = 80, c_enc_hidden_size: int = 256,
                  num_layers: int = 3, spk_emb_enc_size: int = 128,
@@ -185,8 +187,11 @@ class Audio2landmarkPos(nn.Module):
             nn.Linear(256, FACE_ID_FEAT_SIZE))
 
     def forward(self, au, emb, face_id, z):
-        a, _ = self.audio_content_encoder(au)
+        lead = au.shape[:-3]
+        a, _ = self.audio_content_encoder(au.reshape(-1, *au.shape[-2:]))
         spk = self.spk_emb_encoder(emb)
-        comb = torch.cat([a[:, -1, :], spk, z], dim=1)
-        e_out = torch.cat([self.encoder(comb[None])[0], z], dim=1)
-        return self.out(e_out), face_id[0:1], spk
+        comb = torch.cat([a[:, -1, :].reshape(*z.shape[:-1], -1), spk, z],
+                         dim=-1)
+        seqs = self.encoder(comb.reshape(-1, *comb.shape[-2:]))
+        e_out = torch.cat([seqs.reshape(*lead, *seqs.shape[-2:]), z], dim=-1)
+        return self.out(e_out), face_id[..., 0:1, :], spk

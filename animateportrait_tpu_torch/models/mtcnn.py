@@ -207,82 +207,128 @@ class MTCNNDetector:
         self.onet = onet.to(self.device).eval()
         self.k_scale, self.k2, self.k3 = k_scale, k_stage2, k_stage3
 
-    def _stage1_one_scale(self, img, scale, threshold):
-        """PNet at one pyramid level -> (k_scale, 9) candidates [box, score,
-        offsets] and their keep mask."""
-        h, w = img.shape[2:]
-        scaled = F.interpolate(img, size=(math.ceil(h * scale),
-                                          math.ceil(w * scale)),
+    def _stage1_one_scale(self, imgs, scale, threshold):
+        """PNet at one pyramid level over a stack of images (B, 3, H, W)
+        -> per image, (k_scale, 9) candidates [box, score, offsets] and
+        their keep mask (the NMS on the host, image by image)."""
+        h, w = imgs.shape[2:]
+        scaled = F.interpolate(imgs, size=(math.ceil(h * scale),
+                                           math.ceil(w * scale)),
                                mode="bilinear", align_corners=False,
                                antialias=True)
         offsets, probs = self.pnet(_preprocess(scaled))
-        prob = probs[0, 1].reshape(-1)
         ow = probs.shape[3]
-        k = min(self.k_scale, prob.shape[0])
-        idx, _ = topk_mask(prob, torch.ones_like(prob, dtype=torch.bool), k)
-        vals = prob[idx]
-        valid = vals > _f32(threshold)
-        rows = (idx // ow).float()
-        cols = (idx % ow).float()
         # a device tensor: CUDA divides by a host scalar as a multiply by
         # its reciprocal, which can move a rounded box edge by a pixel
-        s = torch.tensor(scale, dtype=torch.float32, device=img.device)
+        s = torch.tensor(scale, dtype=torch.float32, device=imgs.device)
         stride, cell = 2.0, 12.0
-        boxes = torch.stack([torch.round((stride * cols + 1.0) / s),
-                             torch.round((stride * rows + 1.0) / s),
-                             torch.round((stride * cols + 1.0 + cell) / s),
-                             torch.round((stride * rows + 1.0 + cell) / s)],
-                            dim=1)
-        offs = offsets[0].permute(1, 2, 0).reshape(-1, 4)[idx]
-        keep = masked_nms(boxes, vals, valid, 0.5)   # first_stage.py:44
-        cand = torch.cat([boxes, vals[:, None], offs], dim=1)
-        pad = self.k_scale - k
-        return F.pad(cand, (0, 0, 0, pad)), F.pad(keep, (0, pad))
+        out = []
+        for b in range(imgs.shape[0]):
+            prob = probs[b, 1].reshape(-1)
+            k = min(self.k_scale, prob.shape[0])
+            idx, _ = topk_mask(prob, torch.ones_like(prob, dtype=torch.bool),
+                               k)
+            vals = prob[idx]
+            valid = vals > _f32(threshold)
+            rows = (idx // ow).float()
+            cols = (idx % ow).float()
+            boxes = torch.stack(
+                [torch.round((stride * cols + 1.0) / s),
+                 torch.round((stride * rows + 1.0) / s),
+                 torch.round((stride * cols + 1.0 + cell) / s),
+                 torch.round((stride * rows + 1.0 + cell) / s)], dim=1)
+            offs = offsets[b].permute(1, 2, 0).reshape(-1, 4)[idx]
+            keep = masked_nms(boxes, vals, valid, 0.5)   # first_stage.py:44
+            cand = torch.cat([boxes, vals[:, None], offs], dim=1)
+            pad = self.k_scale - k
+            out.append((F.pad(cand, (0, 0, 0, pad)), F.pad(keep, (0, pad))))
+        return out
 
-    def _stage23(self, img, cand, mask, thresholds, nms_thresholds):
-        idx, vmask = topk_mask(cand[:, 4], mask, self.k2)
-        cand = cand[idx]
-        valid = masked_nms(cand[:, :4], cand[:, 4], vmask, nms_thresholds[0])
-        boxes = torch.round(_to_square(_calibrate(cand[:, :4], cand[:, 5:9])))
-
-        off2, p2 = self.rnet(_preprocess(_crop_resize(img, boxes, 24)))
-        scores = p2[:, 1]
-        valid = valid & (scores > _f32(thresholds[1]))
-        valid = masked_nms(boxes, scores, valid, nms_thresholds[1])
-        boxes = torch.round(_to_square(_calibrate(boxes, off2)))
-
-        idx, vmask = topk_mask(scores, valid, self.k3)
-        boxes3 = boxes[idx]
-        lm3, off3, p3 = self.onet(_preprocess(_crop_resize(img, boxes3, 48)))
-        scores3 = p3[:, 1]
-        valid3 = vmask & (scores3 > _f32(thresholds[2]))
-        bw = boxes3[:, 2] - boxes3[:, 0] + 1.0
-        bh = boxes3[:, 3] - boxes3[:, 1] + 1.0
-        landmarks = torch.cat([boxes3[:, 0:1] + bw[:, None] * lm3[:, 0:5],
-                               boxes3[:, 1:2] + bh[:, None] * lm3[:, 5:10]],
-                              dim=1)
-        boxes3 = _calibrate(boxes3, off3)
-        keep = masked_nms(boxes3, scores3, valid3, nms_thresholds[2],
-                          mode="min")
-        return torch.cat([boxes3, scores3[:, None]], dim=1), landmarks, keep
+    def _stage23(self, imgs, cands, masks, thresholds, nms_thresholds):
+        """RNet and ONet over every image's candidates at once, the NMS
+        between them image by image. imgs (B, 3, H, W); cands and masks
+        one (N, 9) / (N,) per image -> per image (boxes (k3, 5), landmarks
+        (k3, 10), keep (k3,))."""
+        B = imgs.shape[0]
+        sel = []
+        for cand, mask in zip(cands, masks):
+            idx, vmask = topk_mask(cand[:, 4], mask, self.k2)
+            cand = cand[idx]
+            valid = masked_nms(cand[:, :4], cand[:, 4], vmask,
+                               nms_thresholds[0])
+            sel.append((torch.round(_to_square(_calibrate(cand[:, :4],
+                                                          cand[:, 5:9]))),
+                        valid))
+        crops = torch.cat([_crop_resize(imgs[b:b + 1], sel[b][0], 24)
+                           for b in range(B)])
+        off2, p2 = self.rnet(_preprocess(crops))
+        boxes3, vmasks = [], []
+        for b, (boxes, valid) in enumerate(sel):
+            rows = slice(b * self.k2, (b + 1) * self.k2)
+            scores = p2[rows, 1]
+            valid = valid & (scores > _f32(thresholds[1]))
+            valid = masked_nms(boxes, scores, valid, nms_thresholds[1])
+            boxes = torch.round(_to_square(_calibrate(boxes, off2[rows])))
+            idx, vmask = topk_mask(scores, valid, self.k3)
+            boxes3.append(boxes[idx])
+            vmasks.append(vmask)
+        crops = torch.cat([_crop_resize(imgs[b:b + 1], boxes3[b], 48)
+                           for b in range(B)])
+        lm3_all, off3_all, p3_all = self.onet(_preprocess(crops))
+        out = []
+        for b in range(B):
+            rows = slice(b * self.k3, (b + 1) * self.k3)
+            lm3, off3, scores3 = lm3_all[rows], off3_all[rows], p3_all[rows, 1]
+            bx = boxes3[b]
+            valid3 = vmasks[b] & (scores3 > _f32(thresholds[2]))
+            bw = bx[:, 2] - bx[:, 0] + 1.0
+            bh = bx[:, 3] - bx[:, 1] + 1.0
+            landmarks = torch.cat([bx[:, 0:1] + bw[:, None] * lm3[:, 0:5],
+                                   bx[:, 1:2] + bh[:, None] * lm3[:, 5:10]],
+                                  dim=1)
+            bx = _calibrate(bx, off3)
+            keep = masked_nms(bx, scores3, valid3, nms_thresholds[2],
+                              mode="min")
+            out.append((torch.cat([bx, scores3[:, None]], dim=1), landmarks,
+                        keep))
+        return out
 
     @torch.inference_mode()
+    def detect_batch(self, imgs: np.ndarray, min_face_size: float = 20.0,
+                     thresholds=(0.6, 0.7, 0.8),
+                     nms_thresholds=(0.7, 0.7, 0.7)) -> list:
+        """Detect faces in a stack of same-size RGB images (B, H, W, 3),
+        uint8 or float 0-255: PNet once per pyramid level on the whole
+        stack, RNet and ONet once on every image's candidates, the NMS
+        image by image on the host. Returns per image numpy (boxes (k, 5),
+        landmarks (k, 10)) of the kept detections, as ``__call__`` gives
+        them for that image alone."""
+        imgs = np.asarray(imgs)
+        B, h, w = imgs.shape[:3]
+        scales = pyramid_scales(h, w, min_face_size)
+        if not scales:
+            return [(np.zeros((0, 5), np.float32),
+                     np.zeros((0, 10), np.float32)) for _ in range(B)]
+        img_t = torch.as_tensor(np.ascontiguousarray(imgs),
+                                dtype=torch.float32,
+                                device=self.device).permute(0, 3, 1, 2)
+        per_scale = [self._stage1_one_scale(img_t, s, thresholds[0])
+                     for s in scales]
+        cands = [torch.cat([level[b][0] for level in per_scale])
+                 for b in range(B)]
+        masks = [torch.cat([level[b][1] for level in per_scale])
+                 for b in range(B)]
+        out = []
+        for boxes, lms, keep in self._stage23(img_t, cands, masks,
+                                              thresholds, nms_thresholds):
+            keep = keep.cpu().numpy()
+            out.append((boxes.cpu().numpy()[keep], lms.cpu().numpy()[keep]))
+        return out
+
     def __call__(self, img: np.ndarray, min_face_size: float = 20.0,
                  thresholds=(0.6, 0.7, 0.8), nms_thresholds=(0.7, 0.7, 0.7)):
         """Detect faces in an (H, W, 3) RGB image (uint8 or float, 0-255).
         Returns numpy (boxes (k, 5), landmarks (k, 10)) of the kept
         detections (MTCNN/detector.py:16-128)."""
-        h, w = img.shape[:2]
-        scales = pyramid_scales(h, w, min_face_size)
-        if not scales:
-            return np.zeros((0, 5), np.float32), np.zeros((0, 10), np.float32)
-        img_t = torch.as_tensor(np.ascontiguousarray(img), dtype=torch.float32,
-                                device=self.device).permute(2, 0, 1)[None]
-        stage1 = [self._stage1_one_scale(img_t, s, thresholds[0])
-                  for s in scales]
-        cand = torch.cat([c for c, _ in stage1])
-        mask = torch.cat([m for _, m in stage1])
-        boxes, lms, keep = self._stage23(img_t, cand, mask, thresholds,
-                                         nms_thresholds)
-        keep = keep.cpu().numpy()
-        return boxes.cpu().numpy()[keep], lms.cpu().numpy()[keep]
+        return self.detect_batch(np.asarray(img)[None], min_face_size,
+                                 thresholds, nms_thresholds)[0]

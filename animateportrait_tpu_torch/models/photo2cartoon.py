@@ -2,7 +2,10 @@
 ``animateportrait_tpu/models/photo2cartoon.py`` (reference:
 Module2/models/photo2cartoon.py:166-525, ngf 32 with the light FC head as
 shipped), built with the reference's layout so the ``genA2B`` state-dict
-keys load as they are.
+keys load as they are. ``light=False`` is U-GAT-IT's full head: ``FC.0``
+takes the whole bottleneck map flattened in NCHW order (C * H * W inputs,
+524 288 at ngf 32 and 256^2, a 268 MB fp32 weight) instead of its spatial
+mean, so the generator is built for one ``img_size``.
 
 Every plain InstanceNorm goes through ``nn.InstanceNorm2d`` of this package
 (kernel K2), with the ReLU that follows it fused in; its ``Sequential``
@@ -205,13 +208,16 @@ def _down_block(cin: int, cout: int) -> nn.Sequential:
 
 
 class Photo2CartoonGenerator(nn.Module):
-    """U-GAT-IT ResnetGenerator with the light FC head.
+    """U-GAT-IT ResnetGenerator, with the light FC head (the shipped one)
+    or, ``light=False``, the full head for ``img_size``^2 inputs.
 
     forward(img (N, 3, H, W) in [-1, 1]) -> (cartoon (N, 3, H, W),
     cam_logit (N, 2), heatmap (N, 1, H/4, W/4))."""
 
-    def __init__(self, ngf: int = 32):
+    def __init__(self, ngf: int = 32, light: bool = True,
+                 img_size: int = 256):
         super().__init__()
+        self.light = light
         self.ConvBlock1 = nn.Sequential(
             nn.ReflectionPad2d(3), nn.Conv2d(3, ngf, 7, bias=False),
             InstanceNorm2d(relu=True), nn.Identity())
@@ -224,7 +230,8 @@ class Photo2CartoonGenerator(nn.Module):
         self.gap_fc = nn.Linear(ngf * 4, 1)
         self.gmp_fc = nn.Linear(ngf * 4, 1)
         self.conv1x1 = nn.Conv2d(ngf * 8, ngf * 4, 1)
-        self.FC = nn.Sequential(nn.Linear(ngf * 4, ngf * 4), nn.ReLU(),
+        fc_in = ngf * 4 * (1 if light else (img_size // 4) ** 2)
+        self.FC = nn.Sequential(nn.Linear(fc_in, ngf * 4), nn.ReLU(),
                                 nn.Linear(ngf * 4, ngf * 4), nn.ReLU())
         for i in range(1, 5):
             setattr(self, f"DecodeBlock{i}", P2CSoftAdaLINBlock(ngf * 4))
@@ -250,7 +257,7 @@ class Photo2CartoonGenerator(nn.Module):
         cam_logit = torch.cat([gap_logit, gmp_logit], dim=1)
         x = torch.relu(self.conv1x1(torch.cat([gap_x, gmp_x], dim=1)))
         heatmap = x.sum(1, keepdim=True)
-        style = self.FC(x.mean((2, 3)))
+        style = self.FC(x.mean((2, 3)) if self.light else x.flatten(1))
         for i in range(1, 5):
             x = getattr(self, f"DecodeBlock{i}")(x, contents[4 - i], style)
         x = self.UpBlock2(self.UpBlock1(x))

@@ -60,13 +60,15 @@ def close_mouth_blend(fl: torch.Tensor, ratio: float = 0.99) -> torch.Tensor:
 def calibrate_content(baseline: torch.Tensor, amp_lip_x: float,
                       amp_lip_y: float, ratio: float = 0.5) -> torch.Tensor:
     """Per-coordinate min-K de-biasing + lip amplification
-    (train_audio2landmark.py:235-245). baseline: (T, 204)."""
-    K = int(baseline.shape[0] * ratio)
-    m = torch.sort(baseline, dim=0).values[:K].mean(dim=0, keepdim=True)
+    (train_audio2landmark.py:235-245). baseline: (T, 204), or (B, T, 204)
+    for B tracks at once."""
+    K = int(baseline.shape[-2] * ratio)
+    m = torch.sort(baseline, dim=-2).values[..., :K, :].mean(dim=-2,
+                                                             keepdim=True)
     out = baseline - m
     lip = torch.arange(48, 68, device=baseline.device)
-    out[:, lip * 3] *= amp_lip_x
-    out[:, lip * 3 + 1] *= amp_lip_y
+    out[..., lip * 3] *= amp_lip_x
+    out[..., lip * 3 + 1] *= amp_lip_y
     return out
 
 
@@ -150,17 +152,28 @@ class LandmarkPredictor:
         self.emb_coef = emb_coef
 
     def _segment(self, aus: torch.Tensor, embs: torch.Tensor,
-                 face_id: torch.Tensor, smooth_win: int = 31) -> torch.Tensor:
-        T = aus.shape[0]
-        z = torch.zeros((T, 128), dtype=torch.float32, device=aus.device)
-        fl_dis, _, _ = self.pos(aus, embs * self.emb_coef, face_id, z)
+                 face_ids: torch.Tensor, smooth_win: int = 31
+                 ) -> torch.Tensor:
+        """B segments of one length, each its own attention sequence: aus
+        (B, T, 18, 80), embs (B, T, 256), face_ids (B, 1, 204) -> (B, T,
+        204)."""
+        B, T = aus.shape[:2]
+        z = torch.zeros((B, T, 128), dtype=torch.float32, device=aus.device)
+        fl_dis, _, _ = self.pos(aus, embs * self.emb_coef, face_ids, z)
         smooth_len = min(T - 1, smooth_win) // 2 * 2 + 1
-        fl_dis = savgol_filter(fl_dis, smooth_len, 3)
-        fl_dis = close_mouth_blend(fl_dis.reshape(-1, 68, 3)).reshape(-1, 204)
+        fl_dis = savgol_filter(fl_dis.transpose(0, 1), smooth_len,
+                               3).transpose(0, 1)
+        fl_dis = close_mouth_blend(fl_dis.reshape(-1, 68, 3)).reshape(B, T,
+                                                                      204)
         fl_dis = fl_dis * self.amp_pos
-        baseline, _ = self.content(aus[:, :NUM_WINDOW_FRAMES], face_id)
-        baseline = calibrate_content(baseline, self.amp_lip_x, self.amp_lip_y)
-        return solve_inverse_lip(fl_dis + baseline + face_id[0:1])
+        fid = face_ids.expand(B, T, 204).reshape(B * T, 204)
+        baseline, _ = self.content(
+            aus[:, :, :NUM_WINDOW_FRAMES].reshape(B * T, NUM_WINDOW_FRAMES,
+                                                  -1), fid)
+        baseline = calibrate_content(baseline.reshape(B, T, 204),
+                                     self.amp_lip_x, self.amp_lip_y)
+        fl = fl_dis + baseline + face_ids
+        return torch.stack([solve_inverse_lip(f) for f in fl])
 
     def __call__(self, au_windows: np.ndarray, emb: np.ndarray,
                  face_id: np.ndarray, centerize_face: bool = False,
@@ -176,7 +189,8 @@ class LandmarkPredictor:
         T = aus.shape[0]
         emb_t = torch.as_tensor(emb, dtype=torch.float32,
                                 device=dev)[None].expand(T, -1)
-        outs = [self._segment(aus[j: j + SEG_BS], emb_t[j: j + SEG_BS], fid)
+        outs = [self._segment(aus[None, j: j + SEG_BS],
+                              emb_t[None, j: j + SEG_BS], fid[None])[0]
                 for j in range(0, T, SEG_BS)
                 if aus[j: j + SEG_BS].shape[0] >= 10]
         fl = revise_nose_top(torch.cat(outs, dim=0))

@@ -18,6 +18,15 @@ landmark correspondence on the device (``ops/tps.py:
 motion_grid_from_landmarks``, a ``linalg.solve`` per frame), with no host
 step, for both styles and under ``use_bf16``.
 
+``render_visuals`` is ``test_cli``'s path: a photo's frames with every
+intermediate of the reference's test model (the blend, the generator's
+pre-blend output, the matte and the warped matte, the static
+stylization, the matted photo, the target dots, the motion grid and the
+intrinsic flow and its mask), as [-1, 1] float arrays; ``__call__``
+stays the throughput path. ``crop_size`` is the frame size, 256 (the
+CLI's) or ``test_cli``'s ``--crop_size``; the landmark dots keep radius
+3 at every size, as the JAX renderer's.
+
 ``use_bf16`` (the CLI's ``--render_bf16``) runs the per-frame nets in bf16
 as the JAX renderer does: bf16 copies of the trident generator and of
 FlowUnet's parameters (FlowUnet's BatchNorm statistics stay fp32), bf16
@@ -90,7 +99,8 @@ class Module2Renderer:
                  device: torch.device | str = DEFAULT_DEVICE,
                  style: str = "drawing",
                  cartoon_g: Photo2CartoonGenerator | None = None,
-                 use_bf16: bool = False, motion_mode: str = "linear"):
+                 use_bf16: bool = False, motion_mode: str = "linear",
+                 crop_size: int = CROP_SIZE):
         static = {"drawing": ("static_g", static_g),
                   "cartoon": ("cartoon_g", cartoon_g)}
         if style not in static:
@@ -102,6 +112,7 @@ class Module2Renderer:
             raise ValueError(f"Module2Renderer: unknown motion_mode "
                              f"{motion_mode!r}")
         self.motion_mode = motion_mode
+        self.crop_size = crop_size
         self.device = resolve_device(device)
         self.style = style
         self.g = generator.to(self.device).eval()
@@ -118,9 +129,9 @@ class Module2Renderer:
                                             self.dtype)
 
     def prepare(self, photo: torch.Tensor):
-        """photo (1, 3, 256, 256) in [-1, 1] -> (matted photo, mask,
-        static stylization at 256)."""
-        cs = CROP_SIZE
+        """photo (1, 3, cs, cs) in [-1, 1] -> (matted photo, mask,
+        static stylization at cs)."""
+        cs = self.crop_size
         mask = (self.modnet(photo) > 0.5).float()
         if self.style == "drawing":
             photo_512 = F.interpolate(photo, size=(512, 512), mode="bilinear",
@@ -141,19 +152,21 @@ class Module2Renderer:
     def encode(self, photo_fore: torch.Tensor, a_lm68: torch.Tensor
                ) -> dict[str, torch.Tensor]:
         """The generator's once-per-photo ``encode_static`` of the matted
-        photo (1, 3, 256, 256) and the source landmarks (1, 68, 2), in the
+        photo (1, 3, cs, cs) and the source landmarks (1, 68, 2), in the
         renderer's dtype."""
-        dots = landmark_dot_images(a_lm68, CROP_SIZE)
+        dots = landmark_dot_images(a_lm68, self.crop_size)
         return self.g.encode_static(photo_fore.to(self.dtype),
                                     dots.to(self.dtype))
 
     def frames(self, g_cache, mask, fake_static, a_lm68, tb_lm68s,
-               motions=None, simplices=None) -> torch.Tensor:
+               motions=None, simplices=None, return_all: bool = False):
         """One frame batch. a_lm68 (1, 68, 2); tb_lm68s (B, 68, 2); the
-        ``motions`` (B, 256, 256, 2), or the ``simplices`` of each frame
-        for the linear grid, or neither for the TPS grid."""
+        ``motions`` (B, cs, cs, 2), or the ``simplices`` of each frame
+        for the linear grid, or neither for the TPS grid. ``return_all``:
+        a dict of the batch's intermediates (NCHW, fp32) in place of the
+        frames."""
         B = tb_lm68s.shape[0]
-        cs = CROP_SIZE
+        cs = self.crop_size
         if motions is None and simplices is None:
             motions = motion_grid_from_landmarks(a_lm68.expand(B, 68, 2),
                                                  tb_lm68s, cs)
@@ -178,44 +191,91 @@ class Module2Renderer:
                               align_corners=True)
         out = ((fake_b / 2 + 0.5) * mask1
                + (fake_static / 2 + 0.5) * (1 - mask1)) * 2 - 1
+        if return_all:
+            # the reference test model's attributes
+            # (geomcgt_ifw_test_model.py:276-302)
+            return {"fake_B": out, "fake_B_fore": fake_b,
+                    "fg_mask1": mask1 * 2 - 1,
+                    "fakeB_static": fake_static.expand(B, -1, -1, -1),
+                    "warp_motion": motions.permute(0, 3, 1, 2),
+                    "iw_flow": flows, "if_mask": fmasks,
+                    "target_B_lm": tb_lm_imgs}
         if self.output_uint8:
             # utils/video.py:frames_to_uint8: same fp32 math, truncating cast
             out = torch.clamp((out + 1.0) * 127.5, 0, 255).to(torch.uint8)
         return out
 
-    def __call__(self, photo: np.ndarray, a_lm68: np.ndarray,
-                 tb_lm68s: np.ndarray,
-                 motions: np.ndarray | None = None) -> np.ndarray:
-        """photo (256, 256, 3) in [-1, 1]; a_lm68 (68, 2); tb_lm68s
-        (T, 68, 2) -> frames (T, 256, 256, nc), fp32 in [-1, 1] or uint8;
-        nc is 1 for drawing, 3 for cartoon.
-
-        motions: optional (T, 256, 256, 2) grids that replace the
-        renderer's own (the reference's griddata grids)."""
+    def _photo_batches(self, photo: np.ndarray, a_lm68: np.ndarray,
+                       tb_lm68s: np.ndarray, motions: np.ndarray | None,
+                       return_all: bool = False):
+        """The per-photo work, once (the matte, the static stylization,
+        ``encode``), then ``frames`` per ``frame_batch`` of the frames,
+        padded to whole batches by repeating the last: -> (photo_fore,
+        mask, a generator of each batch's ``frames`` output)."""
         dev = self.device
-        cs = CROP_SIZE
+        cs = self.crop_size
         photo_t = torch.as_tensor(photo, dtype=torch.float32,
                                   device=dev).permute(2, 0, 1)[None]
         a68 = torch.as_tensor(a_lm68, dtype=torch.float32, device=dev)[None]
         photo_fore, mask, fake_static = self.prepare(photo_t)
         g_cache = self.encode(photo_fore, a68)
-        T = tb_lm68s.shape[0]
         fb = self.frame_batch
-        pad = (-T) % fb
+        pad = (-tb_lm68s.shape[0]) % fb
         tb68_p = np.concatenate([tb_lm68s, np.repeat(tb_lm68s[-1:], pad, 0)])
         mo_p = tris_p = None
         if motions is not None:
             mo_p = np.concatenate([motions, np.repeat(motions[-1:], pad, 0)])
         elif self.motion_mode == "linear":
             tris_p = triangulate_frames(tb68_p, cs)
-        outs = []
-        for j in range(0, tb68_p.shape[0], fb):
-            lm = torch.as_tensor(tb68_p[j: j + fb], dtype=torch.float32,
-                                 device=dev)
-            mo = None if mo_p is None else torch.as_tensor(
-                mo_p[j: j + fb], dtype=torch.float32, device=dev)
-            tri = None if tris_p is None else torch.as_tensor(
-                tris_p[j: j + fb], device=dev)
-            out = self.frames(g_cache, mask, fake_static, a68, lm, mo, tri)
-            outs.append(out.permute(0, 2, 3, 1).cpu().numpy())
-        return np.concatenate(outs, axis=0)[:T]
+
+        def batches():
+            for j in range(0, tb68_p.shape[0], fb):
+                lm = torch.as_tensor(tb68_p[j: j + fb], dtype=torch.float32,
+                                     device=dev)
+                mo = None if mo_p is None else torch.as_tensor(
+                    mo_p[j: j + fb], dtype=torch.float32, device=dev)
+                tri = None if tris_p is None else torch.as_tensor(
+                    tris_p[j: j + fb], device=dev)
+                yield self.frames(g_cache, mask, fake_static, a68, lm, mo,
+                                  tri, return_all=return_all)
+
+        return photo_fore, mask, batches()
+
+    def __call__(self, photo: np.ndarray, a_lm68: np.ndarray,
+                 tb_lm68s: np.ndarray,
+                 motions: np.ndarray | None = None) -> np.ndarray:
+        """photo (cs, cs, 3) in [-1, 1]; a_lm68 (68, 2); tb_lm68s
+        (T, 68, 2) -> frames (T, cs, cs, nc), fp32 in [-1, 1] or uint8;
+        nc is 1 for drawing, 3 for cartoon.
+
+        motions: optional (T, cs, cs, 2) grids that replace the
+        renderer's own (the reference's griddata grids)."""
+        _, _, batches = self._photo_batches(photo, a_lm68, tb_lm68s, motions)
+        outs = [out.permute(0, 2, 3, 1).cpu().numpy() for out in batches]
+        return np.concatenate(outs, axis=0)[:tb_lm68s.shape[0]]
+
+    def render_visuals(self, photo: np.ndarray, a_lm68: np.ndarray,
+                       tb_lm68s: np.ndarray,
+                       motions: np.ndarray | None = None
+                       ) -> dict[str, np.ndarray]:
+        """Every intermediate of the reference's test model
+        (``GeomCGTIFWTestModel.forward``, geomcgt_ifw_test_model.py:
+        276-302) for all of a photo's frames: ``fake_B`` (the blend),
+        ``fake_B_fore`` (the generator's output), ``fg_mask`` and
+        ``fg_mask1`` (the matte and the warped matte), ``fakeB_static``,
+        ``real_A`` (the matted photo), ``target_B_lm``, ``warp_motion``,
+        ``iw_flow`` and ``if_mask``; each (T, cs, cs, C) float32 numpy in
+        [-1, 1] (the grids and flows in their own units). Arguments as
+        ``__call__``'s; the per-photo nets run once and the frames go in
+        batches of ``frame_batch``, as in ``__call__``."""
+        T = tb_lm68s.shape[0]
+        photo_fore, mask, batches = self._photo_batches(
+            photo, a_lm68, np.asarray(tb_lm68s, np.float32), motions,
+            return_all=True)
+        parts = [{k: v.float().permute(0, 2, 3, 1).cpu().numpy()
+                  for k, v in vis.items()} for vis in batches]
+        vis = {k: np.concatenate([p[k] for p in parts])[:T] for k in parts[0]}
+        for k, v in (("real_A", photo_fore), ("fg_mask", mask * 2 - 1)):
+            vis[k] = np.repeat(v.float().permute(0, 2, 3, 1).cpu().numpy(),
+                               T, axis=0)
+        return vis

@@ -28,7 +28,10 @@ weights normalized per output pixel and rounded to 22-bit fixed point, a
 horizontal pass rounded and clipped to uint8, then a vertical pass done
 the same way. ``draw_dots`` is ``cv2.circle(img, c, r, 255, -1)`` at integer
 centres: OpenCV's midpoint circle fill, as one stamp per radius clipped at
-the borders.
+the borders. ``draw_landmarks`` is the reference's ``draw2`` as OpenCV and
+PIL draw it: filled circles, ``cv2.line`` at thickness 2 or 4 (OpenCV
+5.0's ``ThickLine``), and ``ImageDraw.polygon`` with a fill and an
+outline (Pillow 12's scanline fill and Bresenham outline).
 
 ``resize_bicubic`` reproduces ``cv2.resize(..., interpolation=INTER_CUBIC)``
 on uint8 images, the resize the JAX package's alignment (``align.py``) and
@@ -338,17 +341,6 @@ def _read_pnm(path: str, data: bytes) -> np.ndarray:
     return px.reshape(h, w, ch)
 
 
-def _orient(px: np.ndarray, orientation: int) -> np.ndarray:
-    """EXIF orientation 1-8 applied as ``cv2.imread`` applies it
-    (``ExifTransform``: a transpose for 5-8, then the flips)."""
-    if orientation >= 5:
-        px = px.transpose(1, 0, 2)
-    flip = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}
-    for axis in flip.get(orientation, ()):
-        px = np.flip(px, axis)
-    return np.ascontiguousarray(px)
-
-
 def _eight_bits(px: np.ndarray, reader: str) -> np.ndarray:
     """16-bit gray to uint8: the high byte (OpenCV), or clipped to 255
     (PIL's ``I;16`` conversions)."""
@@ -388,7 +380,7 @@ def _decode_many(paths: list[str], reader: str) -> list[np.ndarray]:
                 raise _unsupported(path, str(e)) from None
             except (ValueError, IndexError, KeyError) as e:
                 raise ValueError(f"read_image: {path}: {e}") from e
-            out[i] = (_orient(dec.samples, dec.orientation)
+            out[i] = (jpeg.orient(dec.samples, dec.orientation)
                       if reader == "cv2" else dec.samples)
         else:
             raise _unsupported(path, "in a format it does not know")
@@ -691,3 +683,384 @@ def draw_dots(lm: np.ndarray, crop_size: int) -> np.ndarray:
     img = np.zeros((crop_size, crop_size), np.uint8)
     img[ys[keep], xs[keep]] = 255
     return (img[..., None].astype(np.float32) / 255.0) * 2 - 1
+
+
+# --- landmark drawings (the reference's draw2) --------------------------
+
+_XY_SHIFT = 16                     # OpenCV drawing's fixed point
+_XY_ONE = 1 << _XY_SHIFT
+
+
+def _cdiv(a: int, b: int) -> int:
+    """C's integer division (truncates toward zero)."""
+    q = abs(a) // abs(b)
+    return q if (a < 0) == (b < 0) else -q
+
+
+def _fill_disc(img: np.ndarray, cx: int, cy: int, radius: int) -> None:
+    """``cv2.circle(img, (cx, cy), radius, 255, -1)``: OpenCV's midpoint
+    circle (``_circle_stamp``), clipped at the borders."""
+    dy, dx = _circle_stamp(radius)
+    ys, xs = cy + dy, cx + dx
+    keep = (ys >= 0) & (ys < img.shape[0]) & (xs >= 0) & (xs < img.shape[1])
+    img[ys[keep], xs[keep]] = 255
+
+
+def _clip_line(w: int, h: int, p1: list, p2: list) -> bool:
+    """drawing.cpp's ``clipLine`` on (w, h) in place; False when the
+    segment misses the image."""
+    right, bottom = w - 1, h - 1
+
+    def code(x, y):
+        return (x < 0) + (x > right) * 2 + (y < 0) * 4 + (y > bottom) * 8
+
+    c1, c2 = code(*p1), code(*p2)
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        x1, y1 = p1
+        x2, y2 = p2
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int((a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int((a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int((a - x1) * (y2 - y1) / (x2 - x1))
+                x1 = a
+                c1 = 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int((a - x2) * (y2 - y1) / (x2 - x1))
+                x2 = a
+                c2 = 0
+        p1[:], p2[:] = [x1, y1], [x2, y2]
+    return (c1 | c2) == 0
+
+
+def _line2(img: np.ndarray, p1: tuple, p2: tuple) -> None:
+    """``Line2`` of OpenCV 5.0's drawing.cpp, which draws a polygon's
+    edges: the segment between two points in 16-bit fixed point clipped to
+    the image, then one pixel a step along the longer axis from the start
+    rounded to the nearest pixel, the other coordinate stepped in fixed
+    point, and the rounded end's pixel (measured against OpenCV 5.0)."""
+    h, w = img.shape[:2]
+    p1, p2 = list(p1), list(p2)
+    if not _clip_line(w << _XY_SHIFT, h << _XY_SHIFT, p1, p2):
+        return
+    dx, dy = p2[0] - p1[0], p2[1] - p1[1]
+    half = _XY_ONE >> 1
+    if abs(dx) > abs(dy):
+        if dx < 0:
+            p1, p2, dy = p2, p1, -dy
+        step = _cdiv(dy * _XY_ONE, abs(dx) | 1)
+        count = (p2[0] - p1[0]) >> _XY_SHIFT
+        xs = ((p1[0] + half) >> _XY_SHIFT) + np.arange(count + 1)
+        ys = (p1[1] + half + step * np.arange(count + 1)) >> _XY_SHIFT
+    else:
+        if dy < 0:
+            p1, p2, dx = p2, p1, -dx
+        step = _cdiv(dx * _XY_ONE, abs(dy) | 1)
+        count = (p2[1] - p1[1]) >> _XY_SHIFT
+        xs = (p1[0] + half + step * np.arange(count + 1)) >> _XY_SHIFT
+        ys = ((p1[1] + half) >> _XY_SHIFT) + np.arange(count + 1)
+    # the end's own pixel, which the steps can stop short of
+    xs = np.append(xs, (p2[0] + half) >> _XY_SHIFT)
+    ys = np.append(ys, (p2[1] + half) >> _XY_SHIFT)
+    keep = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    img[ys[keep], xs[keep]] = 255
+
+
+def _fill_convex(img: np.ndarray, v: list) -> None:
+    """drawing.cpp's ``FillConvexPoly`` for 8-connected lines and vertices
+    in 16-bit fixed point: the outline by ``_line2``, then each scanline
+    between two edges walked in fixed point."""
+    h, w = img.shape[:2]
+    n = len(v)
+    delta = _XY_ONE >> 1
+    prev = v[-1]
+    for p in v:
+        _line2(img, prev, p)
+        prev = p
+    ys = [p[1] for p in v]
+    imin = int(np.argmin(ys))
+    xmin = (min(p[0] for p in v) + delta) >> _XY_SHIFT
+    xmax = (max(p[0] for p in v) + delta) >> _XY_SHIFT
+    ymin = (min(ys) + delta) >> _XY_SHIFT
+    ymax = (max(ys) + delta) >> _XY_SHIFT
+    if n < 3 or xmax < 0 or ymax < 0 or xmin >= w or ymin >= h:
+        return
+    ymax = min(ymax, h - 1)
+    edges = n
+    # per edge: [idx, di, x, dx, ye]
+    edge = [[imin, 1, -_XY_ONE, 0, ymin], [imin, n - 1, -_XY_ONE, 0, ymin]]
+    y = ymin
+    while True:
+        for e in edge:
+            if y >= e[4]:
+                idx0, di = e[0], e[1]
+                idx = (idx0 + di) % n
+                while True:
+                    edges -= 1
+                    if edges < 0:
+                        break
+                    ty = (v[idx][1] + delta) >> _XY_SHIFT
+                    if ty > y:
+                        xs, xe = v[idx0][0], v[idx][0]
+                        e[4] = ty
+                        e[3] = _cdiv((xe - xs) * 2 + (ty - y), 2 * (ty - y))
+                        e[2] = xs
+                        e[0] = idx
+                        break
+                    idx0 = idx
+                    idx = (idx + di) % n
+        if edges < 0:
+            break
+        if y >= 0:
+            left, right = sorted((edge[0][2], edge[1][2]))
+            x1 = (left + delta) >> _XY_SHIFT
+            x2 = (right + delta) >> _XY_SHIFT
+            if x2 >= 0 and x1 < w:
+                img[y, max(x1, 0):min(x2, w - 1) + 1] = 255
+        edge[0][2] += edge[0][3]
+        edge[1][2] += edge[1][3]
+        y += 1
+        if y > ymax:
+            break
+
+
+def draw_thick_line(img: np.ndarray, p0: tuple, p1: tuple,
+                    thickness: int) -> None:
+    """``cv2.line(img, p0, p1, 255, thickness)`` for thickness >= 2, as
+    OpenCV 5.0 draws it (measured): the segment clipped to the image grown
+    by ``thickness`` on each side, then drawing.cpp's ``ThickLine``: a
+    filled quadrilateral of half-width thickness / 2 in 16-bit fixed point
+    (corner offsets rounded half to even) and, at each end, a filled disc
+    of radius ((thickness << 15) + 2^15) >> 16."""
+    if thickness < 2:
+        raise ValueError(f"draw_thick_line draws thickness >= 2, not "
+                         f"{thickness}")
+    h, w = img.shape[:2]
+    q0 = [p0[0] + thickness, p0[1] + thickness]
+    q1 = [p1[0] + thickness, p1[1] + thickness]
+    if not _clip_line(w + 2 * thickness, h + 2 * thickness, q0, q1):
+        return
+    p0 = (q0[0] - thickness, q0[1] - thickness)
+    p1 = (q1[0] - thickness, q1[1] - thickness)
+    q0 = (p0[0] << _XY_SHIFT, p0[1] << _XY_SHIFT)
+    q1 = (p1[0] << _XY_SHIFT, p1[1] << _XY_SHIFT)
+    dx = float(p0[0] - p1[0])
+    dy = float(p1[1] - p0[1])
+    r = dx * dx + dy * dy
+    half = thickness << (_XY_SHIFT - 1)
+    if abs(r) > np.finfo(np.float64).eps:
+        r = (half + (thickness & 1) * _XY_ONE * 0.5) / np.sqrt(r)
+        ox, oy = int(np.rint(dy * r)), int(np.rint(dx * r))
+        _fill_convex(img, [(q0[0] + ox, q0[1] + oy), (q0[0] - ox, q0[1] - oy),
+                           (q1[0] - ox, q1[1] - oy), (q1[0] + ox, q1[1] + oy)])
+    radius = (half + (_XY_ONE >> 1)) >> _XY_SHIFT
+    for p in (p0, p1):
+        _fill_disc(img, p[0], p[1], radius)
+
+
+# ImageDraw's colour names (ImageColor.getrgb)
+_PIL_COLORS = {"pink": (255, 192, 203), "blue": (0, 0, 255),
+               "green": (0, 128, 0), "purple": (128, 0, 128),
+               "cyan": (0, 255, 255), "brown": (165, 42, 42),
+               "orange": (255, 165, 0), "yellow": (255, 255, 0),
+               "magenta": (255, 0, 255), "black": (0, 0, 0)}
+POLY_LOOPS = (
+    tuple(range(17)) + (26, 25, 24, 23, 22, 21, 20, 19, 18, 17),
+    (21, 20, 19, 18, 17), (26, 25, 24, 23, 22),
+    (39, 38, 37, 36, 41, 40), (45, 44, 43, 42, 47, 46),
+    (35, 27, 31, 32, 33, 34),
+    (54, 53, 52, 51, 50, 49, 48, 60, 61, 62, 63, 64),
+    (54, 64, 65, 66, 67, 60, 48, 59, 58, 57, 56, 55),
+    (64, 63, 62, 61, 60, 67, 66, 65))
+POLY_COLORS = ("pink", "blue", "green", "purple", "cyan", "brown",
+               "orange", "yellow", "magenta")
+
+
+def _pil_hline(img: np.ndarray, x0: int, y: int, x1: int, ink) -> None:
+    """Draw.c's hline32: clipped to the image, nothing when x1 < x0."""
+    h, w = img.shape[:2]
+    if 0 <= y < h and x0 < w and x1 >= 0:
+        img[y, max(x0, 0):min(x1, w - 1) + 1] = ink
+
+
+def _round_up(f: float) -> int:
+    return int(np.floor(f + 0.5)) if f >= 0 else -int(np.floor(abs(f) + 0.5))
+
+
+def _round_down(f: float) -> int:
+    return int(np.ceil(f - 0.5)) if f >= 0 else -int(np.ceil(abs(f) - 0.5))
+
+
+def _pil_roundf(v: float) -> float:
+    """C's roundf: half away from zero."""
+    return float(np.sign(v) * np.floor(abs(v) + 0.5))
+
+
+def _pil_fill_polygon(img: np.ndarray, xy: list, ink) -> None:
+    """``ImageDraw.polygon(xy, fill=ink)`` as Pillow 12.1's Draw.c fills it
+    (``ImagingDrawPolygon`` and ``polygon_generic``, read from the
+    compiled library): an edge list (a horizontal edge that continues the
+    one before it in the same direction merged into it; horizontal edges
+    drawn as they are), then one scanline a row with C float (fp32)
+    intersections. An edge that ends on the row (not the last row) counts
+    twice. An edge that starts on the row (or ends on the last row) makes
+    a corner with the first earlier edge that has an end on the row at the
+    same rounded x and runs on into the next row (the row before, on the
+    last row); where the corner stands more than a pixel clear of both
+    edges on that row, its intersection moves to the pixel beside the
+    nearer one. Spans run from ``ROUND_UP`` of each odd intersection to
+    ``ROUND_DOWN`` of the next."""
+    f32 = np.float32
+    edges = []                 # [xmin, xmax, ymin, ymax, dx, x0, y0]
+    n = len(xy)
+    for i in range(n - 1):
+        (x0, y0), (x1, y1) = xy[i], xy[i + 1]
+        if y0 == y1 and i != 0 and y0 == xy[i - 1][1]:
+            if x1 > x0 > xy[i - 1][0]:
+                edges[-1][1] = x1
+                continue
+            if x1 < x0 < xy[i - 1][0]:
+                edges[-1][0] = x1
+                continue
+        edges.append(_pil_edge(x0, y0, x1, y1))
+    if xy[-1] != xy[0]:
+        edges.append(_pil_edge(*xy[-1], *xy[0]))
+    h = img.shape[0]
+    ymin, ymax = h - 1, 0
+    table = []
+    for e in edges:
+        ymin, ymax = min(ymin, e[2]), max(ymax, e[3])
+        if e[2] == e[3]:
+            _pil_hline(img, e[0], e[2], e[1], ink)
+            continue
+        table.append(e)
+    ymin, ymax = max(ymin, 0), min(ymax, h)
+
+    def at(e, y):
+        return f32(f32(f32(y - e[6]) * e[4]) + f32(e[5]))
+
+    for y in range(ymin, ymax + 1):
+        xx = []
+        for i, cur in enumerate(table):
+            if not cur[2] <= y <= cur[3]:
+                continue
+            x = at(cur, y)
+            xx.append(x)
+            if y == cur[3] and y < ymax:
+                xx.append(x)
+                continue
+            if (y != cur[2] and y != cur[3]) or cur[4] == 0:
+                continue
+            # the edge starts here (or ends on the last row): a corner
+            # with the first earlier edge that has an end on this row at
+            # the same rounded x and runs on into the next row (the row
+            # before, on the last row)
+            nxt = y - 1 if y == cur[3] else y + 1
+            for other in table[:i]:
+                if (y != other[2] and y != other[3]) or other[4] == 0 or (
+                        _pil_roundf(at(other, y)) != _pil_roundf(x)) or not (
+                        other[2] <= nxt <= other[3]):
+                    continue
+                a, b = at(cur, nxt), at(other, nxt)
+                if x > a + 1 and x > b + 1:
+                    xx[-1] = f32(f32(_pil_roundf(max(a, b))) + 1)
+                elif x < a - 1 and x < b - 1:
+                    xx[-1] = f32(f32(_pil_roundf(min(a, b))) - 1)
+                break
+        xx.sort()
+        for i in range(1, len(xx), 2):
+            x0, x1 = _round_up(xx[i - 1]), _round_down(xx[i])
+            if x1 >= x0:
+                _pil_hline(img, x0, y, x1, ink)
+
+
+def _pil_edge(x0: int, y0: int, x1: int, y1: int) -> list:
+    """Draw.c's add_edge: [xmin, xmax, ymin, ymax, dx (fp32), x0, y0]."""
+    dx = np.float32(0) if y0 == y1 else np.float32(
+        np.float32(x1 - x0) / np.float32(y1 - y0))
+    return [min(x0, x1), max(x0, x1), min(y0, y1), max(y0, y1), dx, x0, y0]
+
+
+def _pil_line(img: np.ndarray, x0: int, y0: int, x1: int, y1: int,
+              ink) -> None:
+    """Draw.c's line32 as a polygon outline draws it: Bresenham, the end
+    point left to the next segment (drawn for vertical and horizontal
+    runs), nothing for a segment of length 0 (measured)."""
+    if (x0, y0) == (x1, y1):
+        return
+    h, w = img.shape[:2]
+    dx, dy = abs(x1 - x0), abs(y1 - y0)
+    xs = 1 if x1 >= x0 else -1
+    ys = 1 if y1 >= y0 else -1
+    if dx == 0:
+        pts = [(x0, y) for y in range(min(y0, y1), max(y0, y1) + 1)]
+    elif dy == 0:
+        pts = [(x, y0) for x in range(min(x0, x1), max(x0, x1) + 1)]
+    elif dx > dy:
+        pts = []
+        e = 2 * dy - dx
+        for _ in range(dx):
+            pts.append((x0, y0))
+            if e >= 0:
+                y0 += ys
+                e -= 2 * dx
+            e += 2 * dy
+            x0 += xs
+    else:
+        pts = []
+        e = 2 * dx - dy
+        for _ in range(dy):
+            pts.append((x0, y0))
+            if e >= 0:
+                x0 += xs
+                e -= 2 * dy
+            e += 2 * dx
+            y0 += ys
+    for x, y in pts:
+        if 0 <= x < w and 0 <= y < h:
+            img[y, x] = ink
+
+
+def draw_landmarks(height: int, width: int, lands: np.ndarray,
+                   radius: int = 3, thickness: int = 2,
+                   op: int = 0) -> np.ndarray:
+    """The reference's ``draw2`` (umlvdfw_test_dataset.py:34-65), as the
+    JAX package's ``pipeline/render.py:draw_landmarks`` draws it with
+    OpenCV and PIL, exactly. ``lands`` (68, 2) (x, y), rounded to
+    integers. op 0: a ``cv2.circle`` filled disc of ``radius`` at each
+    point; op 1: op 0 plus a ``cv2.line`` of ``thickness`` over each pair of
+    ``faceLmarkLookup``; both (H, W, 1) float32 in {-1, 1}. op 2: PIL's
+    ``ImageDraw.polygon`` with a colour fill and a black outline over each
+    loop of ``POLY_LOOPS`` on white, (H, W, 3) float32 in [-1, 1]."""
+    from animateportrait_tpu_torch.utils.assets import face_lmark_lookup
+
+    lands = np.round(np.asarray(lands)).astype(np.int64)
+    if op in (0, 1):
+        frame = np.zeros((height, width), np.uint8)
+        for x, y in lands.tolist():
+            _fill_disc(frame, x, y, radius)
+        if op == 1:
+            for a, b in face_lmark_lookup().tolist():
+                draw_thick_line(frame, tuple(lands[a].tolist()),
+                                tuple(lands[b].tolist()), thickness)
+        return (frame[..., None].astype(np.float32) / 255.0) * 2 - 1
+    if op == 2:
+        img = np.full((height, width, 3), 255, np.uint8)
+        for loop, color in zip(POLY_LOOPS, POLY_COLORS):
+            pts = [tuple(lands[i].tolist()) for i in loop]
+            _pil_fill_polygon(img, pts, _PIL_COLORS[color])
+            black = _PIL_COLORS["black"]
+            for (x0, y0), (x1, y1) in zip(pts, pts[1:] + pts[:1]):
+                _pil_line(img, x0, y0, x1, y1, black)
+        return (img.astype(np.float32) / 255.0) * 2 - 1
+    raise ValueError(f"draw_landmarks: op {op} is not 0, 1 or 2")

@@ -37,7 +37,23 @@ The colour space follows libjpeg's guess (``jdapimin.c``): YCbCr for a
 JFIF file, for an Adobe APP14 with transform 1, or for component ids
 1, 2, 3; RGB for an Adobe transform 0 or ids 'R', 'G', 'B'. The EXIF
 orientation tag of an APP1 ``Exif`` segment (either byte order) is
-returned beside the samples; applying it is the caller's choice.
+returned beside the samples; applying it is the caller's choice. A scan
+whose DC or AC table 0 or 1 no DHT defined takes the standard table of
+Annex K, as libjpeg-turbo's ``std_huff_tables`` gives it: Motion-JPEG
+frames (the ``AVI1`` convention) leave their tables out.
+
+``encode_jpeg`` writes what ``cv2.imwrite(path.jpg, img)`` writes with its
+defaults through libjpeg-turbo: JFIF 1.01, quality 95, 4:2:0 for colour
+(one component for gray), the standard Huffman tables, one interleaved
+scan, no restart markers. Its arithmetic is libjpeg-turbo's:
+``jcparam.c``'s quality scaling of the Annex K quantizers, ``jccolor.c``'s
+16-bit fixed-point RGB -> YCbCr, the edge expansion of ``jcprepct.c`` and
+``jcsample.c`` (the last column and row replicated) with ``h2v2_downsample``
+(biases 1, 2 alternating), dummy blocks that repeat the DC of the block
+before them (``jccoefct.c``), ``jfdctint.c``'s islow forward DCT and
+``jcdctmgr.c``'s quantization (rounded half away from zero). The entropy
+coder is vectorised: every block's symbols are built, ordered and packed
+with array operations.
 """
 from __future__ import annotations
 
@@ -71,6 +87,33 @@ _REFUSED_SOF = {
     0xCF: "an arithmetic-coded hierarchical JPEG (SOF15)",
 }
 _SOF = (0xC0, 0xC1) + tuple(_REFUSED_SOF)
+
+
+# Annex K's tables (jstdhuff.c): counts of codes of length 1-16, symbols
+STD_DC_LUMA = (bytes([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0]),
+               bytes(range(12)))
+STD_DC_CHROMA = (bytes([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0]),
+                 bytes(range(12)))
+STD_AC_LUMA = (bytes([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D]),
+               bytes.fromhex(
+                   "01020300041105122131410613516107227114328191a1082342b1c1"
+                   "1552d1f02433627282090a161718191a25262728292a343536373839"
+                   "3a434445464748494a535455565758595a636465666768696a737475"
+                   "767778797a838485868788898a92939495969798999aa2a3a4a5a6a7"
+                   "a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8"
+                   "d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa"))
+STD_AC_CHROMA = (bytes([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77]),
+                 bytes.fromhex(
+                     "00010203110405213106124151076171132232810814429"
+                     "1a1b1c109233352f0156272d10a162434e125f11718191a"
+                     "262728292a35363738393a434445464748494a535455565"
+                     "758595a636465666768696a737475767778797a82838485"
+                     "868788898a92939495969798999aa2a3a4a5a6a7a8a9aab"
+                     "2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7"
+                     "d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa"))
+# (table class, slot) -> the table a scan takes when no DHT defined it
+_STD_TABLES = {(0, 0): STD_DC_LUMA, (1, 0): STD_AC_LUMA,
+               (0, 1): STD_DC_CHROMA, (1, 1): STD_AC_CHROMA}
 
 
 class JPEGUnsupported(ValueError):
@@ -391,6 +434,17 @@ def _exif_orientation(seg: bytes) -> int:
     return 1
 
 
+def orient(px: np.ndarray, orientation: int) -> np.ndarray:
+    """EXIF orientation 1-8 applied as ``cv2.imread`` applies it
+    (``ExifTransform``: a transpose for 5-8, then the flips)."""
+    if orientation >= 5:
+        px = px.transpose(1, 0, 2)
+    flip = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}
+    for axis in flip.get(orientation, ()):
+        px = np.flip(px, axis)
+    return np.ascontiguousarray(px)
+
+
 def decode(data: bytes) -> Decoded:
     """A JPEG file's bytes -> its samples (gray, or RGB after the colour
     conversion) and its EXIF orientation."""
@@ -526,9 +580,12 @@ def _scan(data: bytes, pos: int, seg: bytes, frame, comps, tables,
         if not idx:
             raise ValueError(f"corrupt JPEG: scan names component {cid}")
         for kind, th in ((0, t >> 4), (1, t & 15)):
-            if (kind, th) not in tables:
+            if (kind, th) in tables:
+                continue
+            if (kind, th) not in _STD_TABLES:
                 raise ValueError(f"corrupt JPEG: no Huffman table "
                                  f"{'DA'[kind]}C{th}")
+            tables[(kind, th)] = _lookup(*_STD_TABLES[(kind, th)], kind == 1)
         members.append((idx[0], tables[(0, t >> 4)], tables[(1, t & 15)]))
     ss, se, ahl = seg[1 + 2 * ns: 4 + 2 * ns]
     if (ss, se, ahl) != (0, 63, 0):
@@ -557,3 +614,313 @@ def _scan(data: bytes, pos: int, seg: bytes, frame, comps, tables,
     stream, segs, end = _unstuff(data, pos)
     _decode_scan(stream, segs, blocks, restart, coefs, len(comps))
     return end
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """A JPEG file's bytes -> (H, W, 3) BGR uint8, as ``cv2.imdecode(buf,
+    IMREAD_COLOR)`` (and ``cv2.imread``) gives it: EXIF orientation
+    applied, gray repeated into three channels."""
+    dec = decode(data)
+    px = orient(dec.samples, dec.orientation)
+    return np.repeat(px, 3, 2) if px.shape[2] == 1 else px[:, :, ::-1].copy()
+
+
+# --- encoding ----------------------------------------------------------
+
+# jcparam.c's base quantizers (Annex K), natural order
+_STD_QUANT_LUMA = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99],
+    np.int64).reshape(8, 8)
+_STD_QUANT_CHROMA = np.full((8, 8), 99, np.int64)
+_STD_QUANT_CHROMA[:4, :4] = [[17, 18, 24, 47], [18, 21, 26, 66],
+                             [24, 26, 56, 99], [47, 66, 99, 99]]
+
+
+def quant_table(base: np.ndarray, quality: int) -> np.ndarray:
+    """``jpeg_quality_scaling`` and ``jpeg_add_quant_table`` with
+    force_baseline: the base table scaled by the quality, 1..255."""
+    quality = min(max(quality, 1), 100)
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return np.clip((base * scale + 50) // 100, 1, 255)
+
+
+def rgb_to_ycc(rgb: np.ndarray) -> np.ndarray:
+    """jccolor.c's rgb_ycc_convert: (..., 3) uint8 RGB -> (..., 3) uint8
+    YCbCr, 16-bit fixed point; Cb and Cr take ONE_HALF - 1 as their
+    rounding term, so they never reach 256."""
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    half, offset = 1 << 15, 128 << 16
+    y = (_fix(0.29900) * r + _fix(0.58700) * g + _fix(0.11400) * b
+         + half) >> 16
+    cb = (-_fix(0.16874) * r - _fix(0.33126) * g + _fix(0.5) * b + offset
+          + half - 1) >> 16
+    cr = (_fix(0.5) * r - _fix(0.41869) * g - _fix(0.08131) * b + offset
+          + half - 1) >> 16
+    return np.stack([y, cb, cr], -1).astype(np.uint8)
+
+
+def _pad_edges(plane: np.ndarray, h: int, w: int) -> np.ndarray:
+    """``plane`` grown to (h, w) by repeating its last row and column."""
+    ph, pw = plane.shape
+    return np.pad(plane, ((0, h - ph), (0, w - pw)), mode="edge")
+
+
+def downsample_h2v2(plane: np.ndarray) -> np.ndarray:
+    """jcsample.c's h2v2_downsample of a plane of even size: each 2x2 sum
+    plus a bias of 1, 2, 1, 2, ... along the row, shifted by 2."""
+    x = plane.astype(np.int32)
+    s = x[0::2, 0::2] + x[0::2, 1::2] + x[1::2, 0::2] + x[1::2, 1::2]
+    bias = np.tile(np.array([1, 2], np.int32), s.shape[1] // 2 + 1)
+    return ((s + bias[:s.shape[1]]) >> 2).astype(np.uint8)
+
+
+def _fdct_1d(x: list, pass1: bool) -> list:
+    """One pass of jfdctint.c's islow forward DCT over ``x[0..7]`` (int64
+    arrays): pass 1 leaves the output scaled up by 2^PASS1_BITS, pass 2
+    takes that scale out again."""
+    c = _C
+    tmp0, tmp7 = x[0] + x[7], x[0] - x[7]
+    tmp1, tmp6 = x[1] + x[6], x[1] - x[6]
+    tmp2, tmp5 = x[2] + x[5], x[2] - x[5]
+    tmp3, tmp4 = x[3] + x[4], x[3] - x[4]
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    shift = 13 - 2 if pass1 else 13 + 2
+
+    def descale(v, n):
+        return (v + (1 << (n - 1))) >> n
+
+    out = [None] * 8
+    if pass1:
+        out[0] = (tmp10 + tmp11) << 2
+        out[4] = (tmp10 - tmp11) << 2
+    else:
+        out[0] = descale(tmp10 + tmp11, 2)
+        out[4] = descale(tmp10 - tmp11, 2)
+    z1 = (tmp12 + tmp13) * c["f0541"]
+    out[2] = descale(z1 + tmp13 * c["f0765"], shift)
+    out[6] = descale(z1 - tmp12 * c["f1847"], shift)
+    z1, z2 = tmp4 + tmp7, tmp5 + tmp6
+    z3, z4 = tmp4 + tmp6, tmp5 + tmp7
+    z5 = (z3 + z4) * c["f1175"]
+    tmp4 = tmp4 * c["f0298"]
+    tmp5 = tmp5 * c["f2053"]
+    tmp6 = tmp6 * c["f3072"]
+    tmp7 = tmp7 * c["f1501"]
+    z1 = z1 * -c["f0899"]
+    z2 = z2 * -c["f2562"]
+    z3 = z3 * -c["f1961"] + z5
+    z4 = z4 * -c["f0390"] + z5
+    out[7] = descale(tmp4 + z1 + z3, shift)
+    out[5] = descale(tmp5 + z2 + z4, shift)
+    out[3] = descale(tmp6 + z2 + z3, shift)
+    out[1] = descale(tmp7 + z1 + z4, shift)
+    return out
+
+
+def fdct_islow(blocks: np.ndarray) -> np.ndarray:
+    """(N, 8, 8) uint8 samples -> (N, 8, 8) int64 DCT coefficients scaled
+    by 8, as ``jpeg_fdct_islow`` on the level-shifted samples."""
+    x = blocks.astype(np.int64) - 128
+    rows = _fdct_1d([x[:, :, k] for k in range(8)], True)      # pass 1
+    ws = np.stack(rows, axis=2)
+    cols = _fdct_1d([ws[:, k, :] for k in range(8)], False)
+    return np.stack(cols, axis=1)
+
+
+def quantize(coefs: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """jcdctmgr.c: each coefficient over its quantizer x 8, the magnitude
+    rounded half up, the sign kept."""
+    q = quant.astype(np.int64) * 8
+    mag = (np.abs(coefs) + (q >> 1)) // q
+    return np.where(coefs < 0, -mag, mag)
+
+
+def _blocks(plane: np.ndarray) -> np.ndarray:
+    """(8 by, 8 bx) -> (by, bx, 8, 8)."""
+    h, w = plane.shape
+    return plane.reshape(h // 8, 8, w // 8, 8).transpose(0, 2, 1, 3)
+
+
+def _code_table(counts: bytes, symbols: bytes) -> tuple[np.ndarray,
+                                                         np.ndarray]:
+    """jchuff.c's derived table: (code, length) per symbol 0-255."""
+    code_of = np.zeros(256, np.int64)
+    size_of = np.zeros(256, np.int64)
+    code = k = 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            code_of[symbols[k]] = code
+            size_of[symbols[k]] = length
+            code += 1
+            k += 1
+        code <<= 1
+    return code_of, size_of
+
+
+def _nbits(v: np.ndarray) -> np.ndarray:
+    """The bit length of |v| (0 for 0)."""
+    return np.frexp(np.abs(v).astype(np.float64))[1].astype(np.int64)
+
+
+def _entropy_code(zz: np.ndarray, table: np.ndarray, comp: np.ndarray,
+                  dc_tables, ac_tables) -> bytes:
+    """Huffman-code blocks in scan order (jchuff.c's encode_one_block):
+    ``zz`` (N, 64) quantized coefficients in zigzag order, ``table`` (N,)
+    each block's table slot, ``comp`` (N,) its component (for the DC
+    predictor). Returns the byte-stuffed scan, its last byte padded with
+    1 bits."""
+    n = zz.shape[0]
+    dc = zz[:, 0]
+    diff = np.empty(n, np.int64)
+    for ci in np.unique(comp):
+        at = np.flatnonzero(comp == ci)
+        diff[at] = np.diff(dc[at], prepend=0)
+    dc_code = np.stack([t[0] for t in dc_tables])
+    dc_size = np.stack([t[1] for t in dc_tables])
+    ac_code = np.stack([t[0] for t in ac_tables])
+    ac_size = np.stack([t[1] for t in ac_tables])
+
+    def value_bits(v, nb):
+        return (v - (v < 0)) & ((1 << nb) - 1)
+
+    # DC items: one per block, slot 0
+    nb = _nbits(diff)
+    keys = [np.arange(n, dtype=np.int64) * 256]
+    vals = [(dc_code[table, nb] << nb) | value_bits(diff, nb)]
+    lens = [dc_size[table, nb] + nb]
+    # AC items: each nonzero at zigzag position k (slot 2k), after its runs
+    # of 16 zeros (ZRL, slot 2k - 1); EOB (slot 255) when the block ends in
+    # zeros
+    blk, col = np.nonzero(zz[:, 1:])
+    k = col + 1
+    prev = np.concatenate([[0], k[:-1]])
+    prev[np.concatenate([[True], blk[1:] != blk[:-1]])] = 0
+    run = k - prev - 1
+    v = zz[blk, k]
+    nb = _nbits(v)
+    t = table[blk]
+    sym = ((run & 15) << 4) | nb
+    keys.append(blk * 256 + 2 * k)
+    vals.append((ac_code[t, sym] << nb) | value_bits(v, nb))
+    lens.append(ac_size[t, sym] + nb)
+    zrl = np.repeat(np.arange(len(blk)), run >> 4)
+    keys.append(blk[zrl] * 256 + 2 * k[zrl] - 1)
+    vals.append(ac_code[t[zrl], 0xF0])
+    lens.append(ac_size[t[zrl], 0xF0])
+    eob = np.flatnonzero(zz[:, 63] == 0)
+    keys.append(eob * 256 + 255)
+    vals.append(ac_code[table[eob], 0x00])
+    lens.append(ac_size[table[eob], 0x00])
+    order = np.argsort(np.concatenate(keys), kind="stable")
+    vals = np.concatenate(vals)[order]
+    lens = np.concatenate(lens)[order]
+    # pad to a whole byte with 1 bits (jchuff.c's flush)
+    total = int(lens.sum())
+    pad = -total % 8
+    vals = np.append(vals, (1 << pad) - 1)
+    lens = np.append(lens, pad)
+    # pack: each item (<= 27 bits) lands in the 5 bytes from its start
+    # byte; items never share a bit, so summing the bytes ORs them
+    ends = np.cumsum(lens)
+    start = ends - lens
+    byte0, off = start >> 3, start & 7
+    window = vals << (40 - off - lens)
+    nbytes = (total + pad) // 8
+    out = np.zeros(nbytes + 5, np.int64)
+    for j in range(5):
+        out += np.bincount(byte0 + j, weights=(window >> (32 - 8 * j)) & 0xFF,
+                           minlength=nbytes + 5).astype(np.int64)
+    out = out[:nbytes].astype(np.uint8)
+    ff = np.flatnonzero(out == 0xFF)
+    return np.insert(out, ff + 1, 0).tobytes()
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+
+def _dht(cls_slot: int, table: tuple[bytes, bytes]) -> bytes:
+    return _segment(0xC4, bytes([cls_slot]) + table[0] + table[1])
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
+    """(H, W, 3) BGR or (H, W) gray uint8 -> the JPEG file that
+    ``cv2.imencode(".jpg", img)`` writes at ``IMWRITE_JPEG_QUALITY``
+    ``quality`` (95, OpenCV's default), through libjpeg-turbo with the rest
+    of OpenCV's defaults."""
+    img = np.asarray(img)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[:, :, 0]
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (
+            img.ndim == 3 and img.shape[2] == 3)) or 0 in img.shape:
+        raise ValueError(f"encode_jpeg takes (H, W) or (H, W, 3) uint8, got "
+                         f"{img.shape} {img.dtype}")
+    h, w = img.shape[:2]
+    if max(h, w) > 65535:
+        raise ValueError(f"encode_jpeg: {w}x{h} is over JPEG's 65535 limit")
+    luma_q = quant_table(_STD_QUANT_LUMA, quality)
+    chroma_q = quant_table(_STD_QUANT_CHROMA, quality)
+    zz = _ZIGZAG[:64]
+    gray = img.ndim == 2
+    if gray:
+        # one component, 1x1: a non-interleaved scan of whole blocks
+        bh, bw = -(-h // 8), -(-w // 8)
+        blocks = _blocks(_pad_edges(img, 8 * bh, 8 * bw)).reshape(-1, 8, 8)
+        q = quantize(fdct_islow(blocks), luma_q).reshape(-1, 64)[:, zz]
+        scan = _entropy_code(q, np.zeros(len(q), np.int64),
+                             np.zeros(len(q), np.int64),
+                             [_code_table(*STD_DC_LUMA)],
+                             [_code_table(*STD_AC_LUMA)])
+        comps = [(1, 0x11, 0)]
+    else:
+        ycc = rgb_to_ycc(img[:, :, ::-1])
+        mx, my = -(-w // 16), -(-h // 16)          # MCUs
+        # luma: whole blocks of the image (the last column and row
+        # repeated); the blocks an MCU still lacks are dummies
+        bw, bh = -(-w // 8), -(-h // 8)
+        y = _pad_edges(ycc[:, :, 0], 8 * bh, 8 * bw)
+        yq = quantize(fdct_islow(_blocks(y).reshape(-1, 8, 8)),
+                      luma_q).reshape(bh, bw, 64)
+        full = np.zeros((2 * my, 2 * mx, 64), np.int64)
+        full[:bh, :bw] = yq
+        if bw % 2:                       # right: the DC of the block left
+            full[:bh, bw, 0] = yq[:, bw - 1, 0]
+        if bh % 2:                       # bottom: the MCU's upper right DC
+            full[bh, :, 0] = full[bh - 1, 1::2, 0].repeat(2)
+        luma = full.reshape(my, 2, mx, 2, 64).transpose(0, 2, 1, 3, 4)
+        # chroma: rows to an even count, columns to 16 mx, downsampled,
+        # then rows to 8 my
+        chroma = []
+        for c in (1, 2):
+            plane = _pad_edges(ycc[:, :, c], h + h % 2, 16 * mx)
+            plane = _pad_edges(downsample_h2v2(plane), 8 * my, 8 * mx)
+            chroma.append(quantize(fdct_islow(_blocks(plane).reshape(-1, 8, 8)),
+                                   chroma_q).reshape(my, mx, 1, 64))
+        mcu = np.concatenate([luma.reshape(my, mx, 4, 64)] + chroma, axis=2)
+        q = mcu.reshape(-1, 64)[:, zz]
+        per_mcu = np.array([0, 0, 0, 0, 1, 2], np.int64)
+        comp = np.tile(per_mcu, my * mx)
+        scan = _entropy_code(q, np.minimum(comp, 1), comp,
+                             [_code_table(*STD_DC_LUMA),
+                              _code_table(*STD_DC_CHROMA)],
+                             [_code_table(*STD_AC_LUMA),
+                              _code_table(*STD_AC_CHROMA)])
+        comps = [(1, 0x22, 0), (2, 0x11, 1), (3, 0x11, 1)]
+    out = [b"\xff\xd8", _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01"
+                                 b"\x00\x00")]
+    for slot, table in enumerate((luma_q,) if gray else (luma_q, chroma_q)):
+        out.append(_segment(0xDB, bytes([slot]) + bytes(
+            table.reshape(-1)[zz].astype(np.uint8))))
+    out.append(_segment(0xC0, struct.pack(">BHHB", 8, h, w, len(comps))
+                        + b"".join(bytes(c) for c in comps)))
+    out += [_dht(0x00, STD_DC_LUMA), _dht(0x10, STD_AC_LUMA)]
+    if not gray:
+        out += [_dht(0x01, STD_DC_CHROMA), _dht(0x11, STD_AC_CHROMA)]
+    sos = bytes([len(comps)]) + b"".join(
+        bytes([cid, 0x11 * slot]) for cid, _, slot in comps) + b"\x00\x3f\x00"
+    out += [_segment(0xDA, sos), scan, b"\xff\xd9"]
+    return b"".join(out)

@@ -2,8 +2,9 @@
 the fixed-box stub detector and the synthetic speech WAV that the JAX
 package's ``bench.py:bench_e2e`` uses, seeded random weights, seeded
 random MTCNN weights biased to detect faces, seeded random face_alignment
-FAN and depth checkpoints (``write_fan_checkpoints``), and a seeded
-synthetic UMLVD-IFW training tree (``write_umlvd_tree``)."""
+FAN and depth checkpoints (``write_fan_checkpoints``), a seeded
+synthetic UMLVD-IFW training tree (``write_umlvd_tree``), and the layout
+the reference driver leaves for ``test_cli`` (``write_test_layout``)."""
 from __future__ import annotations
 
 import os
@@ -295,3 +296,53 @@ def write_umlvd_tree(root: str, n_photos: int = 3, n_styles: int = 3,
             (x0, y0), (x1, y1) = lm.min(0), lm.max(0)
             put_txt(f"Blm_txt/MTCNN/{rel}_win.txt", [[x0, x1, y0, y1]])
     return root
+
+
+def write_test_layout(root: str, db: str = "portrait_MTCNN",
+                      n_frames: int = 16, size: int = 512,
+                      seed: int = 0) -> str:
+    """The files the reference driver leaves for ``Module2/test.py``
+    (main_end2end_module2.py:71-87), seeded and synthetic, under ``root``:
+    one size^2 photo ``Data/Photo/<db>/ori.png`` and its 68 points in
+    ``Data/Alm_txt/MTCNN/<db>/ori.txt``; ``n_frames`` landmark frames
+    ``Data/Alm/MTCNN/<db>/NNNNN.png`` (their dot images) with their points,
+    the photo's with the mouth opening and closing as in speech, in
+    ``Data/Alm_txt/MTCNN/<db>/NNNNN.txt``; and the list files
+    ``datasets/list/testA|B/<db>.txt`` (absolute paths), which
+    ``test_cli`` reads from the working directory. Returns ``db``."""
+    from animateportrait_tpu_torch.utils.image import draw_dots, write_png
+
+    rng = np.random.default_rng(seed)
+    root = os.path.abspath(root)
+    photo_dir = os.path.join(root, "Data", "Photo", db)
+    alm_dir = os.path.join(root, "Data", "Alm", "MTCNN", db)
+    txt_dir = os.path.join(root, "Data", "Alm_txt", "MTCNN", db)
+    for d in (photo_dir, alm_dir, txt_dir, os.path.join(
+            root, "datasets", "list", "testA"), os.path.join(
+            root, "datasets", "list", "testB")):
+        os.makedirs(d, exist_ok=True)
+
+    def put_txt(path, lm):
+        with open(path, "w") as f:
+            f.writelines(f"{x!r} {y!r}\n" for x, y in lm.tolist())
+
+    lm = _face_landmarks(rng, size)
+    photo = os.path.join(photo_dir, "ori.png")
+    write_png(photo, _portrait(rng, lm, size, gray=False), level=1)
+    put_txt(os.path.join(txt_dir, "ori.txt"), lm)
+    lower = [5, 6, 7, 8, 9, 10, 11, 55, 56, 57, 58, 59, 65, 66, 67]
+    frames = []
+    for i in range(n_frames):
+        f = lm.copy()
+        f[lower, 1] += size * 0.02 * (1 + np.sin(i * 0.8))
+        f += rng.normal(0, size * 0.001, f.shape).astype(np.float32)
+        path = os.path.join(alm_dir, f"{i:05d}.png")
+        write_png(path, ((draw_dots(f, size)[..., 0] + 1) * 127.5).astype(
+            np.uint8), level=1)
+        put_txt(os.path.join(txt_dir, f"{i:05d}.txt"), f)
+        frames.append(path)
+    for kind, paths in (("testA", [photo] * n_frames), ("testB", frames)):
+        with open(os.path.join(root, "datasets", "list", kind, db + ".txt"),
+                  "w") as fp:
+            fp.writelines(p + "\n" for p in paths)
+    return db

@@ -97,6 +97,24 @@ Phases, each printing its own lines:
      TPS render card against host; and ``train_cli`` for 8 steps over
      phase 8's tree with its photos replaced by the JPEG fixture (steps/s
      and the data-wait share over steps 3-8 beside phase 8's).
+ 12. the rest of the inference surface: ``test_cli.main`` with the
+     reference's test command at full width (ngf 64, crop 256, disp 3,
+     frame batch 8, seeded random weights) over a seeded driver layout
+     (``utils/smoke.py:write_test_layout``: a 512^2 photo, 16 landmark
+     frames and their txts, ``datasets/list/testA|B``), the launch
+     counters zeroed just before it; frames/s of ``render_visuals``
+     beside ``__call__`` on the same inputs; K2 against its plain version
+     on that renderer's InstanceNorm inputs; card against host on 2
+     frames (PSNR of every float visual, the landmark drawings exact).
+     ``cli.main --video`` on an AVI of phase 3's frames with the 6 s WAV
+     as its 16 kHz PCM track, with ``--audio`` (counters zeroed before
+     it) and from the track: the photo each run gets is
+     ``decode_jpeg(encode_jpeg(first frame))``. The quality-95 encoder on
+     the committed fixtures against OpenCV's SHA-256 and its host ms per
+     512^2 image. ``detect_faces_batch`` of 4 photos against 4 single
+     calls and ``BatchedLandmarkPredictor`` of 3 audios against the single
+     predictor, with their times. Photo2Cartoon ``light=False`` at ngf 32:
+     card against host, K2 on its InstanceNorm inputs, ms per photo.
 Then the loader's forkserver and multiprocessing's resource tracker are
 stopped, and no process the run started may still be running.
 
@@ -1858,6 +1876,389 @@ def phase11(dev: torch.device, main_run: dict, trainer: dict) -> dict:
             "steps_per_s": sps, "train_launches": tl}
 
 
+# phase 12: test_cli's frames (the layout of write_test_layout), the card
+# against the host on 2 frames of render_visuals, the batched landmark
+# predictor against the single one, Photo2Cartoon light=False card vs host
+TEST_CLI_FRAMES = 16
+VISUALS_MIN_PSNR = 40.0
+LANDMARK_BATCH_ATOL = 1e-4
+# batched against single MTCNN calls on the card: px for boxes and five
+# points, and for scores; one run measured 3.05e-5 px on the boxes
+DETECT_BATCH_ATOL = 1e-3
+P2C_FULL_MIN_PSNR = 40.0
+
+
+def test_cli_argv(db: str, ckpt: str, results: str, device: str) -> list:
+    """The reference's test command (main_end2end_module2.py:71-87) at
+    full width."""
+    return (f"--dataroot {db} --name formal/drawing --model geomcgt_ifw_test "
+            "--netG resnet_9blocks_rcatland32_full_ifw --netg_resb_div 3 "
+            "--netg_resb_disp 3 --output_nc 1 --load_size 256 --crop_size 256 "
+            f"--epoch 70 --num_test {TEST_CLI_FRAMES} --serial_batches "
+            f"--imagefolder {db} --frame_batch 8 --checkpoints_dir {ckpt} "
+            f"--results_dir {results} --device {device}").split()
+
+
+def phase12_test_cli(dev: torch.device, tmp: str) -> dict:
+    """``test_cli.main`` over a seeded driver layout, the launch counters
+    zeroed just before it; frames/s of ``render_visuals`` beside
+    ``__call__`` on the same inputs; K2 against its plain version on the
+    renderer's InstanceNorm inputs; card against host on 2 frames."""
+    from animateportrait_tpu_torch import test_cli
+    from animateportrait_tpu_torch.utils.image import (
+        draw_landmarks, read_image)
+    from animateportrait_tpu_torch.utils.smoke import write_test_layout
+
+    root = os.path.join(tmp, "layout")
+    db = write_test_layout(root, n_frames=TEST_CLI_FRAMES, size=512)
+    ckpt = os.path.join(root, "no_checkpoints")
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        argv = test_cli_argv(db, ckpt, os.path.join(root, "results"),
+                             dev.type)
+        zero_counters()
+        t0 = time.perf_counter()
+        res = test_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        args = test_cli.build_test_argparser().parse_args(argv)
+        lists = test_cli.resolve_lists(db, "test", float("inf"))
+        photo, a68, tb68, _, names = test_cli.load_group(
+            args, lists[0][0], lists[1][:TEST_CLI_FRAMES])
+    finally:
+        os.chdir(cwd)
+    files = sorted(os.listdir(res.image_dir))
+    want = sorted(f"{n}_{label}.png" for n in names
+                  for label in test_cli.LABELS)
+    if files != want or not os.path.exists(res.index):
+        raise AssertionError(f"test_cli wrote {len(files)} images (expected "
+                             f"{len(want)}) and index {res.index}")
+    say(f"[12] test_cli.main (the reference command, ngf 64, crop 256, frame "
+        f"batch 8): {TEST_CLI_FRAMES} frames x 9 visuals and "
+        f"{os.path.basename(res.index)} in {wall:.3f} s of wall time with the "
+        f"nets' random init; render_visuals {res.render_seconds:.3f} s in the "
+        f"run (first calls included); launches {launches}")
+    if launches["instance_norm"] <= 0:
+        raise AssertionError(f"K2 never launched in test_cli: {launches}")
+
+    # render_visuals beside __call__ on the same inputs, warm
+    renderer = test_cli.build_renderer(args, dev)
+    nets = {"generator": renderer.g, "modnet": renderer.modnet,
+            "static_g": renderer.static_net}
+    kept, hooks = keep_instance_norm_inputs(nets)
+    with torch.inference_mode():
+        renderer.render_visuals(photo, a68, tb68[:8])
+        for h in hooks:
+            h.remove()
+        renderer(photo, a68, tb68)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        renderer.render_visuals(photo, a68, tb68)
+        torch.cuda.synchronize()
+        t_vis = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        renderer(photo, a68, tb68)
+        torch.cuda.synchronize()
+        t_call = time.perf_counter() - t0
+    k2_err = k2_on_path(kept, "12")
+    say(f"[12] same {TEST_CLI_FRAMES} frames, warm: render_visuals "
+        f"{TEST_CLI_FRAMES / t_vis:.2f} frames/s, __call__ "
+        f"{TEST_CLI_FRAMES / t_call:.2f} frames/s (smoke figures)")
+
+    # card against host on 2 frames (the host renders a batch of 2)
+    host_r = test_cli.build_renderer(
+        test_cli.build_test_argparser().parse_args(
+            argv + ["--frame_batch", "2"]), torch.device("cpu"))
+    with torch.inference_mode():
+        card = renderer.render_visuals(photo, a68, tb68[:2])
+        host = host_r.render_visuals(photo, a68, tb68[:2])
+    p = {k: psnr(card[k], host[k], peak=2.0) for k in sorted(card)
+         if k not in ("warp_motion", "iw_flow")}
+    grid = max(float(np.abs(card[k] - host[k]).max())
+               for k in ("warp_motion", "iw_flow"))
+    drawn_ok = all(
+        np.array_equal(read_image(os.path.join(
+            res.image_dir, f"{names[t]}_{label}.png"))[:, :, ::-1],
+            test_cli.tensor2im(draw_landmarks(256, 256, lm, 3, 2, op=0)))
+        for t in range(2) for label, lm in (("real_A_lm", a68),
+                                            ("target_B_lm", tb68[t])))
+    say("[12] card vs host, 2 frames of render_visuals: PSNR "
+        + ", ".join(f"{k} {v:.2f}" for k, v in p.items())
+        + f" dB (>= {VISUALS_MIN_PSNR}); warp grid and flow max|diff| "
+        f"{grid:.3e}; the card run's landmark drawings equal the host's: "
+        f"{drawn_ok}")
+    if min(p.values()) < VISUALS_MIN_PSNR or not drawn_ok:
+        raise AssertionError(f"test_cli card vs host: {p}, drawings "
+                             f"{drawn_ok}")
+    del renderer, host_r
+    return {"launches": launches, "wall_s": wall,
+            "visuals_fps": TEST_CLI_FRAMES / t_vis,
+            "call_fps": TEST_CLI_FRAMES / t_call, "psnr": p,
+            "k2_path_err": k2_err}
+
+
+class _PhotoRecorder:
+    """A pipeline that records the photo of each call."""
+
+    def __init__(self, pipe, seen: list):
+        self.pipe, self.seen = pipe, seen
+
+    def __getattr__(self, name):
+        return getattr(self.pipe, name)
+
+    def __call__(self, img, *args, **kwargs):
+        self.seen.append(np.array(img))
+        return self.pipe(img, *args, **kwargs)
+
+
+def phase12_video(dev: torch.device, main_run: dict, tmp: str) -> dict:
+    """``cli.main --video`` on an AVI of phase 3's frames with its 6 s WAV
+    as a 16 kHz PCM track, once with ``--audio`` (launch counters zeroed
+    just before) and once from the track."""
+    from animateportrait_tpu_torch import cli
+    from animateportrait_tpu_torch.utils import jpeg
+    from animateportrait_tpu_torch.utils.smoke import (
+        make_wav, write_mtcnn_weights)
+    from animateportrait_tpu_torch.utils.video import (
+        mux_avi, read_avi, read_pcm_track, write_wav)
+
+    frames = np.repeat(main_run["frames"], 3, axis=-1)
+    wav = make_wav(6.0, seed=2)
+    d = os.path.join(tmp, "video")
+    os.makedirs(d)
+    avi = mux_avi(os.path.join(d, "clip.avi"), frames, wav)
+    wav_path = write_wav(os.path.join(d, "speech.wav"), wav)
+    ckpt = os.path.join(d, "ckpt")
+    write_mtcnn_weights(os.path.join(ckpt, "mtcnn"), seed=0)
+    want_photo = jpeg.decode_jpeg(jpeg.encode_jpeg(frames[0][:, :, ::-1]))
+    seen: list = []
+    build = cli.build_pipeline
+    cli.build_pipeline = lambda a: _PhotoRecorder(build(a), seen)
+    try:
+        runs = {}
+        for key, extra in (("audio", ["--audio", wav_path]), ("track", [])):
+            argv = ["--video", avi, *extra, "--device", dev.type,
+                    "--frame_batch", "8", "--ckpt_dir", ckpt, "--output",
+                    os.path.join(d, key)]
+            zero_counters()
+            t0 = time.perf_counter()
+            res = cli.main(argv)
+            torch.cuda.synchronize()
+            runs[key] = (res, time.perf_counter() - t0, read_counters())
+    finally:
+        cli.build_pipeline = build
+    (ra, wall_a, launches), (rt, wall_t, lt) = runs["audio"], runs["track"]
+    photos_ok = len(seen) == 2 and all(np.array_equal(p, want_photo)
+                                       for p in seen)
+    track = read_avi(rt.path)["pcm"]
+    want_pcm = (read_pcm_track(avi) * 32768.0).astype(np.int16)
+    names_ok = (ra.path.endswith("/frame-speech/output_formal_drawing.avi")
+                and rt.path.endswith("/frame-audio/output_formal_drawing.avi"))
+    for key, (res, wall, n) in runs.items():
+        piped = sum(res.stage_seconds.values())
+        what = "--audio" if key == "audio" else "the clip's PCM track"
+        say(f"[12] cli.main --video ({what}): {res.frames} frames, pipeline + mux "
+            f"{piped:.3f} s = {res.frames / piped:.2f} frames/s, wall "
+            f"{wall:.3f} s; {os.path.relpath(res.path, d)}; launches {n}")
+    say(f"[12] --video photo = decode_jpeg(encode_jpeg(first frame)) in both "
+        f"runs: {photos_ok}; the track run's PCM is the clip's track: "
+        f"{track == want_pcm[:len(track) // 2].tobytes()}")
+    if not (photos_ok and names_ok and launches["stft_magnitude"] == 1
+            and launches["instance_norm"] > 0 and lt["stft_magnitude"] == 1
+            and track == want_pcm[:len(track) // 2].tobytes()):
+        raise AssertionError(f"--video: photos {photos_ok}, names {names_ok}"
+                             f", launches {launches} / {lt}")
+    return {"launches": launches, "frames_per_s": ra.frames / sum(
+        ra.stage_seconds.values())}
+
+
+def phase12_encoder() -> dict:
+    """The quality-95 encoder on the committed fixtures: the file's and the
+    round trip's SHA-256 against OpenCV's (``jpeg_fixtures.json``), host
+    ms per 512^2 image, median of 5."""
+    import hashlib
+
+    from animateportrait_tpu_torch.utils import jpeg
+    from animateportrait_tpu_torch.utils.assets import ASSET_DIR
+    from animateportrait_tpu_torch.utils.image import read_image
+
+    with open(os.path.join(ASSET_DIR, "jpeg_fixtures.json")) as f:
+        table = json.load(f)
+    ms = {}
+    for name in JPEG_FIXTURES:
+        img = read_image(os.path.join(ASSET_DIR, name))
+        enc, dec = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            data = jpeg.encode_jpeg(img)
+            t1 = time.perf_counter()
+            px = jpeg.decode_jpeg(data)
+            enc.append(t1 - t0)
+            dec.append(time.perf_counter() - t1)
+        got = ({"sha256": hashlib.sha256(data).hexdigest(),
+                "size": len(data)},
+               {"sha256": hashlib.sha256(np.ascontiguousarray(px).tobytes())
+                .hexdigest(), "shape": list(px.shape)})
+        if got != (table[name]["cv2_q95_file"], table[name]["cv2_q95"]):
+            raise AssertionError(f"encode_jpeg({name}): {got}, OpenCV gave "
+                                 f"{table[name]['cv2_q95_file']}, "
+                                 f"{table[name]['cv2_q95']}")
+        ms[name] = (float(np.median(enc) * 1e3), float(np.median(dec) * 1e3))
+    say("[12] encode_jpeg (quality 95) on the fixtures: the file and its "
+        "decode have OpenCV's SHA-256; host ms per 512^2 image, median of "
+        "5, encode / decode: " + ", ".join(
+            f"{k} {e:.1f} / {d:.1f}" for k, (e, d) in ms.items()))
+    return ms
+
+
+def phase12_front_end(dev: torch.device, tmp: str) -> dict:
+    """``detect_faces_batch`` of 4 photos against 4 single calls and
+    ``BatchedLandmarkPredictor`` of 3 audios (two of one length) against
+    the single predictor, with the device time of each (synchronized,
+    warm, median of 5)."""
+    from animateportrait_tpu_torch.models import mtcnn
+    from animateportrait_tpu_torch.pipeline.batch import (
+        BatchedLandmarkPredictor, detect_faces_batch)
+    from animateportrait_tpu_torch.pipeline.landmark import LandmarkPredictor
+    from animateportrait_tpu_torch.utils.assets import std_face_landmarks
+    from animateportrait_tpu_torch.utils.image import read_image
+    from animateportrait_tpu_torch.utils.smoke import (
+        full_width_nets, write_mtcnn_weights)
+
+    def median_s(fn):
+        fn()
+        out = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return float(np.median(out))
+
+    d = write_mtcnn_weights(os.path.join(tmp, "mtcnn_fe"), seed=0)
+    det = mtcnn.MTCNNDetector(*(getattr(mtcnn, f"load_{n}")(
+        os.path.join(d, f"{n}.npy")) for n in ("pnet", "rnet", "onet")),
+        device=dev)
+    img = read_image(write_photo(os.path.join(tmp, "fe.ppm")))[:, :, ::-1]
+    photos = np.stack([img, img[:, ::-1], img[::-1], np.roll(img, 37, 1)]
+                      ).astype(np.float32)
+    batch = detect_faces_batch(det, photos)
+    single = [det(p) for p in photos]
+    counts_ok = all(len(b[0]) == len(s[0]) for b, s in zip(batch, single))
+    box_err = max((float(np.abs(b[0] - s[0])[:, :4].max()) if len(s[0])
+                   else 0.0) for b, s in zip(batch, single))
+    score_err = max((float(np.abs(b[0] - s[0])[:, 4].max()) if len(s[0])
+                     else 0.0) for b, s in zip(batch, single))
+    pts_err = max((float(np.abs(b[1] - s[1]).max()) if len(s[1])
+                   else 0.0) for b, s in zip(batch, single))
+    exact = all(np.array_equal(b[0], s[0]) and np.array_equal(b[1], s[1])
+                for b, s in zip(batch, single))
+    t_batch = median_s(lambda: detect_faces_batch(det, photos))
+    t_single = median_s(lambda: [det(p) for p in photos])
+    say(f"[12] detect_faces_batch of 4 512^2 photos: faces "
+        f"{[len(b[0]) for b in batch]} (single calls "
+        f"{[len(s[0]) for s in single]}), max|diff| boxes {box_err:.3e} "
+        f"px, five points {pts_err:.3e} px, scores {score_err:.3e} (each <= "
+        f"{DETECT_BATCH_ATOL}), bit-equal {exact}; {t_batch * 1e3:.2f} ms "
+        f"batched, {t_single * 1e3:.2f} ms for 4 single calls "
+        f"({t_single / t_batch:.2f}x)")
+    if not (counts_ok and max(box_err, pts_err, score_err) <= DETECT_BATCH_ATOL
+            and sum(len(b[0]) for b in batch)):
+        raise AssertionError(f"detect_faces_batch against single calls: "
+                             f"counts {counts_ok}, boxes {box_err}, five "
+                             f"points {pts_err}, scores {score_err}")
+
+    nets = full_width_nets(seed=0)
+    pred = LandmarkPredictor(nets["pos"], nets["content"], device=dev)
+    rng = np.random.default_rng(8)
+    wins = [rng.standard_normal((T, 18, 80)).astype(np.float32)
+            for T in (358, 358, 250)]
+    embs = [rng.standard_normal(256).astype(np.float32) for _ in wins]
+    fid = (std_face_landmarks().reshape(1, 204) * 0.1).astype(np.float32)
+    fids = [fid + rng.normal(0, 0.01, (1, 204)).astype(np.float32)
+            for _ in wins]
+    bpred = BatchedLandmarkPredictor(pred)
+    with torch.inference_mode():
+        got = bpred(wins, embs, fids)
+        want = [pred(w, e, f) for w, e, f in zip(wins, embs, fids)]
+        lm_err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+        tb = median_s(lambda: bpred(wins, embs, fids))
+        ts = median_s(lambda: [pred(w, e, f) for w, e, f in zip(wins, embs,
+                                                                fids)])
+    say(f"[12] BatchedLandmarkPredictor of 3 audios (358, 358, 250 windows) "
+        f"against the single predictor: max|diff| {lm_err:.3e} (<= "
+        f"{LANDMARK_BATCH_ATOL}); {tb * 1e3:.2f} ms batched, {ts * 1e3:.2f} "
+        f"ms single ({ts / tb:.2f}x)")
+    if not lm_err <= LANDMARK_BATCH_ATOL:
+        raise AssertionError(f"batched landmarks differ: {lm_err}")
+    return {"detect_ms": (t_batch * 1e3, t_single * 1e3),
+            "landmarks_ms": (tb * 1e3, ts * 1e3), "box_err": box_err,
+            "pts_err": pts_err, "score_err": score_err,
+            "lm_err": lm_err}
+
+
+def phase12_p2c_full(dev: torch.device) -> dict:
+    """Photo2Cartoon ``light=False`` at ngf 32 (a 524 288 -> 128 ``FC.0``)
+    with seeded random weights: card against host on one 256^2 photo, K2
+    against its plain version on its InstanceNorm inputs, ms per photo on
+    the card (warm, median of 5), beside the light head's in turn."""
+    from animateportrait_tpu_torch.models.photo2cartoon import (
+        Photo2CartoonGenerator)
+    from animateportrait_tpu_torch.utils.smoke import init_random_
+
+    light = init_random_(Photo2CartoonGenerator(ngf=32),
+                         torch.Generator().manual_seed(0)).eval().to(dev)
+    net = init_random_(Photo2CartoonGenerator(ngf=32, light=False),
+                       torch.Generator().manual_seed(0)).eval()
+    x = torch.as_tensor(np.random.default_rng(9).uniform(
+        -1, 1, (1, 3, 256, 256)).astype(np.float32))
+    with torch.inference_mode():
+        host = net(x)[0].numpy()
+    net = net.to(dev)
+    xd = x.to(dev)
+    kept, hooks = keep_instance_norm_inputs({"photo2cartoon": net})
+    with torch.inference_mode():
+        card = net(xd)[0].cpu().numpy()
+        for h in hooks:
+            h.remove()
+        ms, light_ms = [], []
+        for _ in range(5):
+            for gen, out in ((net, ms), (light, light_ms)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                gen(xd)
+                torch.cuda.synchronize()
+                out.append(time.perf_counter() - t0)
+    k2_err = k2_on_path(kept, "12")
+    p = psnr(card, host, peak=2.0)
+    ms, light_ms = (float(np.median(t) * 1e3) for t in (ms, light_ms))
+    say(f"[12] Photo2Cartoon light=False ngf 32 (FC.0 "
+        f"{tuple(net.FC[0].weight.shape)}): card vs host PSNR {p:.2f} dB "
+        f"(>= {P2C_FULL_MIN_PSNR}), max|diff| "
+        f"{float(np.abs(card - host).max()):.3e}; {ms:.2f} ms per photo on "
+        f"the card, the light head's {light_ms:.2f} ms in turn with it")
+    if not p >= P2C_FULL_MIN_PSNR:
+        raise AssertionError(f"Photo2Cartoon light=False card vs host {p}")
+    del net, light
+    torch.cuda.empty_cache()
+    return {"psnr": p, "ms": ms, "light_ms": light_ms, "k2_path_err": k2_err}
+
+
+def phase12(dev: torch.device, main_run: dict) -> dict:
+    """The rest of the inference surface: test_cli, --video, the encoder,
+    the batched front end and Photo2Cartoon light=False."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {"test_cli": phase12_test_cli(dev, tmp),
+               "video": phase12_video(dev, main_run, tmp),
+               "encoder_ms": phase12_encoder(),
+               "front_end": phase12_front_end(dev, tmp),
+               "p2c_full": phase12_p2c_full(dev)}
+    return out
+
+
 def child_processes() -> list[str]:
     """The processes whose parent is this one, as "pid command"."""
     out = []
@@ -1913,6 +2314,11 @@ def main() -> None:
         render_bf16 = phase9(dev, main_run)
         train_bf16 = phase10(dev, trainer)
         user_photo = phase11(dev, main_run, trainer)
+    surface = phase12(dev, main_run)
+    rec["instance_norm"]["max_abs_err"] = max(
+        rec["instance_norm"]["max_abs_err"],
+        surface["test_cli"]["k2_path_err"],
+        surface["p2c_full"]["k2_path_err"])
     stop_processes()
     say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     src = "animateportrait_tpu_torch/csrc/"
@@ -1974,7 +2380,9 @@ def main() -> None:
         "train_step_bf16": train_bf16["launches"],
         "train_cli_bf16": train_bf16["cli_launches"],
         "user_photo_cli": user_photo["launches"],
-        "train_cli_jpeg": user_photo["train_launches"]}
+        "train_cli_jpeg": user_photo["train_launches"],
+        "test_cli": surface["test_cli"]["launches"],
+        "video_cli": surface["video"]["launches"]}
     # "launches": K1's, K2's and K2-bf16's on the user's entry point (the
     # cartoon CLI runs of phases 5 and 9), K2b's and K2b-bf16's in the timed
     # training steps (phases 7 and 10); "launches_by_path" has every path's

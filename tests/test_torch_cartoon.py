@@ -158,3 +158,60 @@ def test_renderer_needs_the_static_net_of_its_style():
         Module2Renderer(*nets, device="cpu")
     with pytest.raises(ValueError, match="unknown style"):
         Module2Renderer(*nets, style="sketch", device="cpu")
+
+
+# --- light=False: the full FC head ---------------------------------------
+
+
+def _p2c_full_jax(size, ngf, seed):
+    from animateportrait_tpu.models.photo2cartoon import (
+        Photo2CartoonGenerator as JP)
+
+    jm = JP(ngf=ngf, light=False)
+    v = random_variables(lambda: jm.init(K, jnp.zeros((1, size, size, 3))),
+                         seed=seed)
+    return jm, v
+
+
+@pytest.mark.parametrize("size,ngf", [(32, 4), (48, 4)])
+def test_photo2cartoon_full_head_matches_jax(size, ngf):
+    """``light=False`` on the same weights: ``fc0`` reads the bottleneck
+    flattened in NCHW order. At these widths the map is not square in
+    channels and space (16 channels over 8 x 8 or 12 x 12 cells), so
+    a flatten in another order, or a transposed kernel, would show."""
+    jm, v = _p2c_full_jax(size, ngf, seed=5)
+    tm = Photo2CartoonGenerator(ngf=ngf, light=False, img_size=size).eval()
+    tm.load_state_dict(from_jax.photo2cartoon_state_dict(v))
+    c, hw = ngf * 4, (size // 4) ** 2
+    assert c != hw and tm.FC[0].weight.shape == (c, c * hw)
+    x = np.random.default_rng(6).uniform(-1, 1, (2, size, size, 3)).astype(
+        np.float32)
+    out, cam, heat = jm.apply(v, jnp.asarray(x))
+    with torch.no_grad():
+        tout, tcam, theat = tm(nchw(x))
+    assert maxdiff(nhwc(tout), out) <= 1e-3
+    assert maxdiff(tcam, cam) <= 5e-4
+    assert maxdiff(nhwc(theat), heat) <= 1e-3
+    # the head reads the flattened map, not its mean: another map order
+    # gives another style
+    with torch.no_grad():
+        sd = tm.state_dict()
+        w = sd["FC.0.weight"].reshape(c, c, size // 4, size // 4)
+        sd["FC.0.weight"] = w.permute(0, 2, 3, 1).reshape(c, c * hw)
+        tm.load_state_dict(sd)
+        wrong, _, _ = tm(nchw(x))
+    assert maxdiff(nhwc(wrong), out) > 1e-2
+
+
+def test_photo2cartoon_full_head_converter_round_trip():
+    from animateportrait_tpu.models.photo2cartoon import (
+        load_photo2cartoon_params)
+
+    _, v = _p2c_full_jax(32, 4, seed=7)
+    sd = from_jax.photo2cartoon_state_dict(v)
+    assert tuple(sd["FC.0.weight"].shape) == (16, 16 * 8 * 8)
+    Photo2CartoonGenerator(ngf=4, light=False, img_size=32).load_state_dict(
+        sd, strict=True)
+    back = load_photo2cartoon_params({k: t.numpy() for k, t in sd.items()})
+    np.testing.assert_array_equal(np.asarray(back["params"]["fc0"]["kernel"]),
+                                  np.asarray(v["params"]["fc0"]["kernel"]))

@@ -367,13 +367,13 @@ def test_cli_drawing_output_name_and_gray_frames(inputs):
 def test_cli_rejects_what_it_does_not_run(inputs, tmp_path, capsys):
     d, png, wav, ckpt = inputs
     base = ["--audio", wav, "--ckpt_dir", ckpt, "--output", str(tmp_path)]
-    for flag in (["--warp_mode", "cubic"], ["--video", wav]):
+    for flag in (["--warp_mode", "cubic"], ["--render_dp"]):
         with pytest.raises(SystemExit) as e:
             cli.main(["--jpg", png, *base, *flag, *TINY])
         assert e.value.code == 2
     err = capsys.readouterr().err
     assert "invalid choice: 'cubic'" in err
-    assert "unrecognized arguments: --video" in err
+    assert "unrecognized arguments: --render_dp" in err
     jpg = str(tmp_path / "face.jpg")
     with open(jpg, "wb") as f:
         f.write(b"\xff\xd8\xff\xe0" + bytes(64))

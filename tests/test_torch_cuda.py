@@ -2,8 +2,10 @@
 PyTorch version, the wrappers' checks and launch counters, K2's gradient
 path (K2 forward, K2b backward) against autograd through the plain version,
 and small runs on the card against the CPU: the renderer (drawing and
-cartoon), the MTCNN cascade, Photo2Cartoon, the speaker embedding and the
-Module2 training step. They skip without a CUDA device.
+cartoon, ``render_visuals`` too), the MTCNN cascade, Photo2Cartoon, the
+speaker embedding and the Module2 training step; ``test_cli.main`` and
+``cli.main --video`` on the card, and the batched front end against
+single calls. They skip without a CUDA device.
 
 This file imports neither JAX nor the JAX package, so it runs where JAX is
 not installed; the repo's conftest imports JAX, so on such a machine run
@@ -715,3 +717,144 @@ def test_bf16_training_step_on_the_card(cuda_device):
         assert np.isfinite(float(out["cuda"][k])), k
         np.testing.assert_allclose(float(out["cuda"][k]), float(v),
                                    rtol=2e-2, err_msg=k)
+
+
+# --- the rest of the inference surface: test_cli, --video, the batched
+# front end --------------------------------------------------------------
+
+
+def _small_renderer_nets():
+    from animateportrait_tpu_torch.models.flowunet import FlowUnet
+    from animateportrait_tpu_torch.models.gan import (
+        ResnetStyle2Generator, TridentGeneratorFullIFW)
+    from animateportrait_tpu_torch.models.modnet import MODNet
+    from animateportrait_tpu_torch.utils.smoke import init_random_
+
+    g = torch.Generator().manual_seed(0)
+    return [init_random_(n, g) for n in (
+        TridentGeneratorFullIFW(output_nc=1, ngf=8, n_blocks=3, div=3,
+                                disp=3),
+        FlowUnet(nf=4, num_scale=3, max_nf=64), MODNet(),
+        ResnetStyle2Generator(ngf=8, n_blocks=2))]
+
+
+def test_render_visuals_card_matches_host(cuda_device):
+    """Every float visual of a 3-frame render_visuals batch at PSNR >= 40
+    dB between the card (K2) and the CPU (its plain version)."""
+    import copy
+
+    from animateportrait_tpu_torch.pipeline.render import Module2Renderer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    nets = _small_renderer_nets()
+    rng = np.random.default_rng(0)
+    photo = rng.uniform(-1, 1, (256, 256, 3)).astype(np.float32)
+    a68 = rng.uniform(70, 190, (68, 2)).astype(np.float32)
+    tb68 = a68 + rng.uniform(-2, 2, (3, 68, 2)).astype(np.float32)
+    launches = instnorm.instance_norm.launches
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        r = Module2Renderer(*copy.deepcopy(nets), frame_batch=2, device=dev)
+        with torch.inference_mode():
+            outs.append(r.render_visuals(photo, a68, tb68))
+    assert instnorm.instance_norm.launches > launches
+    card, host = outs
+    assert set(card) == set(host) and card["fake_B"].shape == (3, 256, 256, 1)
+    for k in card:
+        if k in ("warp_motion", "iw_flow"):
+            assert maxdiff(card[k], host[k]) <= 1e-3, k
+        else:
+            assert psnr(card[k], host[k]) >= 40.0, k
+
+
+def test_test_cli_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """test_cli.main with --device cuda (the default) over a seeded driver
+    layout at generator ngf 8: the nine visuals of each frame, the index,
+    K2 launches."""
+    import os
+
+    from animateportrait_tpu_torch import test_cli
+    from animateportrait_tpu_torch.utils.smoke import write_test_layout
+
+    db = write_test_layout(str(tmp_path), n_frames=3, size=256)
+    monkeypatch.chdir(tmp_path)
+    launches = instnorm.instance_norm.launches
+    res = test_cli.main(
+        f"--dataroot {db} --name formal/drawing --netg_resb_disp 3 "
+        f"--output_nc 1 --ngf 8 --epoch 70 --num_test 3 --serial_batches "
+        f"--imagefolder {db} --frame_batch 2 --checkpoints_dir none "
+        f"--results_dir {tmp_path / 'res'}".split())
+    assert instnorm.instance_norm.launches > launches
+    assert len(os.listdir(res.image_dir)) == 3 * 9
+    assert os.path.exists(res.index)
+
+
+def test_video_cli_on_the_card(cuda_device, tmp_path):
+    """cli.main --video (no --audio: the clip's 16 kHz track) on the card at
+    small widths: K1 once, K2, the AVI under frame-audio/."""
+    from animateportrait_tpu_torch import cli
+    from animateportrait_tpu_torch.utils import video
+    from animateportrait_tpu_torch.utils.smoke import (
+        make_wav, write_mtcnn_weights)
+
+    rng = np.random.default_rng(1)
+    frames = rng.integers(0, 256, (70, 160, 144, 3), np.uint8)
+    avi = video.mux_avi(str(tmp_path / "clip.avi"), frames,
+                        make_wav(1.2, seed=2))
+    write_mtcnn_weights(str(tmp_path / "ckpt" / "mtcnn"))
+    k1, k2 = stft.stft_magnitude.launches, instnorm.instance_norm.launches
+    res = cli.main(["--video", avi, "--ckpt_dir", str(tmp_path / "ckpt"),
+                    "--output", str(tmp_path / "out"), "--ngf", "8",
+                    "--flow_nf", "4", "--static_ngf", "8", "--frame_batch",
+                    "4"])
+    assert stft.stft_magnitude.launches == k1 + 1
+    assert instnorm.instance_norm.launches > k2
+    assert res.path.endswith("frame-audio/output_formal_drawing.avi")
+    assert video.read_avi(res.path)["frames"].shape[0] == res.frames > 0
+
+
+def test_batched_front_end_matches_single_calls_on_the_card(cuda_device,
+                                                            tmp_path):
+    """detect_faces_batch against single calls (the same faces; boxes,
+    five points and scores within 1e-3) and the batched landmark predictor
+    against the single one (max |diff| <= 1e-4), on the card."""
+    import os
+
+    from animateportrait_tpu_torch.models import mtcnn
+    from animateportrait_tpu_torch.models.audio2landmark import (
+        Audio2landmarkContent, Audio2landmarkPos)
+    from animateportrait_tpu_torch.pipeline.batch import (
+        BatchedLandmarkPredictor, detect_faces_batch)
+    from animateportrait_tpu_torch.pipeline.landmark import LandmarkPredictor
+    from animateportrait_tpu_torch.utils.smoke import (
+        init_random_, write_mtcnn_weights)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    d = write_mtcnn_weights(str(tmp_path / "mtcnn"))
+    det = mtcnn.MTCNNDetector(*(getattr(mtcnn, f"load_{n}")(
+        os.path.join(d, f"{n}.npy")) for n in ("pnet", "rnet", "onet")),
+        device=cuda_device)
+    imgs = np.random.default_rng(6).uniform(0, 255, (3, 200, 180, 3)).astype(
+        np.float32)
+    for (bb, bl), img in zip(detect_faces_batch(det, imgs), imgs):
+        sb, sl = det(img)
+        assert bb.shape == sb.shape
+        if len(sb):
+            assert maxdiff(bb[:, :4], sb[:, :4]) <= 1e-3
+            assert maxdiff(bl, sl) <= 1e-3
+            assert maxdiff(bb[:, 4], sb[:, 4]) <= 1e-3
+    g = torch.Generator().manual_seed(0)
+    pred = LandmarkPredictor(init_random_(Audio2landmarkPos(), g),
+                             init_random_(Audio2landmarkContent(), g),
+                             device=cuda_device)
+    rng = np.random.default_rng(2)
+    wins = [rng.standard_normal((T, 18, 80)).astype(np.float32)
+            for T in (60, 60, 33)]
+    embs = [rng.standard_normal(256).astype(np.float32) for _ in wins]
+    fids = [rng.normal(0, 0.1, (1, 204)).astype(np.float32) for _ in wins]
+    got = BatchedLandmarkPredictor(pred)(wins, embs, fids)
+    with torch.inference_mode():
+        for w, e, f, out in zip(wins, embs, fids, got):
+            assert maxdiff(out, pred(w, e, f)) <= 1e-4

@@ -283,4 +283,24 @@ def test_committed_fixtures_decode_to_their_hashes():
         got = {"pil_rgb": digest(image.load_image(path)),
                "pil_l": digest(image.load_image(path, grayscale=True)),
                "cv2_bgr": digest(image.read_image(path))}
-        assert got == table[name], name
+        assert got == {k: table[name][k] for k in got}, name
+
+
+def test_committed_fixtures_encode_to_opencvs_hashes():
+    """The quality-95 encoder on each fixture's cv2.imread image: the
+    file cv2.imencode writes (its SHA-256 and length) and the round trip
+    cv2.imread(cv2.imwrite(.)), as recorded for the card machine."""
+    import hashlib
+    import json
+
+    from animateportrait_tpu_torch.utils.assets import ASSET_DIR
+    from torch_jpeg_fixtures import FIXTURES, HASHES, digest
+
+    with open(os.path.join(ASSET_DIR, HASHES)) as f:
+        table = json.load(f)
+    for name in FIXTURES:
+        data = jpeg.encode_jpeg(image.read_image(os.path.join(ASSET_DIR,
+                                                              name)))
+        assert {"sha256": hashlib.sha256(data).hexdigest(),
+                "size": len(data)} == table[name]["cv2_q95_file"], name
+        assert digest(jpeg.decode_jpeg(data)) == table[name]["cv2_q95"]

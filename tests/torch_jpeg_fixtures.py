@@ -11,7 +11,10 @@ photo, and the SHA-256 of PIL's and OpenCV's decodes of each:
 ``jpeg_fixtures.json`` holds, per file, ``pil_rgb`` and ``pil_l``
 (``Image.open(path).convert("RGB" | "L")``) and ``cv2_bgr``
 (``cv2.imread(path)``, EXIF rotation applied): the hex SHA-256 of the C
-contiguous uint8 array and its shape."""
+contiguous uint8 array and its shape. For the quality-95 encoder it holds
+``cv2_q95``, OpenCV's ``imwrite`` + ``imread`` of that BGR image (the
+round trip of the JAX CLI's ``--video``), and ``cv2_q95_file``, the
+SHA-256 and length of the bytes ``cv2.imencode(".jpg", ...)`` writes."""
 import hashlib
 import json
 import os
@@ -47,8 +50,13 @@ def reference_digests(path: str) -> dict:
 
     with Image.open(path) as im:
         rgb, gray = np.asarray(im.convert("RGB")), np.asarray(im.convert("L"))
+    bgr = cv2.imread(path)
+    ok, enc = cv2.imencode(".jpg", bgr)
     return {"pil_rgb": digest(rgb), "pil_l": digest(gray),
-            "cv2_bgr": digest(cv2.imread(path))}
+            "cv2_bgr": digest(bgr),
+            "cv2_q95": digest(cv2.imdecode(enc, cv2.IMREAD_COLOR)),
+            "cv2_q95_file": {"sha256": hashlib.sha256(enc.tobytes())
+                             .hexdigest(), "size": int(enc.size)}}
 
 
 def write_fixtures(directory: str) -> dict:
@@ -71,5 +79,20 @@ def write_fixtures(directory: str) -> dict:
     return table
 
 
+def write_digests(directory: str) -> dict:
+    """The digests of the fixtures already in ``directory``, into
+    ``jpeg_fixtures.json``."""
+    table = {n: reference_digests(os.path.join(directory, n))
+             for n in FIXTURES}
+    with open(os.path.join(directory, HASHES), "w") as f:
+        json.dump(table, f, indent=1, sort_keys=True)
+        f.write("\n")
+    return table
+
+
 if __name__ == "__main__":
-    print(json.dumps(write_fixtures(sys.argv[1]), indent=1))
+    # --digests: leave the JPEG files as they are, rewrite the table
+    if sys.argv[1] == "--digests":
+        print(json.dumps(write_digests(sys.argv[2]), indent=1))
+    else:
+        print(json.dumps(write_fixtures(sys.argv[1]), indent=1))
