@@ -12,6 +12,8 @@ result loads with ``module.load_state_dict(sd)``:
 - FlowUnet's packed convs and ``OutConv7`` hold plain HWIO kernels, so they
   convert like any conv;
 - LSTM gates are already in torch order.
+- a module the reference registers under two names (DualUnetGenerator's
+  shared downsamples) is written under both.
 
 Inputs are the variables as (nested dicts of) arrays; outputs are
 ``{key: torch.Tensor}``.
@@ -235,18 +237,11 @@ def content_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
     return sd
 
 
-def pos_state_dict(variables: Tree, num_layers: int = 2
-                   ) -> dict[str, torch.Tensor]:
-    """Inverse of ``load_pos_params``."""
-    p = variables["params"]
-    sd: dict = {}
-    _lstm(sd, "audio_content_encoder.", p["audio_content_encoder"], 3)
-    for ours, idx in (("spk_l0", 0), ("spk_l1", 2), ("spk_l2", 4)):
-        _dense(sd, f"spk_emb_encoder.{idx}", p[ours])
-    enc = p["encoder"]
-    _dense(sd, "encoder.embed.embed", enc["embed"])
+def _transformer_encoder(sd: dict, prefix: str, enc: Tree,
+                         num_layers: int) -> None:
+    _dense(sd, f"{prefix}.embed.embed", enc["embed"])
     for i in range(num_layers):
-        lp, le = f"encoder.layers.{i}", enc[f"layer{i}"]
+        lp, le = f"{prefix}.layers.{i}", enc[f"layer{i}"]
         for ours, theirs in (("norm1", "norm_1"), ("norm2", "norm_2")):
             sd[f"{lp}.{theirs}.alpha"] = _t(le[ours]["alpha"])
             sd[f"{lp}.{theirs}.bias"] = _t(le[ours]["bias"])
@@ -255,10 +250,41 @@ def pos_state_dict(variables: Tree, num_layers: int = 2
             _dense(sd, f"{lp}.attn.{theirs}", le["attn"][ours])
         _dense(sd, f"{lp}.ff.linear_1", le["ff"]["l1"])
         _dense(sd, f"{lp}.ff.linear_2", le["ff"]["l2"])
-    sd["encoder.norm.alpha"] = _t(enc["norm"]["alpha"])
-    sd["encoder.norm.bias"] = _t(enc["norm"]["bias"])
-    for ours, idx in (("out_l0", 0), ("out_l1", 2), ("out_l2", 4)):
-        _dense(sd, f"out.{idx}", p[ours])
+    sd[f"{prefix}.norm.alpha"] = _t(enc["norm"]["alpha"])
+    sd[f"{prefix}.norm.bias"] = _t(enc["norm"]["bias"])
+
+
+def _mlp3(sd: dict, name: str, p: Tree, ours: str) -> None:
+    """A Sequential(Linear, LeakyReLU, Linear, LeakyReLU, Linear) from the
+    Dense layers ``{ours}0..2``."""
+    for j, idx in enumerate((0, 2, 4)):
+        _dense(sd, f"{name}.{idx}", p[f"{ours}{j}"])
+
+
+def pos_state_dict(variables: Tree, num_layers: int = 2
+                   ) -> dict[str, torch.Tensor]:
+    """Inverse of ``load_pos_params``."""
+    p = variables["params"]
+    sd: dict = {}
+    _lstm(sd, "audio_content_encoder.", p["audio_content_encoder"], 3)
+    _mlp3(sd, "spk_emb_encoder", p, "spk_l")
+    _transformer_encoder(sd, "encoder", p["encoder"], num_layers)
+    _mlp3(sd, "out", p, "out_l")
+    return sd
+
+
+def speaker_aware_state_dict(variables: Tree, num_layers: int = 2
+                             ) -> dict[str, torch.Tensor]:
+    """``Audio2landmarkSpeakerAware`` variables -> the port's module (the
+    JAX package has no loader for it: the keys are the pos branch's, with
+    the landmark head at ``fls_out`` and the pose head at ``pos_out``)."""
+    p = variables["params"]
+    sd: dict = {}
+    _lstm(sd, "audio_content_encoder.", p["audio_content_encoder"], 3)
+    _mlp3(sd, "spk_emb_encoder", p, "spk_l")
+    _transformer_encoder(sd, "encoder", p["encoder"], num_layers)
+    _mlp3(sd, "fls_out", p, "fls_l")
+    _mlp3(sd, "pos_out", p, "pos_l")
     return sd
 
 
@@ -506,4 +532,183 @@ def depth_state_dict(variables: Tree, layers: tuple = (3, 8, 36, 3)
                 _batchnorm(sd, f"{theirs}.downsample.1", pb["ds_bn"]["bn"],
                            sb["ds_bn"]["bn"])
     _dense(sd, "fc", p["fc"])
+    return sd
+
+
+def _pair(p: Tree, s: Tree, key: str) -> tuple[Tree, Tree]:
+    return p[key], (s or {}).get(key, {})
+
+
+def _convnorm(sd: dict, name: str, p: Tree, s: Tree) -> None:
+    """conv(): Sequential(Conv2d, BatchNorm2d), or the biased conv alone."""
+    _conv2d(sd, f"{name}.0", p["conv"])
+    if "norm" in p:
+        _batchnorm(sd, f"{name}.1", p["norm"]["bn"], s["norm"]["bn"])
+
+
+def _resblock(sd: dict, name: str, p: Tree, s: Tree) -> None:
+    _convnorm(sd, f"{name}.conv", *_pair(p, s, "conv"))
+    if "conv_a" in p:
+        _convnorm(sd, f"{name}.conv_a", *_pair(p, s, "conv_a"))
+
+
+def _seq_conv_norm(sd: dict, name: str, p: Tree, s: Tree, norm_idx: int
+                   ) -> None:
+    """[act, Conv2d, (PixelShuffle,) norm]: the conv at 1, the norm at
+    ``norm_idx``."""
+    _conv2d(sd, f"{name}.1", p["conv"])
+    _batchnorm(sd, f"{name}.{norm_idx}", p["norm"]["bn"], s["norm"]["bn"])
+
+
+def _unet_scales(sd: dict, p: Tree, s: Tree, num_scales: int, n_res: int,
+                 enc: tuple = ("enc",)) -> None:
+    """The per-scale blocks the three residual Unets share: each encoder's
+    residual blocks (one encoder per prefix of ``enc``) and downsamples
+    (the one ``enc_{l}_down`` written under each prefix), the decoder's
+    upsamples and residual blocks."""
+    for l in range(num_scales):
+        for e in enc:
+            _seq_conv_norm(sd, f"{e}_{l}_downsample",
+                           *_pair(p, s, f"enc_{l}_down"), 2)
+        _seq_conv_norm(sd, f"dec_{l}_upsample", *_pair(p, s, f"dec_{l}_up"),
+                       3)
+        for i in range(n_res):
+            for e in enc:
+                _resblock(sd, f"{e}_{l}_res_{i}",
+                          *_pair(p, s, f"{e}_{l}_res_{i}"))
+            _resblock(sd, f"dec_{l}_res_{i}", *_pair(p, s, f"dec_{l}_res_{i}"))
+
+
+def flowunet_v2_state_dict(variables: Tree, start_scale: int = 2,
+                           num_scales: int = 7, n_residual_blocks: int = 2
+                           ) -> dict[str, torch.Tensor]:
+    """Inverse of ``load_flowunet_v2_params``."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd: dict = {}
+    _convnorm(sd, "pre_conv.0", *_pair(p, s, "pre_map"))
+    for i in range(start_scale.bit_length() - 1):
+        base = 1 + i * 4
+        _resblock(sd, f"pre_conv.{base}", *_pair(p, s, f"pre_res{i}"))
+        _conv2d(sd, f"pre_conv.{base + 2}", p[f"pre_down{i}"])
+        _batchnorm(sd, f"pre_conv.{base + 3}", p[f"pre_down{i}_bn"]["bn"],
+                   s[f"pre_down{i}_bn"]["bn"])
+    _unet_scales(sd, p, s, num_scales, n_residual_blocks)
+    for l in range(num_scales):
+        _conv2d(sd, f"pred_flow_{l}.1", p[f"flow_{l}"]["conv"])
+    _conv2d(sd, "pred_vis.1", p["vis"]["conv"])
+    return sd
+
+
+def if_unet_state_dict(variables: Tree, num_scales: int = 7,
+                       n_residual_blocks: int = 2, multi_output_nc: tuple = ()
+                       ) -> dict[str, torch.Tensor]:
+    """Inverse of ``load_if_unet_params`` (UnetGenerator, or with
+    ``multi_output_nc`` UnetGenerator_MultiOutput)."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd: dict = {}
+    _convnorm(sd, "pre_conv", *_pair(p, s, "pre_conv"))
+    _unet_scales(sd, p, s, num_scales, n_residual_blocks)
+    if multi_output_nc:
+        for i in range(len(multi_output_nc)):
+            _convnorm(sd, f"dec_output_{i}.0", *_pair(p, s, f"out_{i}_map"))
+            _conv2d(sd, f"dec_output_{i}.3", p[f"out_{i}_conv"])
+    else:
+        _conv2d(sd, "dec_output.1", p["dec_output"])
+    return sd
+
+
+def dual_unet_state_dict(variables: Tree, num_scales: int = 7,
+                         num_warp_scales: int = 5, n_residual_blocks: int = 2,
+                         vis_mode: str = "none", aux_outputs: int = 0
+                         ) -> dict[str, torch.Tensor]:
+    """Inverse of ``load_dual_unet_params``; the shared downsamples under
+    both the pose and the appearance name."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd: dict = {}
+    for ours, theirs in (("encp_pre", "encp_pre_conv"),
+                         ("enca_pre", "enca_pre_conv"),
+                         ("dec_fuse", "dec_fuse")):
+        _convnorm(sd, theirs, *_pair(p, s, ours))
+    _unet_scales(sd, p, s, num_scales, n_residual_blocks,
+                 enc=("encp", "enca"))
+    for l in range(min(num_warp_scales, num_scales)):
+        for i in range(n_residual_blocks):
+            name = f"enca_{l}_vis_{i}"
+            if vis_mode == "soft_gate":
+                _conv2d(sd, f"{name}.conv", p[name]["conv"])
+            elif vis_mode in ("residual", "res_no_vis"):
+                _resblock(sd, name, *_pair(p, s, name))
+    _conv2d(sd, "dec_output.1", p["dec_output"])
+    for i in range(aux_outputs):
+        _conv2d(sd, f"dec_aux_output_{i}.1", p[f"dec_aux_{i}"])
+    return sd
+
+
+def resunet_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
+    """``ResUnetGenerator`` variables -> the port's module (the JAX package
+    has no loader for it; the keys are the JAX tree's, each block's
+    convs ``down``/``up``, norms ``down_bn``/``up_bn`` and residual
+    blocks ``{down,up}_res{0,1}`` with ``conv{0,1}``/``bn{0,1}``)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: dict = {}
+    for block, pb in p.items():
+        sb = s.get(block, {})
+        for conv in ("down", "up"):
+            _conv2d(sd, f"{block}.{conv}", pb[conv])
+            if f"{conv}_bn" in pb:
+                _batchnorm(sd, f"{block}.{conv}_bn", pb[f"{conv}_bn"]["bn"],
+                           sb[f"{conv}_bn"]["bn"])
+        for res in (k for k in pb if "_res" in k):
+            for j in (0, 1):
+                _conv2d(sd, f"{block}.{res}.conv{j}", pb[res][f"conv{j}"])
+                _batchnorm(sd, f"{block}.{res}.bn{j}",
+                           pb[res][f"bn{j}"]["bn"], sb[res][f"bn{j}"]["bn"])
+    return sd
+
+
+def vgg19_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
+    """Inverse of ``load_vgg19_params``: ``conv{i}`` -> torchvision's
+    ``features.{i}``."""
+    sd: dict = {}
+    for name, leaf in variables["params"].items():
+        _conv2d(sd, f"features.{name[4:]}", leaf)
+    return sd
+
+
+def gmm_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
+    """Inverse of ``load_gmm_params``: the extractors' ``model.{i}``
+    (conv, ReLU, BN triples) and the regressor's ``conv.{i}`` and
+    ``linear``."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: dict = {}
+    for ext in ("extractionA", "extractionB"):
+        for i, t in enumerate((0, 3, 6, 9, 12, 15)):
+            _conv2d(sd, f"{ext}.model.{t}", p[ext][f"conv{i}"])
+        for i, t in enumerate((2, 5, 8, 11, 14)):
+            _batchnorm(sd, f"{ext}.model.{t}", p[ext][f"bn{i}"],
+                       s[ext][f"bn{i}"])
+    for i, t in enumerate((0, 3, 6, 9)):
+        _conv2d(sd, f"regression.conv.{t}", p["regression"][f"conv{i}"])
+        _batchnorm(sd, f"regression.conv.{t + 1}",
+                   p["regression"][f"bn{i}"], s["regression"][f"bn{i}"])
+    # the regressor's input is flattened channel-major in both packages
+    _dense(sd, "regression.linear", p["regression"]["linear"])
+    return sd
+
+
+def bn_patch_d_state_dict(variables: Tree, n_layers: int = 3
+                          ) -> dict[str, torch.Tensor]:
+    """``BNPatchDiscriminator`` variables -> the port's module (the JAX
+    package has no loader for it; the keys are networks.py's
+    NLayerDiscriminator's: conv0 at ``model.0``, conv n at
+    ``model.{3n - 1}`` with its BatchNorm at ``model.{3n}``, the output
+    conv at ``model.{3 n_layers + 2}``)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: dict = {}
+    _conv2d(sd, "model.0", p["conv0"])
+    for n in range(1, n_layers + 1):
+        _conv2d(sd, f"model.{3 * n - 1}", p[f"conv{n}"])
+        _batchnorm(sd, f"model.{3 * n}", p[f"norm{n}"]["bn"],
+                   s[f"norm{n}"]["bn"])
+    _conv2d(sd, f"model.{3 * n_layers + 2}", p["out"])
     return sd

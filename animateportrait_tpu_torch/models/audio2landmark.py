@@ -18,6 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from animateportrait_tpu_torch.nn import BatchNorm1d
+
 FACE_ID_FEAT_SIZE = 204
 AUDIO_FEAT_SIZE = 161
 
@@ -35,21 +37,23 @@ def positional_encoding_table(d_model: int, max_seq_len: int = 512
 
 class Audio2landmarkContent(nn.Module):
     """18-frame audio window -> 204-d landmark displacement (use_prior_net,
-    hidden 256, 3 LSTM layers). forward(au (N,18,80), face_id (1|N,204))."""
+    hidden 256, 3 LSTM layers). forward(au (N,18,80), face_id (1|N,204)).
+    In training mode (``.train()``) its BatchNorms take flax's batch
+    statistics, as the JAX module's ``train=True``."""
 
     def __init__(self, num_window_frames: int = 18, in_size: int = 80,
                  hidden_size: int = 256, num_layers: int = 3):
         super().__init__()
         self.in_size = in_size
         self.fc_prior = nn.Sequential(
-            nn.Linear(in_size, 256), nn.BatchNorm1d(256), nn.LeakyReLU(0.2),
+            nn.Linear(in_size, 256), BatchNorm1d(256), nn.LeakyReLU(0.2),
             nn.Linear(256, AUDIO_FEAT_SIZE))
         self.bilstm = nn.LSTM(AUDIO_FEAT_SIZE, hidden_size, num_layers,
                               batch_first=True)
         self.fc = nn.Sequential(
             nn.Linear(hidden_size + FACE_ID_FEAT_SIZE, 512),
-            nn.BatchNorm1d(512), nn.LeakyReLU(0.2), nn.Linear(512, 256),
-            nn.BatchNorm1d(256), nn.LeakyReLU(0.2),
+            BatchNorm1d(512), nn.LeakyReLU(0.2), nn.Linear(512, 256),
+            BatchNorm1d(256), nn.LeakyReLU(0.2),
             nn.Linear(256, FACE_ID_FEAT_SIZE))
 
     def forward(self, au: torch.Tensor, face_id: torch.Tensor):
@@ -195,3 +199,52 @@ class Audio2landmarkPos(nn.Module):
         seqs = self.encoder(comb.reshape(-1, *comb.shape[-2:]))
         e_out = torch.cat([seqs.reshape(*lead, *seqs.shape[-2:]), z], dim=-1)
         return self.out(e_out), face_id[..., 0:1, :], spk
+
+
+class Audio2landmarkSpeakerAware(nn.Module):
+    """The speaker-aware branch with its head-pose head (pos_dim 7:
+    quaternion + translation), the speaker-branch trainer's net. The JAX
+    module reconciles the reference's drifted trainer and model (SURVEY.md
+    2.13): the pos branch's audio encoder and speaker MLP, one transformer
+    encoder over the segment (batch 1), a face-id-conditioned landmark head
+    (``fls_out``) and the pose head (``pos_out``).
+
+    forward(au (T,18,80), emb (T,256), face_id (1|T,204), add_z_spk,
+    z, generator) -> (fl_pred (T,204), pos_pred (T,pos_dim), face_id[0:1],
+    spk_encode). With ``add_z_spk`` the speaker code takes 0.01 z, where z
+    (T,128) is the given unit normal draw or one drawn from ``generator``
+    (the JAX module draws it from its ``z_spk`` rng)."""
+
+    def __init__(self, spk_emb_enc_size: int = 128,
+                 transformer_d_model: int = 32, N: int = 2, heads: int = 2,
+                 pos_dim: int = 7):
+        super().__init__()
+        d_model = transformer_d_model * heads
+        self.audio_content_encoder = nn.LSTM(80, 256, 3, batch_first=True)
+        self.spk_emb_encoder = nn.Sequential(
+            nn.Linear(256, 256), nn.LeakyReLU(0.02), nn.Linear(256, 128),
+            nn.LeakyReLU(0.02), nn.Linear(128, spk_emb_enc_size))
+        self.encoder = Encoder(256 + spk_emb_enc_size, d_model, N, heads)
+        self.fls_out = nn.Sequential(
+            nn.Linear(d_model + FACE_ID_FEAT_SIZE, 512), nn.LeakyReLU(0.02),
+            nn.Linear(512, 256), nn.LeakyReLU(0.02),
+            nn.Linear(256, FACE_ID_FEAT_SIZE))
+        self.pos_out = nn.Sequential(
+            nn.Linear(d_model, 32), nn.LeakyReLU(0.02), nn.Linear(32, 16),
+            nn.LeakyReLU(0.02), nn.Linear(16, pos_dim))
+
+    def forward(self, au, emb, face_id, add_z_spk: bool = False,
+                z: torch.Tensor | None = None,
+                generator: torch.Generator | None = None):
+        a, _ = self.audio_content_encoder(au)
+        spk = self.spk_emb_encoder(emb)
+        if add_z_spk:
+            if z is None:
+                z = torch.randn(spk.shape, generator=generator,
+                                device=spk.device, dtype=spk.dtype)
+            spk = spk + z * 0.01
+        e_out = self.encoder(torch.cat([a[:, -1, :], spk], dim=1)[None])[0]
+        face_id_t = face_id.expand(e_out.shape[0], face_id.shape[1]) \
+            if face_id.shape[0] == 1 else face_id
+        fl_pred = self.fls_out(torch.cat([e_out, face_id_t], dim=1))
+        return fl_pred, self.pos_out(e_out), face_id[0:1, :], spk

@@ -3,7 +3,9 @@ of ``animateportrait_tpu/models/flowunet.py``, built recursively like the
 reference (Module2/intrinsic_flow_models/networks.py:509-644) so the
 state-dict keys are the reference checkpoint's. The JAX package's packed
 stem and stride-2 convs (``_SameConvPacked``, ``_Stride2Conv``) are plain
-convs here on the same parameters. BatchNorm runs on running statistics.
+convs here on the same parameters. BatchNorm runs on running statistics
+(the net is built in eval mode); after ``.train()`` it takes flax's batch
+statistics, as the flow-regression trainer's step does.
 """
 from __future__ import annotations
 
@@ -87,14 +89,15 @@ class FlowUnet(nn.Module):
 def kp_to_map_binary(size_hw: tuple[int, int], kps: torch.Tensor,
                      radius: float = 4.0) -> torch.Tensor:
     """Binary-disc keypoint maps (geomcgt_ifw_test_model.py:12-37).
-    kps: (..., K, 2) (x, y) -> (..., K, H, W); keypoints at (-1, -1)
-    give empty maps."""
+    kps: (..., K, 2) (x, y) -> (..., K, H, W) in kps' float dtype;
+    keypoints at (-1, -1) give empty maps."""
     h, w = size_hw
-    xg = torch.arange(w, dtype=torch.float32, device=kps.device)
-    yg = torch.arange(h, dtype=torch.float32, device=kps.device)
+    dt = kps.dtype if kps.is_floating_point() else torch.float32
+    xg = torch.arange(w, dtype=dt, device=kps.device)
+    yg = torch.arange(h, dtype=dt, device=kps.device)
     x = kps[..., 0][..., None, None]
     y = kps[..., 1][..., None, None]
     d2 = (xg[None, :] - x) ** 2 + (yg[:, None] - y) ** 2
-    m = (d2 <= radius ** 2).float()
+    m = (d2 <= radius ** 2).to(dt)
     invalid = (kps[..., 0] == -1) | (kps[..., 1] == -1)
-    return m * (1.0 - invalid[..., None, None].float())
+    return m * (1.0 - invalid[..., None, None].to(dt))

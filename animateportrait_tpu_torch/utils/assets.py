@@ -2,7 +2,8 @@
 
 Copies of the reference's data files, with the loader names of the JAX
 package's ``utils/assets.py``: the canonical 68-point face shape, the
-audio-feature normalization constants, the Obama target speaker
+audio-feature normalization constants, the gaze registration's
+anchor T-shape, the Obama target speaker
 embedding used by the AutoVC normalizer, and the landmark edge list whose
 first 20 edges draw the lips. They are data, not code; the port
 keeps its own copy so that it imports nothing of the JAX package.
@@ -24,6 +25,13 @@ T_SHAPE_IDX = (27, 28, 29, 30, 33, 36, 39, 42, 45)
 def std_face_landmarks() -> np.ndarray:
     """Canonical 68x3 face shape (STD_FACE_LANDMARKS.txt)."""
     return np.loadtxt(os.path.join(ASSET_DIR, "STD_FACE_LANDMARKS.txt"))
+
+
+@functools.lru_cache(maxsize=None)
+def anchor_t_shape_9() -> np.ndarray:
+    """9-point anchor T-shape of the gaze registration
+    (ANCHOR_T_SHAPE_9.txt)."""
+    return np.loadtxt(os.path.join(ASSET_DIR, "ANCHOR_T_SHAPE_9.txt"))
 
 
 @functools.lru_cache(maxsize=None)

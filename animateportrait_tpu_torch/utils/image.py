@@ -33,15 +33,26 @@ PIL draw it: filled circles, ``cv2.line`` at thickness 2 or 4 (OpenCV
 5.0's ``ThickLine``), and ``ImageDraw.polygon`` with a fill and an
 outline (Pillow 12's scanline fill and Bresenham outline).
 
+``resize_linear_float`` is ``cv2.resize`` (INTER_LINEAR) of a float32 plane
+as OpenCV runs it by default, through Intel IPP (measured): a float64
+source coordinate with its fraction rounded to float32, the rows
+interpolated first, then the columns, each ``fma(b - a, t, a)``.
+
 ``resize_bicubic`` reproduces ``cv2.resize(..., interpolation=INTER_CUBIC)``
 on uint8 images, the resize the JAX package's alignment (``align.py``) and
 end-to-end pipeline (``end2end.py``) call: Keys' cubic with A = -0.75,
 half-pixel centres, replicated borders, no antialiasing on downscale. As
-in OpenCV's float path, the taps are computed in fp32, the image is
-filtered along rows and then along columns in fp32, and the result is
-rounded half to even and saturated. Measured against OpenCV 5.0 it is
-bit-exact on downscales and differs by one level on ~1e-5 of the pixels of
-an upscale (fp32 summation order).
+OpenCV 5.0 runs it by default, through Intel IPP (measured): the float64
+source coordinate's fraction rounded to fp32, each tap's distance in fp32
+and its weight from Keys' kernel in float64 rounded to fp32, the rows
+filtered first and then the columns in fp32 as (w0 p0 + w1 p1) + (w2 p2 +
+w3 p3), rounded half to even and saturated. The weights are IPP's (an
+impulse through its float32 resize gives them bit for bit), its sums are
+not: no order of the four products and no polynomial form gives its
+float32 output, which for one row also changes with the image's height.
+So 0-9 of a 480 x 400 -> 512^2 colour resize's 786 432 bytes differ by
+one level (20 random images; ``tests/test_torch_layers.py`` records
+each test size's bytes).
 """
 from __future__ import annotations
 
@@ -503,38 +514,50 @@ def write_png(path: str, img: np.ndarray, png_filter: int = 1,
     return path
 
 
+def _keys(d: np.ndarray) -> np.ndarray:
+    """Keys' cubic kernel, A = -0.75, in float64 at distances |d| < 2."""
+    a = -0.75
+    d = np.abs(d)
+    return np.where(d <= 1, ((a + 2) * d - (a + 3)) * d * d + 1,
+                    ((a * d - 5 * a) * d + 8 * a) * d - 4 * a)
+
+
 def _cubic_taps(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
     """Per output index: the 4 clamped source indices and their fp32
-    weights (OpenCV's ``interpolateCubic``)."""
-    scale = 1.0 / (n_out / n_in)
-    f = ((np.arange(n_out) + 0.5) * scale - 0.5).astype(np.float32)
-    s = np.floor(f)
-    x = (f - s).astype(np.float32)
-    a = np.float32(-0.75)
-    x1 = x + np.float32(1)
-    c0 = ((a * x1 - 5 * a) * x1 + 8 * a) * x1 - 4 * a
-    c1 = ((a + 2) * x - (a + 3)) * x * x + 1
-    y = np.float32(1) - x
-    c2 = ((a + 2) * y - (a + 3)) * y * y + 1
-    c3 = np.float32(1) - c0 - c1 - c2
+    weights, as Intel IPP's cubic resize computes them under OpenCV 5.0
+    (measured): the float64 source coordinate's fraction t rounded to
+    fp32, the distances 1 + t, t, 1 - t and 2 - t in fp32, Keys' kernel
+    on them in float64, each weight rounded to fp32."""
+    x = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+    s = np.floor(x)
+    t = (x - s).astype(np.float32)
+    one, two = np.float32(1), np.float32(2)
+    d = np.stack([t + one, t, one - t, two - t], 1).astype(np.float64)
     idx = np.clip(s.astype(np.int64)[:, None] + np.arange(-1, 3)[None, :],
                   0, n_in - 1)
-    return idx, np.stack([c0, c1, c2, c3], 1)
+    return idx, _keys(d).astype(np.float32)
+
+
+def _cubic_pass(x: np.ndarray, taps: np.ndarray, w: np.ndarray
+                ) -> np.ndarray:
+    """One fp32 filtering pass along the first axis: (p0 w0 + p1 w1) +
+    (p2 w2 + p3 w3), IPP's order."""
+    prod = [x[taps[:, k]] * w[:, k].reshape((-1,) + (1,) * (x.ndim - 1))
+            for k in range(4)]
+    return (prod[0] + prod[1]) + (prod[2] + prod[3])
 
 
 def resize_bicubic(img: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
-    """uint8 (H, W[, C]) -> uint8 (out_h, out_w[, C]), bicubic as OpenCV."""
+    """uint8 (H, W[, C]) -> uint8 (out_h, out_w[, C]), bicubic as OpenCV
+    (through IPP): the rows filtered first, then the columns, in fp32,
+    rounded half to even and saturated."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise TypeError(f"resize_bicubic takes uint8, got {img.dtype}")
     iy, wy = _cubic_taps(img.shape[0], out_hw[0])
     ix, wx = _cubic_taps(img.shape[1], out_hw[1])
-    trail = (None,) * (img.ndim - 2)            # broadcast over channels
-    src = img.astype(np.float32)
-    rows = sum(src[:, ix[:, k]] * wx[(slice(None), k) + trail]
-               for k in range(4))                # (H, out_w[, C])
-    out = sum(rows[iy[:, k]] * wy[(slice(None), k, None) + trail]
-              for k in range(4))
+    rows = _cubic_pass(np.swapaxes(img.astype(np.float32), 0, 1), ix, wx)
+    out = _cubic_pass(np.swapaxes(rows, 0, 1), iy, wy)
     return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
 
@@ -576,6 +599,49 @@ def resize_linear(img: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
     rows = (slice(None), None) + trail
     out = (((b0[rows] * top) >> 16) + ((b1[rows] * bottom) >> 16) + 2) >> 2
     return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def _ipp_linear_taps(n_in: int, n_out: int, dtype
+                     ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per output index: the two source indices and the fraction of
+    Intel IPP's linear resize (measured through OpenCV 5.0's default
+    float path): the float64 coordinate ``(d + 0.5) * n_in / n_out -
+    0.5``, its fraction rounded to ``dtype``; before the first or at or
+    past the last source index, that index with fraction 0."""
+    f = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+    s = np.floor(f).astype(np.int64)
+    t = (f - s).astype(dtype)
+    for edge, at in ((s < 0, 0), (s >= n_in - 1, n_in - 1)):
+        t[edge] = 0
+        s[edge] = at
+    return s, np.minimum(s + 1, n_in - 1), t
+
+
+def _lerp_fma(a: np.ndarray, b: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """fma(b - a, t, a) rounded once to a's float32 (the product of two
+    float32 values and the sum are exact or rounded once in float64)."""
+    if a.dtype != np.float32:
+        return a + (b - a) * t
+    return ((b - a).astype(np.float64) * t + a).astype(np.float32)
+
+
+def resize_linear_float(img: np.ndarray, out_hw: tuple[int, int]
+                        ) -> np.ndarray:
+    """float (H, W) -> (out_h, out_w) of the same dtype, as ``cv2.resize(img,
+    (out_w, out_h))`` (INTER_LINEAR) with OpenCV's default Intel IPP path:
+    the rows first, then the columns, each ``fma(b - a, t, a)``. Byte-equal
+    for float32 (measured against OpenCV 5.0.0's bundled IPP on up- and
+    downscales); float64 input takes the same steps in float64 and is
+    within ~1e-13 of IPP's."""
+    img = np.asarray(img)
+    if img.dtype not in (np.float32, np.float64) or img.ndim != 2:
+        raise TypeError(f"resize_linear_float takes a float32/64 plane, got "
+                        f"{img.shape} {img.dtype}")
+    h, w = img.shape
+    c0, c1, t = _ipp_linear_taps(w, out_hw[1], img.dtype)
+    cols = _lerp_fma(img[:, c0], img[:, c1], t[None])
+    r0, r1, u = _ipp_linear_taps(h, out_hw[0], img.dtype)
+    return _lerp_fma(cols[r0], cols[r1], u[:, None])
 
 
 _PIL_PRECISION_BITS = 22          # 32 - 8 - 2, Resample.c

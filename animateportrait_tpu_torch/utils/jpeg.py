@@ -131,6 +131,7 @@ class _Component:
     bw: int = 0           # blocks allocated per row (whole MCUs)
     bh: int = 0
     offset: int = 0       # first coefficient in the shared list
+    blocks: np.ndarray | None = None   # quantized, (bh * bw, 8, 8)
 
 
 @dataclasses.dataclass
@@ -445,9 +446,24 @@ def orient(px: np.ndarray, orientation: int) -> np.ndarray:
     return np.ascontiguousarray(px)
 
 
-def decode(data: bytes) -> Decoded:
-    """A JPEG file's bytes -> its samples (gray, or RGB after the colour
-    conversion) and its EXIF orientation."""
+@dataclasses.dataclass
+class _Parsed:
+    """A baseline JPEG entropy-decoded: each component's quantized
+    coefficient blocks (``_Component.blocks``, (bh * bw, 8, 8) in natural
+    order) and quantizer, the frame's (w, h, hmax, vmax), whether the
+    samples are RGB (no colour transform), and the EXIF orientation."""
+    comps: list
+    quant: dict
+    w: int
+    h: int
+    hmax: int
+    vmax: int
+    rgb: bool
+    orientation: int
+
+
+def _parse(data: bytes) -> _Parsed:
+    """The markers and scans of a JPEG file, up to the coefficients."""
     if not is_jpeg(data):
         raise ValueError("not a JPEG (no SOI marker)")
     quant: dict[int, np.ndarray] = {}
@@ -546,24 +562,37 @@ def decode(data: bytes) -> Decoded:
     if frame is None:
         raise ValueError("corrupt JPEG: no frame")
     w, h, hmax, vmax, _, _ = frame
-    planes = []
     for c in comps:
         if c.tq not in quant:
             raise ValueError(f"corrupt JPEG: no quantization table {c.tq}")
-        block = np.array(coefs[c.offset: c.offset + c.bw * c.bh * 64],
-                         np.int64).reshape(-1, 8, 8)
-        px = idct_islow(block, quant[c.tq]).reshape(c.bh, c.bw, 8, 8)
-        plane = px.transpose(0, 2, 1, 3).reshape(c.bh * 8, c.bw * 8)
-        plane = plane[:c.height, :c.width]
-        planes.append(_upsample(plane, hmax // c.h, vmax // c.v)[:h, :w])
-    if len(planes) == 1:
-        return Decoded(planes[0][:, :, None], orientation)
+        c.blocks = np.array(coefs[c.offset: c.offset + c.bw * c.bh * 64],
+                            np.int64).reshape(-1, 8, 8)
     ids = tuple(c.cid for c in comps)
-    rgb = (not jfif and (adobe == 0 if adobe is not None
-                         else ids == (82, 71, 66)))
-    out = (np.stack(planes, -1) if rgb
-           else ycc_to_rgb(*planes))
-    return Decoded(out, orientation)
+    rgb = len(comps) == 3 and not jfif and (
+        adobe == 0 if adobe is not None else ids == (82, 71, 66))
+    return _Parsed(comps, quant, w, h, hmax, vmax, rgb, orientation)
+
+
+def _plane(c, px: np.ndarray) -> np.ndarray:
+    """A component's (bh * bw, 8, 8) sample blocks -> its plane."""
+    px = px.reshape(c.bh, c.bw, 8, 8)
+    return px.transpose(0, 2, 1, 3).reshape(c.bh * 8, c.bw * 8)
+
+
+def decode(data: bytes) -> Decoded:
+    """A JPEG file's bytes -> its samples (gray, or RGB after the colour
+    conversion) and its EXIF orientation."""
+    j = _parse(data)
+    planes = []
+    for c in j.comps:
+        plane = _plane(c, idct_islow(c.blocks, j.quant[c.tq]))
+        plane = plane[:c.height, :c.width]
+        planes.append(_upsample(plane, j.hmax // c.h,
+                                j.vmax // c.v)[:j.h, :j.w])
+    if len(planes) == 1:
+        return Decoded(planes[0][:, :, None], j.orientation)
+    out = np.stack(planes, -1) if j.rgb else ycc_to_rgb(*planes)
+    return Decoded(out, j.orientation)
 
 
 def _scan(data: bytes, pos: int, seg: bytes, frame, comps, tables,
@@ -623,6 +652,102 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     dec = decode(data)
     px = orient(dec.samples, dec.orientation)
     return np.repeat(px, 3, 2) if px.shape[2] == 1 else px[:, :, ::-1].copy()
+
+
+# --- FFmpeg's Motion-JPEG decoding (cv2.VideoCapture) -----------------
+
+# simple_idct_template.c at 8 bits: cos(i pi / 16) sqrt(2) 2^14, rounded
+_SW1, _SW2, _SW3, _SW4, _SW5, _SW6, _SW7 = (22725, 21407, 19266, 16383,
+                                            12873, 8867, 4520)
+
+
+def _int16(x: np.ndarray) -> np.ndarray:
+    """A store to C's int16_t: the low 16 bits, signed."""
+    return ((x + 32768) & 0xFFFF) - 32768
+
+
+def _simple_idct_1d(x: np.ndarray, rnd: int, shift: int) -> np.ndarray:
+    """One pass of FFmpeg's simple IDCT over the last axis: even part
+    (a0..a3) and odd part (b0..b3) in 32-bit integer sums, then
+    (a +- b) >> shift."""
+    a = _SW4 * x[..., 0] + rnd
+    e = (a + _SW2 * x[..., 2] + _SW4 * x[..., 4] + _SW6 * x[..., 6],
+         a + _SW6 * x[..., 2] - _SW4 * x[..., 4] - _SW2 * x[..., 6],
+         a - _SW6 * x[..., 2] - _SW4 * x[..., 4] + _SW2 * x[..., 6],
+         a - _SW2 * x[..., 2] + _SW4 * x[..., 4] - _SW6 * x[..., 6])
+    o = (_SW1 * x[..., 1] + _SW3 * x[..., 3] + _SW5 * x[..., 5]
+         + _SW7 * x[..., 7],
+         _SW3 * x[..., 1] - _SW7 * x[..., 3] - _SW1 * x[..., 5]
+         - _SW5 * x[..., 7],
+         _SW5 * x[..., 1] - _SW1 * x[..., 3] + _SW7 * x[..., 5]
+         + _SW3 * x[..., 7],
+         _SW7 * x[..., 1] - _SW5 * x[..., 3] + _SW3 * x[..., 5]
+         - _SW1 * x[..., 7])
+    return np.stack([e[0] + o[0], e[1] + o[1], e[2] + o[2], e[3] + o[3],
+                     e[3] - o[3], e[2] - o[2], e[1] - o[1], e[0] - o[0]],
+                    -1) >> shift
+
+
+def idct_simple(blocks: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """FFmpeg's mjpeg IDCT (``ff_simple_idct_put_int16_8bit``) of quantized
+    (N, 8, 8) blocks -> uint8 samples. The decoder's DC predictor starts
+    at 4 << 8 = 1024, which is the +128 level shift; each coefficient is
+    stored to int16 (the DC saturated, the others wrapped). The row pass
+    (round 2^10, shift 11) stores int16, a row with only a DC taking
+    DC << 3; the column pass adds 2^19 as W4 x (2^19 / W4), shifts by 20
+    and clips to [0, 255]."""
+    deq = _int16(blocks * quant)
+    deq[:, 0, 0] = np.clip(blocks[:, 0, 0] * quant[0, 0] + 1024,
+                           -32768, 32767)
+    rows = _int16(_simple_idct_1d(deq, 1 << 10, 11))
+    dc_only = ~deq[..., 1:].any(-1)
+    rows = np.where(dc_only[..., None], _int16(deq[..., :1] * 8), rows)
+    cols = _simple_idct_1d(np.swapaxes(rows, 1, 2), _SW4 * ((1 << 19)
+                                                            // _SW4), 20)
+    return np.clip(np.swapaxes(cols, 1, 2), 0, 255)
+
+
+def _q13(f: int) -> int:
+    """swscale's roundToInt16(f << 13) of a 16.16 coefficient."""
+    return (f * 8192 + (1 << 15)) >> 16
+
+
+# swscale's BT.601 inverse table (ff_yuv2rgb_coeffs), scaled to full-range
+# input (JPEG's YCbCr) as ff_yuv2rgb_c_init_tables does: vr, ub, ug, vg
+_VR, _UB, _UG, _VG = (_q13(s_ * c * 224 // 255) for s_, c in (
+    (1, 104597), (1, 132201), (-1, 25675), (-1, 53279)))
+
+
+def decode_mjpeg_frame(data: bytes) -> np.ndarray:
+    """A Motion-JPEG frame -> (H, W, 3) BGR uint8 as ``cv2.VideoCapture``
+    gives it through the FFmpeg it bundles (measured against avcodec
+    62.28.101 / swscale 9.5.101): ``idct_simple``, then swscale's unscaled
+    YUV -> BGR24 converter for full-range input, its x86 SSSE3 form: each
+    chroma sample reused over its 2 x 2 (4:2:0) or 2 x 1 (4:2:2) pixels,
+    c8 = (C << 3) - 1024, B = Y + (c8_u UB >> 16), G = Y + (c8_u UG >> 16)
+    + (c8_v VG >> 16), R = Y + (c8_v VR >> 16) (pmulhw's floor), clipped.
+    A gray frame is its samples in three channels. Byte-equal for 4:2:0,
+    4:2:2 and gray frames of even height, which is every frame that
+    OpenCV's MJPG writer makes (it writes even sizes). Not reproduced:
+    odd heights, for which swscale takes its scaled path and interpolates
+    the chroma (up to tens of levels apart), 4:4:4 (that path too, within
+    2 levels), and RGB-coded JPEGs (decoded as libjpeg-turbo does)."""
+    j = _parse(data)
+    if j.rgb:
+        return decode_jpeg(data)
+    planes = [_plane(c, idct_simple(c.blocks, j.quant[c.tq]))
+              for c in j.comps]
+    y = planes[0][:j.h, :j.w]
+    if len(planes) == 1:
+        return np.repeat(y[:, :, None], 3, 2).astype(np.uint8)
+    c0 = j.comps[1]
+    rows = np.arange(j.h) * c0.v // j.vmax
+    cols = np.arange(j.w) * c0.h // j.hmax
+    u8, v8 = ((p[rows][:, cols] << 3) - 1024 for p in planes[1:])
+    b = y + ((u8 * _UB) >> 16)
+    g = y + ((u8 * _UG) >> 16) + ((v8 * _VG) >> 16)
+    r = y + ((v8 * _VR) >> 16)
+    return np.clip(np.stack([b, g, r], -1), 0, 255).astype(np.uint8)
 
 
 # --- encoding ----------------------------------------------------------

@@ -346,3 +346,220 @@ def write_test_layout(root: str, db: str = "portrait_MTCNN",
                   "w") as fp:
             fp.writelines(p + "\n" for p in paths)
     return db
+
+
+# --- the Module1-side trainers (train/{module1,flow_regression,
+# image_translation,pose_transfer}.py) at full width --------------------
+
+TRAINERS = ("content", "speaker", "flow", "imtrans", "pose")
+
+
+class TrainerSmoke:
+    """One ported trainer with its seeded synthetic batch: ``run()`` runs
+    one training step and returns its metrics as the trainer does (tensors,
+    no wait for the card), ``step()`` as floats; ``nets`` are the
+    trained modules by name (their ``.grad`` hold the last step's
+    gradients); ``what`` names the configuration."""
+
+    def __init__(self, what: str, trainer, step, nets: dict):
+        self.what, self.trainer, self._step, self.nets = \
+            what, trainer, step, nets
+
+    def run(self) -> dict:
+        return self._step()
+
+    def step(self) -> dict[str, float]:
+        return {k: float(v) for k, v in self.run().items()}
+
+    def grads(self) -> dict[str, torch.Tensor]:
+        return {f"{n}.{k}": p.grad for n, net in self.nets.items()
+                for k, p in net.named_parameters() if p.grad is not None}
+
+
+def trainer_smoke(name: str, device: torch.device | str, small: bool = False,
+                  dtype: torch.dtype = torch.float32) -> TrainerSmoke:
+    """The trainer ``name`` (one of ``TRAINERS``) on ``device`` with seeded
+    weights and a seeded synthetic batch. Full width (``small=False``):
+
+    - content: ``Audio2landmarkContent`` over all 341 stride-1 18-frame
+      windows of a 358-frame clip;
+    - speaker: ``Audio2landmarkSpeakerAware`` (256-d embedding) over the
+      same windows, with a fixed seeded z;
+    - flow: ``FlowRegConfig`` (num_scale 4), 136 keypoint-map channels at
+      224^2, batch 4;
+    - imtrans: ResUnet ngf 64, num_downs 6, at 256^2 with VGG19, batch 4;
+    - pose: ``PoseTransferConfig`` (dual_unet, G_nf 32, max 128, 7 scales,
+      5 warp scales, 68 joints, D on) at 256^2, batch 4 (7 scales need a
+      side divisible by 2^7; the config's 224 is not, in the JAX package
+      either).
+
+    ``small`` takes the card-against-host widths: 24 windows; num_scale 3,
+    batch 2; ngf 8, num_downs 5, 64^2, batch 2 on seeded uniform noise;
+    the JAX convergence tool's pose widths, batch 2. ``dtype`` float64
+    gives the host's exact stand-in."""
+    from animateportrait_tpu_torch.models.audio2landmark import (
+        Audio2landmarkContent, Audio2landmarkSpeakerAware)
+    from animateportrait_tpu_torch.models.flowunet import FlowUnet
+    from animateportrait_tpu_torch.models.image_translation import (
+        Vgg19Features)
+    from animateportrait_tpu_torch.train import convergence as cv
+    from animateportrait_tpu_torch.train import (
+        flow_regression as fr, image_translation as it, module1 as m1,
+        pose_transfer as pt)
+
+    dev = torch.device(device)
+
+    def t(x):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+        return (x.to(dtype) if x.is_floating_point() else x).to(dev)
+
+    def nchw(x):
+        return t(x).permute(0, 3, 1, 2).contiguous()
+
+    def place(net):
+        return net.to(dtype)
+
+    if name in ("content", "speaker"):
+        n_frames = 41 if small else 358
+        au, fls, face_id, _ = cv.audio_landmark_signals(n_frames)
+        win = [np.stack([x[i:i + 18] for i in range(n_frames - 17)]
+                        ).astype(np.float32) for x in (au, fls)]
+        aus, flw = (t(x) for x in win)
+        fid = t(face_id)
+        if name == "content":
+            tr = m1.ContentTrainer(m1.ContentConfig(), place(cv.seeded(
+                Audio2landmarkContent, 0)), device=dev)
+            return TrainerSmoke(
+                f"content: Audio2landmarkContent, {aus.shape[0]} windows",
+                tr, lambda: tr.step(flw, aus, fid), {"content": tr.model})
+        n = aus.shape[0]
+        embs, quat, trans = (t(x) for x in cv.speaker_pose_targets(n))
+        z = t(np.random.default_rng(5).standard_normal((n, 128)).astype(
+            np.float32))
+        tr = m1.SpeakerAwareTrainer(m1.SpeakerAwareConfig(), place(cv.seeded(
+            Audio2landmarkSpeakerAware, 0)), device=dev)
+        return TrainerSmoke(
+            f"speaker: Audio2landmarkSpeakerAware, {n} windows, 256-d emb",
+            tr, lambda: tr.step(aus, embs, fid, flw[:, 0, :], quat, trans,
+                                z=z), {"speaker": tr.model})
+    if name == "flow":
+        cfg = fr.FlowRegConfig(num_scale=3 if small else 4)
+        kp1, kp2, flow_gt, vis_gt = cv.flow_batch()
+        k = 2 if small else 4
+        tr = fr.FlowRegTrainer(cfg, place(cv.seeded(
+            lambda: FlowUnet(num_scale=cfg.num_scale), 0)), device=dev)
+        batch = (t(kp1[:k]), t(kp2[:k]), nchw(flow_gt[:k]),
+                 t(vis_gt[:k]).long())
+        return TrainerSmoke(
+            f"flow: FlowUnet num_scale {cfg.num_scale}, 136 ch, 224^2, "
+            f"batch {k}", tr, lambda: tr.step(*batch), {"flow": tr.model})
+    if name == "imtrans":
+        cfg = it.ImageTranslationConfig(num_downs=5, ngf=8) if small \
+            else it.ImageTranslationConfig()
+        size, k = (64, 2) if small else (256, 4)
+        tr = it.ImageTranslationTrainer(
+            cfg, place(cv.seeded(lambda: it.build_generator(cfg), 0)),
+            place(cv.seeded(Vgg19Features, 1)), device=dev)
+        if small:
+            # seeded noise: the convergence tool's flat synthetic faces
+            # put exact ties in VGG's max-pools, which rounding and each
+            # implementation break their own way
+            r = np.random.default_rng(3)
+            x, y = (t(r.uniform(-1, 1, (k, c, size, size)).astype(
+                np.float32)) for c in (6, 3))
+        else:
+            x, y = (nchw(a[:k].astype(np.float32))
+                    for a in cv.image_translation_batch(size))
+        return TrainerSmoke(
+            f"imtrans: ResUnet ngf {cfg.ngf}, num_downs {cfg.num_downs}, "
+            f"{size}^2, VGG19, batch {k}", tr, lambda: tr.step(x, y),
+            {"imtrans": tr.model})
+    if name == "pose":
+        if small:
+            cfg = pt.PoseTransferConfig(G_nf=8, G_max_nf=32, G_n_scale=3,
+                                        G_n_warp_scale=2, joint_nc=6,
+                                        size=32, D_nf=8, D_n_layers=2,
+                                        lr=1e-3)
+            k = 2
+        else:
+            cfg, k = pt.PoseTransferConfig(size=256), 4
+        tr = pt.PoseTransferTrainer(
+            cfg, place(cv.seeded(lambda: pt.build_g(cfg), 0)),
+            place(cv.seeded(lambda: FlowUnet(input_nc=2 * cfg.joint_nc), 3)),
+            place(cv.seeded(Vgg19Features, 4)),
+            d=place(cv.seeded(lambda: pt.build_d(cfg), 2)), device=dev)
+        batch = {kk: nchw(v) if v.ndim == 4 else t(v) for kk, v in
+                 cv.pose_batch(k, cfg.size, cfg.joint_nc).items()}
+        return TrainerSmoke(
+            f"pose: {cfg.which_model_G} G_nf {cfg.G_nf}, max {cfg.G_max_nf}, "
+            f"{cfg.G_n_scale} scales, {cfg.G_n_warp_scale} warp scales, "
+            f"{cfg.joint_nc} joints, D on, {cfg.size}^2, batch {k}", tr,
+            lambda: tr.step(batch), {"g": tr.g, "d": tr.d})
+    raise ValueError(f"unknown trainer {name!r}: one of {TRAINERS}")
+
+
+def cancelled_biases(net: nn.Module, norms: tuple | None = None) -> set:
+    """The biases whose gradient is 0 in exact arithmetic in a training
+    step, so that their fp32 gradients are rounding noise: those of the
+    convs and linears that one of ``norms`` follows (the norm removes any
+    constant; by default BatchNorm on batch statistics and InstanceNorm),
+    and the attention key biases (a key bias adds one q.b to every score
+    of a query, which the softmax removes)."""
+    from animateportrait_tpu_torch.nn import InstanceNorm2d
+
+    norms = norms or (nn.BatchNorm1d, nn.BatchNorm2d, InstanceNorm2d)
+    out = set()
+    for name, mod in net.named_modules():
+        kids = list(mod.named_children())
+        for (a, m), (_, nxt) in zip(kids, kids[1:]):
+            if isinstance(m, (nn.modules.conv._ConvNd, nn.Linear)) \
+                    and isinstance(nxt, norms) and m.bias is not None:
+                out.add(f"{name}.{a}.bias".lstrip("."))
+    return out | {k for k, _ in net.named_parameters()
+                  if k.endswith("k_linear.bias")}
+
+
+def grad_parity(got: dict, ref: dict, ref64: dict | None, noise: set
+                ) -> dict[str, float]:
+    """Each gradient leaf of ``got`` against ``ref`` (tensors or arrays by
+    key), as a number to be held to 1e-3:
+
+    - a leaf whose gradient is 0 in exact arithmetic, one in ``noise`` (a
+      cancelled bias) or one whose float64 value (``ref64``, else ``ref``)
+      is below 1e-12 of the tree's largest |g|: max |got - ref| over the
+      tree's largest |ref|;
+    - any other leaf: max |got - ref| over its own largest |ref|; or, given
+      ``ref64`` (a float64 run of the same step) and where ``ref``'s own
+      distance d from it is above 1e-3 of its scale (the step is
+      ill-conditioned in fp32 there), got's distance from ``ref64`` over
+      3 d, times 1e-3: the leaf passes when it is no farther from float64
+      than 3x ``ref``'s own fp32 distance.
+
+    Each leaf is judged on its own numbers only."""
+    def arr(x):
+        return (x.detach().double().cpu() if torch.is_tensor(x)
+                else torch.as_tensor(np.asarray(x, np.float64)))
+
+    def amax(x):
+        return float(x.abs().max()) if x.numel() else 0.0
+
+    def rel(a, b):
+        d = float((a - b).abs().max()) if a.numel() else 0.0
+        return d / amax(b) if amax(b) > 0 else d
+
+    got = {k: arr(v) for k, v in got.items()}
+    ref = {k: arr(ref[k]) for k in got}
+    exact = ref if ref64 is None else {k: arr(ref64[k]) for k in got}
+    top = max(amax(r) for r in ref.values())
+    top64 = max(amax(r) for r in exact.values())
+    out = {}
+    for k, g in got.items():
+        if k in noise or amax(exact[k]) < 1e-12 * top64:
+            out[k] = float((g - ref[k]).abs().max()) / top
+            continue
+        out[k] = rel(g, ref[k])
+        if ref64 is not None:
+            d = rel(ref[k], exact[k])
+            if d > 1e-3:
+                out[k] = 1e-3 * rel(g, exact[k]) / (3 * d)
+    return out

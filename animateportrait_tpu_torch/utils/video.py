@@ -241,7 +241,7 @@ def _frame_reader(path: str, info: dict):
             raise _refuse(path, f"an uncompressed AVI of {bits}-bit pixels")
         return lambda body: _dib_frame(body, w, h)
     if comp in _MJPEG:
-        return jpeg.decode_jpeg
+        return jpeg.decode_mjpeg_frame
     name = comp.decode("latin-1").strip("\x00 ") or repr(comp)
     raise _refuse(path, f"an AVI of codec {name!r}")
 
@@ -249,10 +249,10 @@ def _frame_reader(path: str, info: dict):
 def read_first_frame(path: str) -> np.ndarray:
     """The first frame of an AVI as ``cv2.VideoCapture(path).read()``
     gives it, (H, W, 3) BGR uint8: raw 24-bit DIB frames (bottom-up or
-    top-down) as they are; Motion-JPEG frames through the port's decoder,
-    which gives libjpeg-turbo's samples (``cv2.imdecode`` of the frame's
-    bytes; OpenCV's FFmpeg reader decodes them with FFmpeg's own IDCT and
-    can differ by a few levels). Empty (dropped) frames are skipped.
+    top-down) as they are; Motion-JPEG frames as OpenCV's FFmpeg reader
+    decodes them (``utils/jpeg.py:decode_mjpeg_frame``: FFmpeg's simple
+    IDCT and swscale's YUV -> BGR, byte-equal for 4:2:0, 4:2:2 and gray
+    frames of even height). Empty (dropped) frames are skipped.
     Other containers and codecs raise ``VideoUnsupported``, by name."""
     data, info, chunks = _avi(path)
     read = _frame_reader(path, info)

@@ -115,6 +115,19 @@ Phases, each printing its own lines:
      calls and ``BatchedLandmarkPredictor`` of 3 audios against the single
      predictor, with their times. Photo2Cartoon ``light=False`` at ngf 32:
      card against host, K2 on its InstanceNorm inputs, ms per photo.
+ 13. the Module1-side trainers (``utils/smoke.py:trainer_smoke``): the
+     content and speaker-aware steps over all 341 windows of a 358-frame
+     clip, flow regression (num_scale 4, 224^2, batch 4), image
+     translation (ngf 64, num_downs 6, 256^2, VGG19, batch 4) and pose
+     transfer (the config's dual_unet with D at 256^2, batch 4), each a
+     warm step and 5 timed steps (steps/s and peak memory beside the
+     card's name and power limit; the launch counters zeroed before and 0
+     after: none of these paths reaches a kernel of the port); card
+     against host on one step of each at a small width (losses within
+     rtol 1e-4, gradient leaves within 1e-3 of their scale, or, where
+     fp32 cannot give that, no farther from a float64 host run than the
+     host's own fp32 step); ``train.convergence`` for 20 steps, every
+     metric falling.
 Then the loader's forkserver and multiprocessing's resource tracker are
 stopped, and no process the run started may still be running.
 
@@ -1020,16 +1033,27 @@ def phase7(dev: torch.device) -> dict:
     say(f"[7] G and D params moved (max |delta| {moved[0]:.3e}, "
         f"{moved[1]:.3e}); pool holds {state.pool_count} of "
         f"{cfg.pool_size}")
-    est = {"k2": sum(r["k2_launches"] * r["k2"]["ms"] for r in rows),
-           "k2b": sum(r["k2b_launches"] * r["k2b"]["ms"] for r in rows)}
+    est = per_step_estimates(rows)
     say(f"[7] launches x per-shape time per step: K2 {est['k2']:.3f} ms, "
-        f"K2b {est['k2b']:.3f} ms")
+        f"K2b {est['k2b']:.3f} ms; launches x per-shape bound: K2 "
+        f"{est['k2_bound']:.3f} ms ({100 * est['k2_bound'] / est['k2']:.0f}"
+        f"% of its time), K2b {est['k2b_bound']:.3f} ms "
+        f"({100 * est['k2b_bound'] / est['k2b']:.0f}%)")
     del state, frozen, batch
     torch.cuda.empty_cache()
     card_vs_host_grads(dev)
     return {"launches": launches, "per_step": per_step, "rows": rows,
             "worst": worst, "profiled": prof, "estimated": est,
             "steps_per_s": TRAIN_STEPS / dt, "peak_bytes": peak}
+
+
+def per_step_estimates(rows: list) -> dict[str, float]:
+    """K2's and K2b's ms per step from ``time_training_shapes``' rows:
+    launches x each shape's time, and the step's least time, launches x
+    each shape's bound (``k2_work`` with statistics, ``k2b_work``)."""
+    return {f"{k}{tag}": sum(r[f"{k}_launches"] * r[k][field] for r in rows)
+            for k in ("k2", "k2b")
+            for tag, field in (("", "ms"), ("_bound", "bound_ms"))}
 
 
 def card_vs_host_grads(dev: torch.device) -> None:
@@ -1139,22 +1163,6 @@ def states_equal(a, b) -> list[str]:
     return diff
 
 
-def in_cancelled_biases(net) -> set:
-    """The names of the biases of convs that an InstanceNorm follows: the
-    norm removes any constant, so their gradient is 0 in exact arithmetic
-    and rounding noise in fp32."""
-    from animateportrait_tpu_torch.nn import InstanceNorm2d
-
-    out = set()
-    for name, mod in net.named_modules():
-        kids = list(mod.named_children())
-        for (a, m), (_, nxt) in zip(kids, kids[1:]):
-            if isinstance(m, torch.nn.modules.conv._ConvNd) and isinstance(
-                    nxt, InstanceNorm2d) and m.bias is not None:
-                out.add(f"{name}.{a}.bias".lstrip("."))
-    return out
-
-
 def _leaf_errors(ref: dict, got: dict, cancelled: set) -> dict:
     """Each leaf's max |got - ref| over its largest |ref|, or over the
     tree's largest |ref| for a bias an InstanceNorm cancels."""
@@ -1211,10 +1219,14 @@ def remat_check(dev: torch.device, root: str) -> dict:
     finally:
         torch.cuda.synchronize()
         torch.backends.cudnn.deterministic = det
+    from animateportrait_tpu_torch.nn import InstanceNorm2d
+    from animateportrait_tpu_torch.utils.smoke import cancelled_biases
+
     worst = {}
     for net in ("g", "d"):
         ref = getattr(plain, net)
-        cancelled = in_cancelled_biases(getattr(state, net))
+        cancelled = cancelled_biases(getattr(state, net),
+                                     norms=(InstanceNorm2d,))
         spread = _leaf_errors(ref, getattr(again, net), cancelled)
         diff = _leaf_errors(ref, getattr(remat, net), cancelled)
         k = max(diff, key=diff.get)
@@ -1523,10 +1535,13 @@ def phase10(dev: torch.device, trainer: dict) -> dict:
     if not (all(np.isfinite(v) for v in losses.values()) and moved > 0
             and {p.dtype for p in state.g.parameters()} == {torch.float32}):
         raise AssertionError(f"bf16 step: losses {losses}, G moved {moved}")
-    est = {"k2": sum(r["k2_launches"] * r["k2"]["ms"] for r in rows),
-           "k2b": sum(r["k2b_launches"] * r["k2b"]["ms"] for r in rows)}
+    est = per_step_estimates(rows)
     say(f"[10] launches x per-shape time per step: K2-bf16 {est['k2']:.3f} "
-        f"ms, K2b-bf16 {est['k2b']:.3f} ms")
+        f"ms, K2b-bf16 {est['k2b']:.3f} ms; launches x per-shape bound: "
+        f"K2-bf16 {est['k2_bound']:.3f} ms "
+        f"({100 * est['k2_bound'] / est['k2']:.0f}% of its time), "
+        f"K2b-bf16 {est['k2b_bound']:.3f} ms "
+        f"({100 * est['k2b_bound'] / est['k2b']:.0f}%)")
     del state, frozen, batch, step
     torch.cuda.empty_cache()
 
@@ -2259,6 +2274,247 @@ def phase12(dev: torch.device, main_run: dict) -> dict:
     return out
 
 
+# phase 13: the Module1-side trainers (utils/smoke.py:trainer_smoke): timed
+# steps at full width, then card against host at the small widths
+M1_MIN_STEPS = 5          # at least this many timed steps per trainer
+M1_WINDOW_S = 1.5         # over at least this long a window
+M1_CONVERGENCE_STEPS = 20
+
+
+def phase13_timed(dev: torch.device, card: str) -> dict:
+    """Each trainer at full width: a warm step, one step timed on the host
+    clock to size the window, then n steps back to back between two CUDA
+    events, n the larger of ``M1_MIN_STEPS`` and what fills
+    ``M1_WINDOW_S``, with the launch counters zeroed before them (no
+    kernel of the port lies on these paths, so every counter must stay
+    0); then one profiled step for its device time."""
+    from animateportrait_tpu_torch.utils.smoke import TRAINERS, trainer_smoke
+
+    out = {}
+    for name in TRAINERS:
+        s = trainer_smoke(name, dev)
+        t0 = time.perf_counter()
+        s.step()
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        s.step()
+        torch.cuda.synchronize()
+        n = max(M1_MIN_STEPS, int(np.ceil(M1_WINDOW_S
+                                          / (time.perf_counter() - t0))))
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counters()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(n):
+            m = s.run()
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms = ev[0].elapsed_time(ev[1]) / n
+        launches = read_counters()
+        peak = torch.cuda.max_memory_allocated(dev)
+        m = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"[13] {name}: non-finite metrics {m}")
+        if any(launches.values()):
+            raise AssertionError(f"[13] {name}: kernel launches {launches} "
+                                 "on a path that has no kernel of the port")
+        prof = profiled_ms(s.run, top=3)
+        say(f"[13] {s.what}: warm step {warm:.3f} s, {n} timed steps in "
+            f"{n * ms / 1e3:.3f} s (CUDA events): {1e3 / ms:.3f} steps/s "
+            f"({ms:.3f} ms/step), device time of a profiled step "
+            f"{prof['all']:.3f} ms ({100 * prof['all'] / ms:.1f}% of a "
+            f"step), peak memory {peak / 2 ** 30:.2f} GiB on {card}; "
+            f"K1/K2/K2b launches {launches}")
+        say(f"[13]   metrics after step {s.trainer.steps - 1}: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in m.items()))
+        say("[13]   top kernels: " + "; ".join(
+            f"{k['name']} x{k['calls']} {k['ms']:.3f} ms"
+            for k in prof["top"]))
+        out[name] = {"what": s.what, "steps": n, "steps_per_s": 1e3 / ms,
+                     "ms_per_step": ms, "device_ms": prof["all"],
+                     "warm_s": warm, "peak_bytes": peak,
+                     "launches": launches}
+        del s
+        torch.cuda.empty_cache()
+    return out
+
+
+class _KinkRecorder:
+    """Stands in for a namespace (``torch``, ``torch.nn.functional``) in a
+    module: records a float64 host copy of every input of ``fn`` (a
+    function with a kink at 0), passes the rest through."""
+
+    def __init__(self, space, fn: str, seen: list):
+        self.space, self.fn, self.seen = space, fn, seen
+
+    def __getattr__(self, name):
+        attr = getattr(self.space, name)
+        if name != self.fn:
+            return attr
+
+        def recorded(x, *args, **kwargs):
+            self.seen.append(x.detach().to("cpu", torch.float64))
+            return attr(x, *args, **kwargs)
+        return recorded
+
+
+# the kinks whose side can decide a small step's fp32 gradients: the
+# image-translation ResUnet's ReLUs and the content step's L1 terms
+KINKS = {"imtrans": ("animateportrait_tpu_torch.models.image_translation",
+                     "F", "relu"),
+         "content": ("animateportrait_tpu_torch.train.module1", "torch",
+                     "abs")}
+
+
+def kink_flips(name: str, device, cudnn: bool = True) -> tuple[int, float]:
+    """The inputs of ``KINKS[name]`` in one fp32 step of the small trainer
+    ``name`` on ``device`` whose sign differs from the float64 host run's:
+    their count, and the largest such input's |value| in the float64 run
+    as a fraction of its tensor's largest |value|."""
+    import importlib
+
+    from animateportrait_tpu_torch.utils.smoke import trainer_smoke
+
+    path, space, fn = KINKS[name]
+    module = importlib.import_module(path)
+
+    def inputs(dev, dtype):
+        seen, orig = [], getattr(module, space)
+        setattr(module, space, _KinkRecorder(orig, fn, seen))
+        try:
+            trainer_smoke(name, dev, small=True, dtype=dtype).step()
+        finally:
+            setattr(module, space, orig)
+        return seen
+
+    ref = inputs("cpu", torch.float64)
+    torch.backends.cudnn.enabled = cudnn
+    try:
+        got = inputs(device, torch.float32)
+    finally:
+        torch.backends.cudnn.enabled = True
+    n, near = 0, 0.0
+    for a, b in zip(ref, got):
+        flip = (a > 0) != (b > 0)
+        if flip.any():
+            n += int(flip.sum())
+            near = max(near, float(a[flip].abs().max() / a.abs().max()))
+    return n, near
+
+
+def phase13_parity(dev: torch.device) -> dict:
+    """One step of each trainer at a small width on the card and on the
+    host, from the same weights and batch, through the trainers' own path
+    (cuDNN on, its deterministic algorithms):
+
+    - the metrics within rtol 1e-4 (PSNR, of uint8 levels, within 0.01 dB)
+      in fp32 and in float64;
+    - every gradient leaf of the float64 step within 1e-3 of its scale of
+      the host's, with no fallback (``grad_parity`` without a float64
+      reference): rounding this small cannot move a kink, so the card's
+      code is held to the host's;
+    - the fp32 gradients measured and printed, not held: at random
+      weights fp32 rounding puts an input within ~1e-5 of its tensor's
+      largest |value| from a kink (an L1 term of the content step, a
+      ResUnet ReLU of the image-translation step) on either side, and
+      one such flip moves most leaves by percent. ``grad_parity``'s fp32 value, the three farthest leaves
+      with the host's and the card's distance from float64, and, for those
+      two steps, the kink inputs on the other side from float64 on the
+      card and on the host (for image translation also with cuDNN off)
+      are printed (PERF.md, Findings)."""
+    from animateportrait_tpu_torch.utils.smoke import (
+        TRAINERS, cancelled_biases, grad_parity, trainer_smoke)
+
+    def same_metrics(name, got, want):
+        for k, v in want.items():
+            bar = 0.01 if k == "PSNR" else 1e-4 * max(abs(v), 1e-30)
+            if not abs(got[k] - v) <= bar:
+                raise AssertionError(f"[13] {name}: {k} card {got[k]} "
+                                     f"host {v}")
+
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    for name in TRAINERS:
+        card, host, card64, host64 = (
+            trainer_smoke(name, d, small=True, dtype=dt)
+            for d, dt in ((dev, torch.float32), ("cpu", torch.float32),
+                          (dev, torch.float64), ("cpu", torch.float64)))
+        mc, mh, mc64, mh64 = (x.step() for x in (card, host, card64, host64))
+        same_metrics(name, mc, mh)
+        same_metrics(f"{name} (float64)", mc64, mh64)
+        noise = {f"{n}.{b}" for n, net in host.nets.items()
+                 for b in cancelled_biases(net)}
+        gc, gh, gd = card.grads(), host.grads(), host64.grads()
+        errs64 = grad_parity(card64.grads(), gd, None, noise)
+        k64 = max(errs64, key=errs64.get)
+        if errs64[k64] > 1e-3:
+            raise AssertionError(f"[13] {name}: float64 gradient {k64} at "
+                                 f"{errs64[k64]:.3e} of its scale (bar 1e-3)")
+        errs = grad_parity(gc, gh, gd, noise)
+        k = max(errs, key=errs.get)
+        for kk in sorted(errs, key=errs.get)[-3:]:
+            g, h, d = (x[kk].double().cpu() for x in (gc, gh, gd))
+            sc = float(d.abs().max())
+
+            def dist(a, b):
+                return float((a - b).abs().max()) / sc
+            say(f"[13]   {name} fp32 {kk}: card-host {dist(g, h):.3e}, "
+                f"host-f64 {dist(h, d):.3e}, card-f64 {dist(g, d):.3e} of "
+                f"{sc:.3e}")
+        out[name] = {"float64": errs64[k64], "float64_leaf": k64,
+                     "fp32": errs[k], "fp32_leaf": k,
+                     "fp32_over_1e-3": sum(v > 1e-3 for v in errs.values()),
+                     "leaves": len(errs)}
+        say(f"[13] card vs host, {card.what}: metrics within rtol 1e-4 in "
+            f"fp32 and float64; float64 gradients: worst leaf {k64} at "
+            f"{errs64[k64]:.3e} of its scale (bar 1e-3); measured, not "
+            f"held: fp32 worst leaf {k} at {errs[k]:.3e} by grad_parity, "
+            f"{out[name]['fp32_over_1e-3']} of {len(errs)} leaves above "
+            "1e-3")
+        if name in KINKS:
+            runs = {"card": kink_flips(name, dev),
+                    "host": kink_flips(name, "cpu")}
+            if name == "imtrans":
+                runs["card, cuDNN off"] = kink_flips(name, dev, cudnn=False)
+            out[name]["kink_flips"] = runs
+            say(f"[13]   {name}: {KINKS[name][2]} inputs on the other side "
+                "of the kink from float64: " + "; ".join(
+                    f"{where} {n} (the farthest from it {near:.2e} of its "
+                    "tensor's largest |value|)"
+                    for where, (n, near) in runs.items()))
+        del card, host, card64, host64
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
+def phase13(dev: torch.device, card: str) -> dict:
+    """The Module1-side trainers: timed at full width, card against host,
+    and ``train.convergence`` for ``M1_CONVERGENCE_STEPS`` steps."""
+    from animateportrait_tpu_torch.train import convergence
+
+    timed = phase13_timed(dev, card)
+    parity = phase13_parity(dev)
+    zero_counters()
+    t0 = time.perf_counter()
+    rows = convergence.run_all(M1_CONVERGENCE_STEPS, dev,
+                               say=lambda m: None)
+    torch.cuda.synchronize()
+    for line in convergence.table(rows).splitlines():
+        say(f"[13] {line}")
+    if not all(last < first for _, first, last in rows):
+        raise AssertionError(f"[13] a convergence metric did not fall: {rows}")
+    launches = read_counters()
+    if any(launches.values()):
+        raise AssertionError(f"[13] kernel launches {launches} in the "
+                             "convergence runs")
+    say(f"[13] train.convergence --steps {M1_CONVERGENCE_STEPS}: all "
+        f"{len(rows)} metrics fall, {time.perf_counter() - t0:.1f} s; K1/K2/"
+        f"K2b launches {launches}")
+    return {"timed": timed, "parity": parity, "convergence": rows,
+            "launches": launches}
+
+
 def child_processes() -> list[str]:
     """The processes whose parent is this one, as "pid command"."""
     out = []
@@ -2290,7 +2546,7 @@ def stop_processes() -> None:
 
 
 def main() -> None:
-    phase0()
+    card = phase0()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     t0 = time.perf_counter()
@@ -2315,6 +2571,7 @@ def main() -> None:
         train_bf16 = phase10(dev, trainer)
         user_photo = phase11(dev, main_run, trainer)
     surface = phase12(dev, main_run)
+    trainers = phase13(dev, card)
     rec["instance_norm"]["max_abs_err"] = max(
         rec["instance_norm"]["max_abs_err"],
         surface["test_cli"]["k2_path_err"],
@@ -2370,7 +2627,8 @@ def main() -> None:
                 launches_per_step=run["per_step"][name],
                 profiled_ms=run["profiled"][key],
                 device_ms=run["profiled"]["all"],
-                estimated_ms=run["estimated"][key])})
+                estimated_ms=run["estimated"][key],
+                bound_ms=run["estimated"].get(key + "_bound"))})
     launches = {
         "cartoon_cli": cli_run["launches"], "drawing_pipeline":
         main_run["launches"], "train_step": train["launches"],
@@ -2382,7 +2640,10 @@ def main() -> None:
         "user_photo_cli": user_photo["launches"],
         "train_cli_jpeg": user_photo["train_launches"],
         "test_cli": surface["test_cli"]["launches"],
-        "video_cli": surface["video"]["launches"]}
+        "video_cli": surface["video"]["launches"],
+        **{f"train_{name}": run["launches"]
+           for name, run in trainers["timed"].items()},
+        "train_convergence": trainers["launches"]}
     # "launches": K1's, K2's and K2-bf16's on the user's entry point (the
     # cartoon CLI runs of phases 5 and 9), K2b's and K2b-bf16's in the timed
     # training steps (phases 7 and 10); "launches_by_path" has every path's

@@ -28,7 +28,7 @@ from animateportrait_tpu_torch.utils.smoke import make_wav
 
 
 @pytest.mark.parametrize("name", ["std_face_landmarks", "obama_speaker_emb",
-                                  "face_lmark_lookup"])
+                                  "face_lmark_lookup", "anchor_t_shape_9"])
 def test_table_equals_the_jax_packages(name):
     got, want = getattr(assets, name)(), getattr(jax_assets, name)()
     assert got.dtype == want.dtype and got.shape == want.shape

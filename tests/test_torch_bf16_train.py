@@ -28,9 +28,10 @@ from animateportrait_tpu_torch import train_cli
 from animateportrait_tpu_torch.io import checkpoint as tckpt
 from animateportrait_tpu_torch.train import module2 as m2
 from animateportrait_tpu_torch.utils import options as toptions
-from test_torch_train import (_batches, _in_cancelled_biases, _jax_cfg,
-                              _jax_side, _port_named, _small_cfg)
+from test_torch_train import (_batches, _jax_cfg, _jax_side, _port_named,
+                              _small_cfg)
 from test_torch_train_cli import tree  # noqa: F401
+from torch_port_helpers import in_cancelled_biases
 
 # losses against JAX's bf16 step; measured at most 3.13e-3 (geom_B_lipline)
 LOSS_RTOL = 5e-3
@@ -87,7 +88,7 @@ def test_bf16_gradients_relative_to_jax_bf16_error(bf16_pair, net):
     got = getattr(bf16_pair["grads"], net)
     f32 = getattr(bf16_pair["f32"], net)
     assert set(got) == set(want) == set(f32)
-    zero = _in_cancelled_biases(getattr(bf16_pair["state"], net))
+    zero = in_cancelled_biases(getattr(bf16_pair["state"], net))
     ratios = {}
     for k, w in want.items():
         g = got[k].numpy().astype(np.float64)

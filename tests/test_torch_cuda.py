@@ -4,8 +4,11 @@ path (K2 forward, K2b backward) against autograd through the plain version,
 and small runs on the card against the CPU: the renderer (drawing and
 cartoon, ``render_visuals`` too), the MTCNN cascade, Photo2Cartoon, the
 speaker embedding and the Module2 training step; ``test_cli.main`` and
-``cli.main --video`` on the card, and the batched front end against
-single calls. They skip without a CUDA device.
+``cli.main --video`` on the card, the batched front end against
+single calls, and one step of each Module1-side trainer (content,
+speaker-aware, flow regression, image translation, pose transfer) on the
+card against the host and a float64 host run, and their convergence runs
+with no kernel launch. They skip without a CUDA device.
 
 This file imports neither JAX nor the JAX package, so it runs where JAX is
 not installed; the repo's conftest imports JAX, so on such a machine run
@@ -858,3 +861,48 @@ def test_batched_front_end_matches_single_calls_on_the_card(cuda_device,
     with torch.inference_mode():
         for w, e, f, out in zip(wins, embs, fids, got):
             assert maxdiff(out, pred(w, e, f)) <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["content", "speaker", "flow", "imtrans",
+                                  "pose"])
+def test_module1_trainer_step_card_vs_host(cuda_device, name):
+    """One step at the small width on the card and on the host from the
+    same weights and batch: the metrics within rtol 1e-4 (PSNR within 0.01
+    dB) in fp32 and in float64; every gradient leaf of the float64 step
+    within 1e-3 of its scale of the host's, with no fallback (fp32
+    gradients can differ by a kink flip at random weights:
+    chip_smoke.py:phase13_parity); and no launch of the port's kernels."""
+    from animateportrait_tpu_torch.ops.instnorm import (
+        instance_norm, instance_norm_backward)
+    from animateportrait_tpu_torch.ops.stft import stft_magnitude
+    from animateportrait_tpu_torch.utils.smoke import (
+        cancelled_biases, grad_parity, trainer_smoke)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    before = (stft_magnitude.launches, instance_norm.launches,
+              instance_norm_backward.launches)
+    card, host, card64, host64 = (
+        trainer_smoke(name, d, small=True, dtype=dt)
+        for d, dt in ((cuda_device, torch.float32), ("cpu", torch.float32),
+                      (cuda_device, torch.float64), ("cpu", torch.float64)))
+    for got, want in ((card, host), (card64, host64)):
+        mc, mh = got.step(), want.step()
+        for k, v in mh.items():
+            bar = 0.01 if k == "PSNR" else 1e-4 * abs(v)
+            assert abs(mc[k] - v) <= bar, k
+    noise = {f"{n}.{b}" for n, net in host.nets.items()
+             for b in cancelled_biases(net)}
+    errs = grad_parity(card64.grads(), host64.grads(), None, noise)
+    assert max(errs.values()) <= 1e-3
+    assert (stft_magnitude.launches, instance_norm.launches,
+            instance_norm_backward.launches) == before
+
+
+def test_module1_convergence_runs_fall_on_the_card(cuda_device):
+    """``train.convergence`` on the card for 20 steps: every metric falls."""
+    from animateportrait_tpu_torch.train import convergence
+
+    rows = convergence.run_all(20, cuda_device, say=lambda m: None)
+    assert len(rows) == 6
+    assert all(last < first for _, first, last in rows), rows

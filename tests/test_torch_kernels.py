@@ -252,6 +252,14 @@ assert "animateportrait_tpu_torch.utils.jpeg" in mods
 assert "animateportrait_tpu_torch.models.fan3d" in mods
 assert "animateportrait_tpu_torch.test_cli" in mods
 assert "animateportrait_tpu_torch.pipeline.batch" in mods
+for m in ("train.module1", "train.flow_regression", "train.image_translation",
+          "train.pose_transfer", "train.convergence", "train.optim",
+          "models.flowunet_extra", "models.image_translation",
+          "data.audio2landmark", "data.image_translation", "utils.metrics",
+          "utils.vis"):
+    assert "animateportrait_tpu_torch." + m in mods, m
+from animateportrait_tpu_torch.utils.smoke import trainer_smoke
+from animateportrait_tpu_torch.train.convergence import run_all
 from animateportrait_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg
 from animateportrait_tpu_torch.utils.video import (
     read_first_frame, read_pcm_track)
@@ -264,7 +272,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 51
+    assert int(out.stdout.strip()) >= 63
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -253,3 +253,50 @@ def test_resize_bicubic_matches_cv2(shape, out):
     # and almost everywhere exact: fp32 summation order flips ~1e-5 of an
     # upscale's pixels; downscales are bit-exact
     assert (got != ref).mean() < (1e-4 if out[0] > shape[0] else 1e-12)
+
+
+# The bytes where the port's bicubic is one level off cv2.resize(INTER_CUBIC)
+# with IPP on (OpenCV 5.0.0, ippicv 2026.0.0), at each size of the test
+# below, as {(y, x[, c]): port - cv2}. The port has IPP's weights (an
+# impulse through cv2's float32 resize gives them bit for bit) but not its
+# sums: no order of the four fp32 or exact products, with or without FMA,
+# and no polynomial form gives IPP's float32 output, and a row's output
+# changes with the image's height and the row's place in it. cv2's uint8
+# output is its float32 output rounded, so the gap lies at the near-ties.
+IPP_CUBIC_GAP = {
+    ((480, 400, 3), (512, 512)): {(330, 4, 1): 1, (450, 443, 0): -1,
+                                  (469, 224, 1): 1, (475, 336, 2): -1},
+    ((400, 480, 3), (512, 512)): {(48, 320, 1): 1, (205, 253, 0): 1,
+                                  (221, 425, 0): -1, (271, 253, 0): -1,
+                                  (374, 13, 0): -1},
+    ((512, 512, 3), (256, 256)): {},
+    ((512, 512, 3), (217, 333)): {(146, 138, 2): 1},
+    ((300, 200, 3), (256, 256)): {},
+    ((100, 130, 3), (512, 512)): {(66, 453, 2): -1, (117, 423, 2): 1,
+                                  (348, 143, 2): -1},
+    ((600, 600), (256, 256)): {(30, 199): 1},
+}
+
+
+@pytest.mark.parametrize("shape,out", list(IPP_CUBIC_GAP))
+def test_resize_bicubic_against_opencvs_ipp_path(shape, out):
+    """The aligned-crop sizes (a photo's crop -> 512², 512² -> 256²) and
+    random up- and downscales against cv2.resize(INTER_CUBIC) with IPP on,
+    as OpenCV runs it by default: byte-equal but at the bytes
+    ``IPP_CUBIC_GAP`` records for the size, each one level off. The
+    resize is not byte-equal at five of the seven sizes; a fix, or a new
+    byte off, fails this test (over 20 random 480 x 400 colour images
+    -> 512², 0-9 of the 786 432 bytes differ)."""
+    import cv2
+
+    from animateportrait_tpu_torch.utils.image import resize_bicubic
+
+    assert cv2.ipp.useIPP()
+    img = _rng(shape[0] + out[1]).integers(0, 256, shape).astype(np.uint8)
+    got = resize_bicubic(img, out).astype(int)
+    ref = cv2.resize(img, (out[1], out[0]),
+                     interpolation=cv2.INTER_CUBIC).astype(int)
+    assert got.shape == ref.shape
+    off = {tuple(int(v) for v in i): int(got[tuple(i)] - ref[tuple(i)])
+           for i in np.argwhere(got != ref)}
+    assert off == IPP_CUBIC_GAP[(shape, out)]

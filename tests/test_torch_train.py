@@ -29,7 +29,7 @@ import jax.numpy as jnp
 
 from animateportrait_tpu_torch.io import from_jax
 from animateportrait_tpu_torch.train import module2 as m2
-from torch_port_helpers import nchw, nhwc
+from torch_port_helpers import in_cancelled_biases, nchw, nhwc
 
 LOSS_TOL = dict(rtol=1e-4, atol=1e-5)
 LEAF_RTOL = 1e-3        # of each gradient leaf's largest |g|
@@ -170,20 +170,6 @@ def step_pair():
                 jnew=(jnew_g, jnew_d))
 
 
-def _in_cancelled_biases(net, prefix=""):
-    """Names of the biases of convs that an InstanceNorm follows."""
-    from animateportrait_tpu_torch.nn import InstanceNorm2d
-
-    out = set()
-    for name, mod in net.named_modules():
-        kids = list(mod.named_children())
-        for (a, m), (_, nxt) in zip(kids, kids[1:]):
-            if isinstance(m, torch.nn.modules.conv._ConvNd) and isinstance(
-                    nxt, InstanceNorm2d) and m.bias is not None:
-                out.add(f"{prefix}{name}.{a}.bias".lstrip("."))
-    return out
-
-
 def _port_named(cfg, gg, dg):
     """JAX gradient trees (or parameter trees) under the port's parameter
     names, OIHW."""
@@ -212,7 +198,7 @@ def test_every_gradient_leaf_matches_jax(step_pair, net):
     want = _port_named(cfg, *step_pair["jgrads"])[0 if net == "g" else 1]
     got = getattr(step_pair["grads"], net)
     assert set(got) == set(want)
-    zero = _in_cancelled_biases(getattr(step_pair["state"], net))
+    zero = in_cancelled_biases(getattr(step_pair["state"], net))
     assert zero and zero < set(want)
     gscale = max(float(w.abs().max()) for w in want.values())
     errs = {}
@@ -290,7 +276,7 @@ def test_batch_d_passes_is_a_scheduling_change(step_pair):
         np.testing.assert_allclose(float(got.metrics[k]), float(v),
                                    rtol=1e-5, err_msg=k)
     for net in ("g", "d"):
-        zero = _in_cancelled_biases(getattr(state, net))
+        zero = in_cancelled_biases(getattr(state, net))
         for k, v in getattr(ref, net).items():
             if k in zero:
                 continue

@@ -143,31 +143,72 @@ def test_first_frame_of_bottom_up_raw_avi(tmp_path):
                                   frames)
 
 
+def _videocapture_first(path):
+    cap = cv2.VideoCapture(path)
+    ok, frame = cap.read()
+    cap.release()
+    assert ok
+    return frame
+
+
 def test_first_frame_of_mjpeg_avi(tmp_path):
-    """OpenCV's MJPG writer: the port gives libjpeg-turbo's decode of the
-    frame's bytes (cv2.imdecode); OpenCV's reader decodes with FFmpeg,
-    a few levels off, so against it the bar is PSNR >= 35 dB."""
-    img = _photo(256, 320, 3)[:, :, ::-1].copy()
+    """OpenCV's MJPG writer (4:2:0 YCbCr): the port's first frame equals
+    cv2.VideoCapture's, which FFmpeg decodes (its simple IDCT, swscale's
+    YUV -> BGR), not libjpeg-turbo's decode of the frame's bytes."""
+    _check_writer_mjpeg(tmp_path, 256, 320, False)
+
+
+@pytest.mark.parametrize("hw,gray", [((64, 80), True), ((33, 37), False),
+                                     ((2, 8), False)])
+def test_first_frame_of_mjpeg_avi_gray_and_odd(tmp_path, hw, gray):
+    """The same for gray frames (which the writer stores as YCbCr) and
+    odd sizes (which it cuts to even)."""
+    _check_writer_mjpeg(tmp_path, *hw, gray)
+
+
+def _check_writer_mjpeg(tmp_path, h, w, gray):
+    img = _photo(h, w, 3)[:, :, ::-1].copy()
+    if gray:
+        img = img[:, :, 0].copy()
     path = str(tmp_path / "m.avi")
-    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 25,
-                         (320, 256))
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 25, (w, h),
+                         isColor=not gray)
     for f in (img, img[::-1].copy()):
         vw.write(f)
     vw.release()
     data, info, chunks = video._avi(path)
     assert info["compression"] == b"MJPG"
-    tag, start, n = next(c for c in chunks if c[0] == b"00dc" and c[2])
-    want = cv2.imdecode(np.frombuffer(data[start: start + n], np.uint8),
-                        cv2.IMREAD_COLOR)
     got = video.read_first_frame(path)
+    want = _videocapture_first(path)
+    assert got.shape == want.shape
     np.testing.assert_array_equal(got, want)
-    cap = cv2.VideoCapture(path)
-    ok, ffmpeg = cap.read()
-    cap.release()
-    p = psnr(got, ffmpeg, peak=255.0)
-    print(f"MJPEG first frame against cv2.VideoCapture: PSNR {p:.2f} dB, "
-          f"max |diff| {np.abs(got.astype(int) - ffmpeg).max()}")
-    assert 35.0 <= p < float("inf")
+    # not libjpeg-turbo's decode of the same bytes (cv2.imdecode)
+    tag, start, n = next(c for c in chunks if c[0] == b"00dc" and c[2])
+    lj = cv2.imdecode(np.frombuffer(data[start: start + n], np.uint8),
+                      cv2.IMREAD_COLOR)
+    assert h < 8 or not np.array_equal(got, lj)
+
+
+@pytest.mark.parametrize("sampling", ["4:2:2", "gray"])
+def test_first_frame_of_mjpeg_avi_other_samplings(tmp_path, sampling):
+    """4:2:2 and one-component frames (which OpenCV's writer does not
+    make: PIL's encoder, muxed by the JAX package's AVI writer), at an
+    even height: equal to cv2.VideoCapture's."""
+    import io
+
+    from PIL import Image
+    from animateportrait_tpu.utils.video import mux_avi
+
+    img = _photo(48, 61, 5)
+    buf = io.BytesIO()
+    if sampling == "gray":
+        Image.fromarray(img[:, :, 1]).save(buf, "JPEG", quality=90)
+    else:
+        Image.fromarray(img).save(buf, "JPEG", quality=90, subsampling=1)
+    path = mux_avi(str(tmp_path / "s.avi"), [buf.getvalue()] * 2,
+                   np.zeros(640), fps=25, size=(61, 48))
+    np.testing.assert_array_equal(video.read_first_frame(path),
+                                  _videocapture_first(path))
 
 
 def test_pcm_track_is_what_ffmpeg_passes_through(tmp_path):
