@@ -712,3 +712,267 @@ def bn_patch_d_state_dict(variables: Tree, n_layers: int = 3
                    s[f"norm{n}"]["bn"])
     _conv2d(sd, f"model.{3 * n_layers + 2}", p["out"])
     return sd
+
+
+def _fan_block(sd: dict, name: str, p: Tree, s: Tree) -> None:
+    """A FAN ConvBlock: bn1-3 and conv1-3, and the 1x1 ``downsample``
+    (BatchNorm at 0, conv at 2) where the widths differ."""
+    for j in (1, 2, 3):
+        _batchnorm(sd, f"{name}.bn{j}", p[f"bn{j}"]["bn"], s[f"bn{j}"]["bn"])
+        _conv2d(sd, f"{name}.conv{j}", p[f"conv{j}"])
+    if "down_conv" in p:
+        _batchnorm(sd, f"{name}.downsample.0", p["down_bn"]["bn"],
+                   s["down_bn"]["bn"])
+        _conv2d(sd, f"{name}.downsample.2", p["down_conv"])
+
+
+def fan_state_dict(variables: Tree, num_modules: int = 4
+                   ) -> dict[str, torch.Tensor]:
+    """The AdaptiveWingLoss ``FAN`` variables -> the port's module (the JAX
+    package has no loader for it; the keys are the reference's
+    models.py names)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: dict = {}
+    _conv2d(sd, "conv1.conv", p["conv1"]["conv"])
+    _batchnorm(sd, "bn1", p["bn1"]["bn"], s["bn1"]["bn"])
+    for k in ("conv2", "conv3", "conv4"):
+        _fan_block(sd, k, p[k], s[k])
+    for i in range(num_modules):
+        m, ms = p[f"m{i}"], s[f"m{i}"]
+        _conv2d(sd, f"m{i}.coordconv.conv", m["coordconv"]["conv"])
+        for k in m:
+            if k != "coordconv":
+                _fan_block(sd, f"m{i}.{k}", m[k], ms[k])
+        _fan_block(sd, f"top_m_{i}", p[f"top_m_{i}"], s[f"top_m_{i}"])
+        _conv2d(sd, f"conv_last{i}", p[f"conv_last{i}"])
+        _batchnorm(sd, f"bn_end{i}", p[f"bn_end{i}"]["bn"],
+                   s[f"bn_end{i}"]["bn"])
+        _conv2d(sd, f"l{i}", p[f"l{i}"])
+        if i < num_modules - 1:
+            _conv2d(sd, f"bl{i}", p[f"bl{i}"])
+            _conv2d(sd, f"al{i}", p[f"al{i}"])
+    return sd
+
+
+# --- models/gan.py's ResnetGenerator and PixelDiscriminator, and
+# models/gan_extra.py ----------------------------------------------------
+
+
+def resnet_g_state_dict(variables: Tree, n_blocks: int = 9
+                        ) -> dict[str, torch.Tensor]:
+    """Inverse of ``load_resnet_g_params``: the reference's ``model``
+    Sequential."""
+    p = variables["params"]
+    sd: dict = {}
+    _conv2d(sd, "model.1", p["stem"]["conv"])
+    _conv2d(sd, "model.4", p["down0"]["conv"])
+    _conv2d(sd, "model.7", p["down1"]["conv"])
+    _resnet_blocks(sd, "model", p, [f"block{i}" for i in range(n_blocks)],
+                   start=10)
+    base = 10 + n_blocks
+    _conv_transpose(sd, f"model.{base}", p["up0"]["deconv"])
+    _conv_transpose(sd, f"model.{base + 3}", p["up1"]["deconv"])
+    _conv2d(sd, f"model.{base + 7}", p["out"])
+    return sd
+
+
+def pixel_d_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
+    """``PixelDiscriminator`` variables -> the reference's ``net`` keys."""
+    p = variables["params"]
+    sd: dict = {}
+    for ours, idx in (("conv0", 0), ("conv1", 2), ("out", 5)):
+        _conv2d(sd, f"net.{idx}", p[ours])
+    return sd
+
+
+def _resnet_blocks(sd: dict, name: str, p: Tree, keys: list,
+                   start: int = 0) -> None:
+    """ResNet blocks ``keys`` of ``p`` at ``{name}.{start + i}``: their two
+    convs at ``conv_block.1`` / ``.5``, a ``ResnetBlock2``'s shortcut at
+    ``shortcut.0``."""
+    for i, key in enumerate(keys):
+        b = p[key]
+        _conv2d(sd, f"{name}.{start + i}.conv_block.1", b["conv0"])
+        _conv2d(sd, f"{name}.{start + i}.conv_block.5", b["conv1"])
+        if "shortcut" in b:
+            _conv2d(sd, f"{name}.{start + i}.shortcut.0", b["shortcut"])
+
+
+def _blocks_of(p: Tree, prefix: str = "") -> list:
+    n = sum(1 for k in p if k.startswith(prefix + "block"))
+    return [f"{prefix}block{i}" for i in range(n)]
+
+
+def _encoder_decoder(sd: dict, p: Tree, prefix: str = "",
+                     model2: str = "model2", model3: str = "model3") -> None:
+    """The stem and two strided convs (when ``prefix`` is empty), the block
+    stack ``{prefix}block{i}`` -> ``model2`` and the two upsamples and the
+    7x7 head -> ``model3``."""
+    if not prefix:
+        _conv2d(sd, "stem.1", p["stem"]["conv"])
+        _conv2d(sd, "down0.0", p["down0"]["conv"])
+        _conv2d(sd, "down1.0", p["down1"]["conv"])
+    _resnet_blocks(sd, model2, p, _blocks_of(p, prefix))
+    _conv_transpose(sd, f"{model3}.0", p[f"{prefix}up0"]["deconv"])
+    _conv_transpose(sd, f"{model3}.3", p[f"{prefix}up1"]["deconv"])
+    _conv2d(sd, f"{model3}.7", p[f"{prefix}out"])
+
+
+def _landmark_encoder(sd: dict, name: str, p: Tree) -> None:
+    for j, idx in enumerate((0, 3, 6)):
+        _conv2d(sd, f"{name}.{idx}", p[f"conv{j}"]["conv"])
+
+
+def conditional_resnet_state_dict(variables: Tree
+                                  ) -> dict[str, torch.Tensor]:
+    """``ConditionalResnetGenerator`` variables (any mode) -> the port's
+    module (the JAX package has no loader for it)."""
+    p = variables["params"]
+    sd: dict = {}
+    _encoder_decoder(sd, p)
+    _landmark_encoder(sd, "model_landmark_trans", p["landmark_trans"])
+    return sd
+
+
+def dual_head_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
+    """``ConditionalResnetDualHead`` variables -> the port's module."""
+    p = variables["params"]
+    sd: dict = {}
+    _conv2d(sd, "stem.1", p["stem"]["conv"])
+    _conv2d(sd, "down0.0", p["down0"]["conv"])
+    _conv2d(sd, "down1.0", p["down1"]["conv"])
+    _landmark_encoder(sd, "model_landmark_trans", p["landmark_trans"])
+    for head in ("a_", "b_"):
+        _encoder_decoder(sd, p, head, f"{head}model2", f"{head}model3")
+    return sd
+
+
+def warped_resnet_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
+    """``ConditionalResnetWarped`` variables -> the port's module."""
+    sd: dict = {}
+    _encoder_decoder(sd, variables["params"])
+    return sd
+
+
+def _unet_chain(p: Tree) -> list:
+    """The flax names of a U-Net's levels, outermost first."""
+    mids = sorted((k for k in p if k.startswith("mid")),
+                  key=lambda k: -int(k[3:]))
+    return ["outer", "up1", "up2", "up4", *mids, "inner"]
+
+
+def unet_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
+    """``UnetGenerator`` variables -> the port's module: each level's
+    ``down`` and ``up`` under ``model`` + ``.inner`` per level."""
+    p = variables["params"]
+    sd: dict = {}
+    name = "model"
+    for key in _unet_chain(p):
+        _conv2d(sd, f"{name}.down", p[key]["down"])
+        _conv_transpose(sd, f"{name}.up", p[key]["up"])
+        name += ".inner"
+    return sd
+
+
+def unet_parse_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
+    """``UnetParseGenerator`` variables -> the port's module, as
+    ``unet_state_dict`` with each level's ``down_bn`` / ``up_bn``."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: dict = {}
+    name = "model"
+    for key in _unet_chain(p):
+        _conv2d(sd, f"{name}.down", p[key]["down"])
+        _conv_transpose(sd, f"{name}.up", p[key]["up"])
+        for bn in ("down_bn", "up_bn"):
+            if bn in p[key]:
+                _batchnorm(sd, f"{name}.{bn}", p[key][bn], s[key][bn])
+        name += ".inner"
+    return sd
+
+
+def flat_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
+    """A net whose convs and denses all sit at the top of its params under
+    the port's names (``Regressor``, ``NLayerDiscriminatorCls``, ``HED``,
+    ``ULP``): 4-d kernels as convs, 2-d as denses."""
+    sd: dict = {}
+    for k, v in variables["params"].items():
+        (_conv2d if np.ndim(v["kernel"]) == 4 else _dense)(sd, k, v)
+    return sd
+
+
+def combiner_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
+    """``Combiner`` variables -> the port's ``model`` Sequential: the stem
+    conv at 1, block i at 4 + i, the head conv after the blocks' pad."""
+    p = variables["params"]
+    sd: dict = {}
+    keys = _blocks_of(p)
+    _conv2d(sd, "model.1", p["stem"]["conv"])
+    _resnet_blocks(sd, "model", p, keys, start=4)
+    _conv2d(sd, f"model.{5 + len(keys)}", p["out"])
+    return sd
+
+
+# --- models/lpips.py ----------------------------------------------------
+
+_VGG16_CONVS = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+_ALEX_CONVS = (0, 3, 6, 8, 10)
+_SQUEEZE_FIRES = (3, 4, 6, 7, 9, 10, 11, 12)
+
+
+def lpips_backbone_state_dict(variables: Tree, pnet_type: str = "vgg"
+                              ) -> dict[str, torch.Tensor]:
+    """Inverse of ``load_vgg16_features`` / ``load_alexnet_features`` /
+    ``load_squeezenet_features``: torchvision's ``features.N`` keys."""
+    p = variables["params"]
+    sd: dict = {}
+    if pnet_type == "squeeze":
+        _conv2d(sd, "features.0", p["conv0"])
+        for t in _SQUEEZE_FIRES:
+            for part in ("squeeze", "expand1x1", "expand3x3"):
+                _conv2d(sd, f"features.{t}.{part}", p[f"fire{t}"][part])
+        return sd
+    idx = _ALEX_CONVS if pnet_type == "alex" else _VGG16_CONVS
+    for i, t in enumerate(idx):
+        _conv2d(sd, f"features.{t}", p[f"conv{i}"])
+    return sd
+
+
+def pnetlin_state_dicts(variables: Tree, pnet_type: str = "vgg"
+                        ) -> tuple[dict, dict]:
+    """Inverse of ``load_pnetlin_params``: (the backbone's torchvision
+    state dict, the LPIPS heads' ``lin{k}.model.1.weight``)."""
+    p = variables["params"]
+    lins: dict = {}
+    k = 0
+    while f"lin{k}" in p:
+        _conv2d(lins, f"lin{k}.model.1", p[f"lin{k}"])
+        k += 1
+    return lpips_backbone_state_dict({"params": p["net"]}, pnet_type), lins
+
+
+def dist2logit_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
+    """``Dist2LogitLayer`` variables -> the reference's ``model`` keys."""
+    p = variables["params"]
+    sd: dict = {}
+    for j in range(3):
+        _conv2d(sd, f"model.{2 * j}", p[f"conv{j}"])
+    return sd
+
+
+# --- models/face_of_art.py ----------------------------------------------
+
+
+def artistic_heatmap_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
+    """``ArtisticHeatmapNet`` variables -> the port's module: the convs by
+    their TF scopes, the deconv's (h, w, out, in) kernel as
+    ``ConvTranspose2d``'s (in, out, h, w) weight. The port's
+    ``foa_state_dict`` takes the reference's TF variables to the same
+    keys (the inverse of ``load_foa_params`` through them)."""
+    p = variables["params"]
+    sd: dict = {}
+    for scope, node in p.items():
+        if scope == "deconv_1":
+            _conv_transpose(sd, scope, node)
+        else:
+            _conv2d(sd, scope, node.get("conv", node))
+    return sd

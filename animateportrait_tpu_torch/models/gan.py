@@ -1,8 +1,9 @@
 """Module2 generators and discriminator, NCHW. Port of
 ``animateportrait_tpu/models/gan.py``: ``TridentGeneratorFullIFW`` (with
 its ``encode_static`` / ``decode`` split), ``ResnetStyle2Generator``, the
-70x70 PatchGAN ``NLayerDiscriminator``, ``gan_loss`` and the training
-step's from-scratch ``init_weights``, built with the reference's
+plain ``ResnetGenerator`` (resnet_9blocks), the 70x70 PatchGAN
+``NLayerDiscriminator``, the 1x1 ``PixelDiscriminator``, ``gan_loss`` and
+the training step's from-scratch ``init_weights``, built with the reference's
 ``Sequential`` layout (Module2/models/networks.py) so the state-dict keys
 are the reference checkpoints'.
 
@@ -97,6 +98,37 @@ class ResnetStyle2Generator(nn.Module):
         return self.model(torch.cat([self.model0(x), style], dim=1))
 
 
+def landmark_encoder(land_nc: int = 1, con_dim: int = 16) -> nn.Sequential:
+    """model_landmark_trans (networks.py:1284-1286): a landmark image ->
+    ``con_dim`` channels at 1/4 resolution, the last InstanceNorm without
+    its ReLU."""
+    return nn.Sequential(*conv_in_relu(land_nc, 8),
+                         *conv_in_relu(8, con_dim, 2),
+                         *conv_in_relu(con_dim, con_dim, 2, relu=False)[:2])
+
+
+class ResnetGenerator(nn.Module):
+    """Plain resnet_9blocks / resnet_6blocks generator (networks.py:509-571),
+    the reference's ``model`` Sequential."""
+
+    def __init__(self, input_nc: int = 3, output_nc: int = 3, ngf: int = 64,
+                 n_blocks: int = 9):
+        super().__init__()
+        m = list(_stem(input_nc, ngf))
+        for i in range(2):
+            mult = 2 ** i
+            m += conv_in_relu(ngf * mult, ngf * mult * 2, stride=2)
+        m += [ResnetBlock(ngf * 4) for _ in range(n_blocks)]
+        for i in range(2):
+            mult = 2 ** (2 - i)
+            m += _up2x(ngf * mult, ngf * mult // 2)
+        m += _out_conv7(ngf, output_nc)
+        self.model = nn.Sequential(*m)
+
+    def forward(self, x):
+        return self.model(x)
+
+
 def double_feature_warping(x: torch.Tensor, motion: torch.Tensor,
                            flow: torch.Tensor, ifmask: torch.Tensor,
                            level: int) -> torch.Tensor:
@@ -136,22 +168,25 @@ class TridentGeneratorFullIFW(nn.Module):
     """
 
     def __init__(self, input_nc: int = 3, output_nc: int = 3, ngf: int = 64,
-                 n_blocks: int = 9, div: int = 3, disp: int = 1):
+                 n_blocks: int = 9, div: int = 3, disp: int = 1,
+                 land_nc: int = 1, doubling: bool = True):
         super().__init__()
         self.n_blocks, self.div, self.disp = n_blocks, div, disp
-        self.model_tri00 = _stem(input_nc, ngf // 2)
+        # each warp doubles its branch's channels (TPS and flow copies);
+        # a single-warp variant widens the branch before its warp instead
+        d = 1 if doubling else 2
+        self.model_tri00 = _stem(input_nc, ngf * d // 2)
         self.model_tri01 = nn.Sequential(*conv_in_relu(ngf, ngf * 2, 2))
         self.model_tri02 = nn.Sequential(*conv_in_relu(ngf * 2, ngf * 4, 2))
         self.model_tri10 = _stem(input_nc, ngf)
-        self.model_tri11 = nn.Sequential(*conv_in_relu(ngf, ngf, 2))
+        self.model_tri11 = nn.Sequential(*conv_in_relu(ngf, ngf * d, 2))
         self.model_tri12 = nn.Sequential(*conv_in_relu(ngf * 2, ngf * 4, 2))
         self.model_tri20 = _stem(input_nc, ngf)
         self.model_tri21 = nn.Sequential(*conv_in_relu(ngf, ngf * 2, 2))
-        self.model_tri22 = nn.Sequential(*conv_in_relu(ngf * 2, ngf * 2, 2))
+        self.model_tri22 = nn.Sequential(*conv_in_relu(ngf * 2, ngf * 2 * d,
+                                                       2))
         self.model_tri_merge = nn.Conv2d(ngf * 12, ngf * 4, 3, padding=1)
-        self.model_landmark_trans = nn.Sequential(
-            *conv_in_relu(1, 8), *conv_in_relu(8, 16, 2),
-            *conv_in_relu(16, 16, 2, relu=False)[:2])
+        self.model_landmark_trans = landmark_encoder(land_nc)
         self.model2 = nn.Sequential(*[
             ResnetBlock2(ngf * 4 + 32, ngf * 4) if self._conditioned(i)
             else ResnetBlock(ngf * 4) for i in range(n_blocks)])
@@ -172,19 +207,25 @@ class TridentGeneratorFullIFW(nn.Module):
             "l1": self.model_landmark_trans(land1),
         }
 
-    def decode(self, cache, land2, motion, flow, ifmask):
+    def warp(self, x, level, motion, flow, ifmask, motion2=None):
+        """The features of a branch warped at ``level``: both warps,
+        concatenated."""
+        return double_feature_warping(x, motion, flow, ifmask, level)
+
+    def decode(self, cache, land2, motion, flow, ifmask, motion2=None):
         """The per-frame half; batch-1 ``cache`` entries broadcast over
         the frame batch."""
-        B = motion.shape[0]
+        B = land2.shape[0]
 
         def bc(t):
             return t.expand(B, *t.shape[1:])
 
-        x1 = double_feature_warping(bc(cache["s1"]), motion, flow, ifmask, 0)
-        x1 = self.model_tri02(self.model_tri01(x1))
-        x2 = double_feature_warping(bc(cache["s2"]), motion, flow, ifmask, 1)
-        x2 = self.model_tri12(x2)
-        x3 = double_feature_warping(bc(cache["s3"]), motion, flow, ifmask, 2)
+        def w(x, level):
+            return self.warp(bc(x), level, motion, flow, ifmask, motion2)
+
+        x1 = self.model_tri02(self.model_tri01(w(cache["s1"], 0)))
+        x2 = self.model_tri12(w(cache["s2"], 1))
+        x3 = w(cache["s3"], 2)
         x = self.model_tri_merge(torch.cat([x1, x2, x3], dim=1))
         l1 = bc(cache["l1"])
         l2 = self.model_landmark_trans(land2)
@@ -219,6 +260,21 @@ class NLayerDiscriminator(nn.Module):
 
     def forward(self, x):
         return self.model(x)
+
+
+class PixelDiscriminator(nn.Module):
+    """1x1 PatchGAN (networks.py:2720-2749), the reference's ``net``
+    Sequential; its InstanceNorm through K2 (and K2b in the backward)."""
+
+    def __init__(self, input_nc: int, ndf: int = 64):
+        super().__init__()
+        self.net = nn.Sequential(
+            nn.Conv2d(input_nc, ndf, 1), nn.LeakyReLU(0.2),
+            nn.Conv2d(ndf, ndf * 2, 1), InstanceNorm2d(), nn.LeakyReLU(0.2),
+            nn.Conv2d(ndf * 2, 1, 1))
+
+    def forward(self, x):
+        return self.net(x)
 
 
 def gan_loss(prediction: torch.Tensor, target_is_real: bool,

@@ -93,9 +93,10 @@ def k2b_cluster(x: torch.Tensor, slice_bytes: int = SLICE_BYTES) -> int:
 
 def instance_norm_plain(x: torch.Tensor, eps: float = 1e-5,
                         relu: bool = False) -> torch.Tensor:
-    """The plain version: fp32 statistics over H, W of NCHW, one-pass over
-    each plane shifted by its mean."""
-    xs = x.float()
+    """The plain version: fp32 statistics over H, W of NCHW (float64 for a
+    float64 input, an exact-arithmetic stand-in), one-pass over each plane
+    shifted by its mean."""
+    xs = x.to(torch.promote_types(x.dtype, torch.float32))
     cnt = x.shape[2] * x.shape[3]
     d = xs - xs.sum(dim=(2, 3), keepdim=True) / cnt
     mean = d.sum(dim=(2, 3), keepdim=True) / cnt

@@ -1,6 +1,6 @@
 """Convergence runs of the ported Module1-side trainers: short overfit runs
 on synthetic but coherent data, the port of the JAX package's
-``tools/module1_convergence.py`` for five of its runs, on the same data
+``tools/module1_convergence.py`` with its seven runs, on the same data
 built from the same numpy seeds and with the same table of first and last
 metrics:
 
@@ -8,20 +8,23 @@ metrics:
   the mouth;
 - speaker-aware branch: the same audio with a head-pose trajectory for
   the quaternion + translation head;
+- face_of_art heatmap net (``train/face_of_art.py``): four rendered face
+  blobs, the argmax-decode NME before and after ``train_foa``;
 - flow regression (``train/flow_regression.py``): keypoint pairs with a
   constant flow, masked EPE;
 - image translation (``train/image_translation.py``): ResUnet + VGG on
   landmark-dot images -> rendered faces, L1;
 - pose transfer (``train/pose_transfer.py``): shifted-appearance pairs, L1
-  and PSNR.
+  and PSNR;
+- FAN/AWing (``train/fan.py``): the rendered blobs, the argmax-decode NME
+  of ``evaluate_fan`` before and after the weighted-AWing steps.
 
-The face_of_art and FAN/AWing runs of the JAX tool are not ported yet and
-are refused by name. Weights are torch's default init drawn under a fixed
-seed; ``weights`` (a state dict per net) replaces them, as the tests do
-with the JAX tool's own initial weights.
+Weights are torch's default init drawn under a fixed seed; ``weights`` (a
+state dict per net) replaces them, as the tests do with the JAX tool's own
+initial weights.
 
     python -m animateportrait_tpu_torch.train.convergence [--steps N]
-        [--md out.md] [--only content,speaker,flow,imtrans,pose]
+        [--md out.md] [--only content,speaker,foa,flow,imtrans,pose,fan]
         [--device cuda|cpu]
 """
 from __future__ import annotations
@@ -37,9 +40,7 @@ from animateportrait_tpu_torch.utils.assets import std_face_landmarks
 from animateportrait_tpu_torch.utils.device import (
     DEFAULT_DEVICE, resolve_device)
 
-RUNS = ("content", "speaker", "flow", "imtrans", "pose")
-NOT_PORTED = {"foa": "the face_of_art heatmap net (train/face_of_art.py)",
-              "fan": "the FAN/AWing trainer (train/fan.py)"}
+RUNS = ("content", "speaker", "foa", "flow", "imtrans", "pose", "fan")
 
 
 def _window(sig: np.ndarray, w: int) -> np.ndarray:
@@ -110,6 +111,18 @@ def flow_batch():
     kp2 = kp1 + shifts[:, None, :]
     flow_gt = np.tile(shifts[:, None, None, :], (1, 224, 224, 1))
     return kp1, kp2, flow_gt, np.ones((4, 224, 224), np.int32)
+
+
+def blob_faces(size: int = 64) -> tuple[np.ndarray, np.ndarray]:
+    """The face_of_art and FAN runs' data: four rendered faces (4, size,
+    size, 3) at jittered landmarks (4, 68, 2) (y, x)."""
+    rng = np.random.default_rng(0)
+    base = std_face_landmarks().reshape(68, 3)[:, :2]
+    base = base - base.min(0)
+    base = base / base.max() * (0.55 * size) + 0.22 * size
+    base = base[:, ::-1]
+    lms = [base + rng.uniform(-2, 2, (68, 2)) for _ in range(4)]
+    return np.stack([render_face(lm, size) for lm in lms]), np.stack(lms)
 
 
 def image_translation_batch(size: int = 64):
@@ -222,6 +235,61 @@ def run_speaker_aware(steps: int, device=DEFAULT_DEVICE,
     return _loop(steps, step)
 
 
+def run_foa(steps: int, device=DEFAULT_DEVICE,
+            weights: dict | None = None, size: int = 64
+            ) -> tuple[float, float]:
+    """``train_foa`` over the four blobs (batch 2, sigma 4, no
+    augmentation, shuffled by ``default_rng(0)``); the NME before and
+    after."""
+    from animateportrait_tpu_torch.data.face_of_art import FOAItem
+    from animateportrait_tpu_torch.models.face_of_art import (
+        ArtisticHeatmapNet)
+    from animateportrait_tpu_torch.train.face_of_art import (
+        FOATrainConfig, FOATrainer, evaluate_foa, train_foa)
+
+    dev = resolve_device(device)
+    imgs, lms = blob_faces(size)
+    items = [FOAItem(path=f"synt{i}", lms=lms[i], image=imgs[i])
+             for i in range(4)]
+    cfg = FOATrainConfig(lr=3e-4)
+    tr = FOATrainer(cfg, _build(ArtisticHeatmapNet, 0, weights, "foa"),
+                    device=dev)
+    nme0 = evaluate_foa(tr.model, imgs, lms)
+    train_foa(items, cfg, train_iter=steps, batch_size=2, image_size=size,
+              sigma=4.0, augment=False, print_every=0, seed=0, trainer=tr,
+              device=dev)
+    return nme0, evaluate_foa(tr.model, imgs, lms)
+
+
+def run_fan(steps: int, device=DEFAULT_DEVICE,
+            weights: dict | None = None, size: int = 64,
+            dtype: torch.dtype = torch.float32) -> tuple[float, float]:
+    """FAN (1 stack, 68 points, lr 1e-3) on the four blobs, all four a
+    batch; the ``evaluate_fan`` NME before and after. At 64^2 the
+    innermost hourglass level is 1x1, so its BatchNorms see 4 values a
+    channel (mean/std up to ~2000): fp32 rounding alone moves the third
+    step's NME by percent, in either package; ``dtype`` float64 gives the
+    exact-arithmetic run."""
+    from animateportrait_tpu_torch.train.fan import (
+        FANTrainConfig, FANTrainer, build_fan, evaluate_fan,
+        make_fan_targets)
+
+    dev = resolve_device(device)
+    imgs, lms = blob_faces(size)
+    lms_xy = lms[:, :, ::-1].copy()
+    cfg = FANTrainConfig(num_modules=1, num_landmarks=68, lr=1e-3)
+    tr = FANTrainer(cfg, _build(lambda: build_fan(cfg), 0, weights,
+                                "fan").to(dtype), device=dev)
+    nme0 = evaluate_fan(tr.model, imgs, lms_xy, cfg)
+    targets = [make_fan_targets(lm, hm_size=size // 4) for lm in lms_xy]
+    gt, w = (_t(np.stack([tg[j] for tg in targets]), dev).to(dtype)
+             for j in (0, 1))
+    x = _nchw(imgs, dev).to(dtype)
+    for _ in range(steps):
+        tr.step(x, gt, w)
+    return nme0, evaluate_fan(tr.model, imgs, lms_xy, cfg)
+
+
 def run_flow(steps: int, device=DEFAULT_DEVICE,
              weights: dict | None = None) -> tuple[float, float]:
     """Masked EPE (flow_regression_model.py:119-129) at num_scale 3."""
@@ -294,9 +362,6 @@ def run_all(steps: int, device=DEFAULT_DEVICE, only=RUNS,
     """The table's rows (name, first, last) of the runs in ``only``, in
     the JAX tool's order."""
     for name in only:
-        if name in NOT_PORTED:
-            raise ValueError(f"--only {name}: {NOT_PORTED[name]} is not "
-                             "ported to animateportrait_tpu_torch yet")
         if name not in RUNS:
             raise ValueError(f"--only {name}: not one of {', '.join(RUNS)}")
     rows = []
@@ -308,6 +373,10 @@ def run_all(steps: int, device=DEFAULT_DEVICE, only=RUNS,
         say("speaker-aware branch ...")
         f, l = run_speaker_aware(steps, device, weights, z_of_step)
         rows.append(("speaker-aware reg+lap+pos", f, l))
+    if "foa" in only:
+        say("face_of_art heatmap net ...")
+        f, l = run_foa(steps, device, weights)
+        rows.append(("face_of_art valid NME (argmax decode)", f, l))
     if "flow" in only:
         say("flow regressor ...")
         f, l = run_flow(steps, device, weights)
@@ -322,6 +391,10 @@ def run_all(steps: int, device=DEFAULT_DEVICE, only=RUNS,
         rows.append(("pose_transfer L1", f, l))
         # PSNR rises: its negation descends like every other row
         rows.append(("pose_transfer -PSNR (dB)", -p0, -p1))
+    if "fan" in only:
+        say("FAN (AWing) ...")
+        f, l = run_fan(steps, device, weights)
+        rows.append(("FAN/AWing NME (argmax decode)", f, l))
     return rows
 
 

@@ -349,9 +349,9 @@ def write_test_layout(root: str, db: str = "portrait_MTCNN",
 
 
 # --- the Module1-side trainers (train/{module1,flow_regression,
-# image_translation,pose_transfer}.py) at full width --------------------
+# image_translation,pose_transfer,fan,face_of_art}.py) at full width -----
 
-TRAINERS = ("content", "speaker", "flow", "imtrans", "pose")
+TRAINERS = ("content", "speaker", "flow", "imtrans", "pose", "fan", "foa")
 
 
 class TrainerSmoke:
@@ -391,12 +391,21 @@ def trainer_smoke(name: str, device: torch.device | str, small: bool = False,
     - pose: ``PoseTransferConfig`` (dual_unet, G_nf 32, max 128, 7 scales,
       5 warp scales, 68 joints, D on) at 256^2, batch 4 (7 scales need a
       side divisible by 2^7; the config's 224 is not, in the JAX package
-      either).
+      either);
+    - fan: ``FANTrainConfig`` (4 stacks, 98 points) at 256^2 with 64^2
+      heatmaps, batch 4, on seeded noise images and seeded 98-point
+      layouts through ``make_fan_targets``;
+    - foa: ``ArtisticHeatmapNet`` (68 points) at 256^2, batch 4 (Adam,
+      lr 1e-3, ``train_foa``'s defaults), on the convergence tool's blob
+      faces and their ``make_foa_targets`` maps (sigma 6).
 
     ``small`` takes the card-against-host widths: 24 windows; num_scale 3,
     batch 2; ngf 8, num_downs 5, 64^2, batch 2 on seeded uniform noise;
-    the JAX convergence tool's pose widths, batch 2. ``dtype`` float64
-    gives the host's exact stand-in."""
+    the JAX convergence tool's pose widths, batch 2; FAN with 1 stack and
+    68 points at 256^2, batch 2 (its innermost level 4x4: at 64^2 it is
+    1x1, where BatchNorm over 2 values a channel makes any fp32 step a
+    coin flip); face_of_art at 64^2, batch 2. ``dtype`` float64 gives the
+    host's exact stand-in."""
     from animateportrait_tpu_torch.models.audio2landmark import (
         Audio2landmarkContent, Audio2landmarkSpeakerAware)
     from animateportrait_tpu_torch.models.flowunet import FlowUnet
@@ -495,6 +504,36 @@ def trainer_smoke(name: str, device: torch.device | str, small: bool = False,
             f"{cfg.G_n_scale} scales, {cfg.G_n_warp_scale} warp scales, "
             f"{cfg.joint_nc} joints, D on, {cfg.size}^2, batch {k}", tr,
             lambda: tr.step(batch), {"g": tr.g, "d": tr.d})
+    if name == "fan":
+        from animateportrait_tpu_torch.train import fan as tf
+        cfg = tf.FANTrainConfig(num_modules=1, num_landmarks=68) if small \
+            else tf.FANTrainConfig()
+        k = 2 if small else 4
+        r = np.random.default_rng(7)
+        lms = r.uniform(48, 208, (k, cfg.num_landmarks, 2))
+        targets = [tf.make_fan_targets(lm) for lm in lms]
+        gt, w = (t(np.stack([tg[j] for tg in targets])) for j in (0, 1))
+        x = t(r.uniform(0, 1, (k, 3, 256, 256)).astype(np.float32))
+        tr = tf.FANTrainer(cfg, place(cv.seeded(lambda: tf.build_fan(cfg),
+                                                0)), device=dev)
+        return TrainerSmoke(
+            f"fan: FAN {cfg.num_modules} stacks, {cfg.num_landmarks} points, "
+            f"256^2, batch {k}", tr, lambda: tr.step(x, gt, w),
+            {"fan": tr.model})
+    if name == "foa":
+        from animateportrait_tpu_torch.train import face_of_art as tfa
+        cfg = tfa.FOATrainConfig()
+        size, k = (64, 2) if small else (256, 4)
+        imgs, lms = cv.blob_faces(size)
+        maps = [tfa.make_foa_targets(lm, size) for lm in lms[:k]]
+        small_maps, large = (t(np.stack([m[j] for m in maps]))
+                             for j in (0, 1))
+        x = nchw(imgs[:k])
+        tr = tfa.FOATrainer(cfg, place(tfa.seeded_foa_net(cfg, 0)),
+                            device=dev)
+        return TrainerSmoke(
+            f"foa: ArtisticHeatmapNet 68 points, {size}^2, batch {k}", tr,
+            lambda: tr.step(x, small_maps, large), {"foa": tr.model})
     raise ValueError(f"unknown trainer {name!r}: one of {TRAINERS}")
 
 

@@ -126,8 +126,26 @@ Phases, each printing its own lines:
      against host on one step of each at a small width (losses within
      rtol 1e-4, gradient leaves within 1e-3 of their scale, or, where
      fp32 cannot give that, no farther from a float64 host run than the
-     host's own fp32 step); ``train.convergence`` for 20 steps, every
-     metric falling.
+     host's own fp32 step).
+ 14. the landmark-detector trainers, the network registry and LPIPS: the
+     FAN/AWing step (4 stacks, 98 points, 256^2, batch 4) and the
+     face_of_art step (256^2, batch 4) timed and held card against host
+     as phase 13 does; ``train_foa`` for 8 steps over a seeded ibug-style
+     tree (PNG and JPEG photos with ``.pts``, augmentation on, p_geom
+     0.5), the host data layer's share of the run, and
+     ``predict_artistic_landmarks`` with ``train_pdm`` PDMs (ms a photo);
+     every ``define_g`` / ``define_d`` name at ngf 64, 256^2 (the class
+     discriminator at 512^2, the Regressor at arch 2 on 11^2 patches),
+     batch 4: a forward and backward with the counters zeroed before it
+     (K2 and K2b must both launch; counts per name), K2 against its plain
+     version and K2 + K2b against float64 on the first InstanceNorm input
+     of each shape (unet_256's 2x2 planes included); card against host on
+     every name at a small width (outputs within 1e-4 of their scale, the
+     loss within rtol 1e-4, ``grad_parity`` with a float64 host run);
+     LPIPS (vgg, alex, squeeze; plain and spatial) on two batches of
+     phase 3's frames, ms a pair, card against host; and
+     ``train.convergence`` for 20 steps over all seven runs, every metric
+     falling, with no kernel launched.
 Then the loader's forkserver and multiprocessing's resource tracker are
 stopped, and no process the run started may still be running.
 
@@ -427,11 +445,12 @@ def keep_instance_norm_inputs(nets, by_shape: bool = False
     return kept, hooks
 
 
-def k2_on_path(kept: dict, tag: str) -> float:
+def k2_on_path(kept: dict, tag: str, by_shape_lines: bool = True) -> float:
     """K2 against its plain version on the activations a path fed each
     InstanceNorm; returns the largest |kernel - plain|. The bar is K2_ATOL
     on fp32 activations, one bf16 ulp at each element (``bf16_ulps``) on
-    bf16 ones (K2-bf16)."""
+    bf16 ones (K2-bf16). ``by_shape_lines`` prints a line per shape before
+    the summary."""
     from animateportrait_tpu_torch.ops.instnorm import (
         instance_norm, instance_norm_plain)
 
@@ -453,7 +472,7 @@ def k2_on_path(kept: dict, tag: str) -> float:
             by_shape[k] = max(worst, (err, ulps, key, ratio,
                                       float(want.float().abs().max())))
     for (shape, relu, dtype), (err, ulps, key, ratio, top) in sorted(
-            by_shape.items(), key=str):
+            by_shape.items(), key=str) if by_shape_lines else ():
         bar = (f"{ulps:.2f} bf16 ulps, <= 1" if dtype == torch.bfloat16
                else f"atol {K2_ATOL}")
         say(f"[{tag}] K2 on path activations {shape} {dtype} relu={relu}: "
@@ -785,7 +804,8 @@ def phase6(dev: torch.device, landmarks: np.ndarray) -> None:
         raise AssertionError(f"speaker embedding differs: {emb_err}")
 
 
-def k2_gradient_on_path(kept: dict, tag: str = "7") -> dict:
+def k2_gradient_on_path(kept: dict, tag: str = "7",
+                        by_shape_lines: bool = True) -> dict:
     """K2's gradient path against autograd in float64 and through the plain
     version on the InstanceNorm inputs of a training step, with a seeded
     upstream gradient in the inputs' dtype (``kernel_bench.
@@ -818,7 +838,8 @@ def k2_gradient_on_path(kept: dict, tag: str = "7") -> dict:
         k = (tuple(x.shape), relu)
         by_shape[k] = {n: max(by_shape.get(k, {}).get(n, 0), v)
                        for n, v in errs.items()}
-    for (shape, relu), e in sorted(by_shape.items()):
+    for (shape, relu), e in sorted(by_shape.items()) if by_shape_lines \
+            else ():
         say(f"[{tag}] K2 gradient path {shape} {x.dtype} relu={relu}, of "
             f"max|dx|: K2b vs plain {e['k2b']:.2e} (<= {rtol:.2e}); K2+K2b "
             f"vs float64 {e['vs_f64']:.2e} (<= {f64_rtol:.2e}), vs plain "
@@ -2281,17 +2302,22 @@ M1_WINDOW_S = 1.5         # over at least this long a window
 M1_CONVERGENCE_STEPS = 20
 
 
-def phase13_timed(dev: torch.device, card: str) -> dict:
+# phase 13's five trainers; phase 14 takes the landmark detectors'
+M1_TRAINERS = ("content", "speaker", "flow", "imtrans", "pose")
+
+
+def phase13_timed(dev: torch.device, card: str, names=M1_TRAINERS,
+                  tag: str = "13") -> dict:
     """Each trainer at full width: a warm step, one step timed on the host
     clock to size the window, then n steps back to back between two CUDA
     events, n the larger of ``M1_MIN_STEPS`` and what fills
     ``M1_WINDOW_S``, with the launch counters zeroed before them (no
     kernel of the port lies on these paths, so every counter must stay
     0); then one profiled step for its device time."""
-    from animateportrait_tpu_torch.utils.smoke import TRAINERS, trainer_smoke
+    from animateportrait_tpu_torch.utils.smoke import trainer_smoke
 
     out = {}
-    for name in TRAINERS:
+    for name in names:
         s = trainer_smoke(name, dev)
         t0 = time.perf_counter()
         s.step()
@@ -2315,20 +2341,20 @@ def phase13_timed(dev: torch.device, card: str) -> dict:
         peak = torch.cuda.max_memory_allocated(dev)
         m = {k: float(v) for k, v in m.items()}
         if not all(np.isfinite(v) for v in m.values()):
-            raise AssertionError(f"[13] {name}: non-finite metrics {m}")
+            raise AssertionError(f"[{tag}] {name}: non-finite metrics {m}")
         if any(launches.values()):
-            raise AssertionError(f"[13] {name}: kernel launches {launches} "
+            raise AssertionError(f"[{tag}] {name}: kernel launches {launches} "
                                  "on a path that has no kernel of the port")
         prof = profiled_ms(s.run, top=3)
-        say(f"[13] {s.what}: warm step {warm:.3f} s, {n} timed steps in "
+        say(f"[{tag}] {s.what}: warm step {warm:.3f} s, {n} timed steps in "
             f"{n * ms / 1e3:.3f} s (CUDA events): {1e3 / ms:.3f} steps/s "
             f"({ms:.3f} ms/step), device time of a profiled step "
             f"{prof['all']:.3f} ms ({100 * prof['all'] / ms:.1f}% of a "
             f"step), peak memory {peak / 2 ** 30:.2f} GiB on {card}; "
             f"K1/K2/K2b launches {launches}")
-        say(f"[13]   metrics after step {s.trainer.steps - 1}: "
+        say(f"[{tag}]   metrics after step {s.trainer.steps - 1}: "
             + ", ".join(f"{k} {v:.4f}" for k, v in m.items()))
-        say("[13]   top kernels: " + "; ".join(
+        say(f"[{tag}]   top kernels: " + "; ".join(
             f"{k['name']} x{k['calls']} {k['ms']:.3f} ms"
             for k in prof["top"]))
         out[name] = {"what": s.what, "steps": n, "steps_per_s": 1e3 / ms,
@@ -2403,7 +2429,8 @@ def kink_flips(name: str, device, cudnn: bool = True) -> tuple[int, float]:
     return n, near
 
 
-def phase13_parity(dev: torch.device) -> dict:
+def phase13_parity(dev: torch.device, names=M1_TRAINERS,
+                   tag: str = "13") -> dict:
     """One step of each trainer at a small width on the card and on the
     host, from the same weights and batch, through the trainers' own path
     (cuDNN on, its deterministic algorithms):
@@ -2424,18 +2451,18 @@ def phase13_parity(dev: torch.device) -> dict:
       card and on the host (for image translation also with cuDNN off)
       are printed (PERF.md, Findings)."""
     from animateportrait_tpu_torch.utils.smoke import (
-        TRAINERS, cancelled_biases, grad_parity, trainer_smoke)
+        cancelled_biases, grad_parity, trainer_smoke)
 
     def same_metrics(name, got, want):
         for k, v in want.items():
             bar = 0.01 if k == "PSNR" else 1e-4 * max(abs(v), 1e-30)
             if not abs(got[k] - v) <= bar:
-                raise AssertionError(f"[13] {name}: {k} card {got[k]} "
+                raise AssertionError(f"[{tag}] {name}: {k} card {got[k]} "
                                      f"host {v}")
 
     out = {}
     torch.backends.cudnn.deterministic = True
-    for name in TRAINERS:
+    for name in names:
         card, host, card64, host64 = (
             trainer_smoke(name, d, small=True, dtype=dt)
             for d, dt in ((dev, torch.float32), ("cpu", torch.float32),
@@ -2449,7 +2476,7 @@ def phase13_parity(dev: torch.device) -> dict:
         errs64 = grad_parity(card64.grads(), gd, None, noise)
         k64 = max(errs64, key=errs64.get)
         if errs64[k64] > 1e-3:
-            raise AssertionError(f"[13] {name}: float64 gradient {k64} at "
+            raise AssertionError(f"[{tag}] {name}: float64 gradient {k64} at "
                                  f"{errs64[k64]:.3e} of its scale (bar 1e-3)")
         errs = grad_parity(gc, gh, gd, noise)
         k = max(errs, key=errs.get)
@@ -2459,14 +2486,14 @@ def phase13_parity(dev: torch.device) -> dict:
 
             def dist(a, b):
                 return float((a - b).abs().max()) / sc
-            say(f"[13]   {name} fp32 {kk}: card-host {dist(g, h):.3e}, "
+            say(f"[{tag}]   {name} fp32 {kk}: card-host {dist(g, h):.3e}, "
                 f"host-f64 {dist(h, d):.3e}, card-f64 {dist(g, d):.3e} of "
                 f"{sc:.3e}")
         out[name] = {"float64": errs64[k64], "float64_leaf": k64,
                      "fp32": errs[k], "fp32_leaf": k,
                      "fp32_over_1e-3": sum(v > 1e-3 for v in errs.values()),
                      "leaves": len(errs)}
-        say(f"[13] card vs host, {card.what}: metrics within rtol 1e-4 in "
+        say(f"[{tag}] card vs host, {card.what}: metrics within rtol 1e-4 in "
             f"fp32 and float64; float64 gradients: worst leaf {k64} at "
             f"{errs64[k64]:.3e} of its scale (bar 1e-3); measured, not "
             f"held: fp32 worst leaf {k} at {errs[k]:.3e} by grad_parity, "
@@ -2478,7 +2505,7 @@ def phase13_parity(dev: torch.device) -> dict:
             if name == "imtrans":
                 runs["card, cuDNN off"] = kink_flips(name, dev, cudnn=False)
             out[name]["kink_flips"] = runs
-            say(f"[13]   {name}: {KINKS[name][2]} inputs on the other side "
+            say(f"[{tag}]   {name}: {KINKS[name][2]} inputs on the other side "
                 "of the kink from float64: " + "; ".join(
                     f"{where} {n} (the farthest from it {near:.2e} of its "
                     "tensor's largest |value|)"
@@ -2489,29 +2516,412 @@ def phase13_parity(dev: torch.device) -> dict:
 
 
 def phase13(dev: torch.device, card: str) -> dict:
-    """The Module1-side trainers: timed at full width, card against host,
-    and ``train.convergence`` for ``M1_CONVERGENCE_STEPS`` steps."""
+    """The Module1-side trainers: timed at full width and card against
+    host (``train.convergence`` runs in phase 14, over all seven runs)."""
+    return {"timed": phase13_timed(dev, card),
+            "parity": phase13_parity(dev)}
+
+
+# phase 14: the landmark-detector trainers (FAN/AWing, face_of_art), the
+# Module2 network registry (gan_extra's define_g / define_d) and LPIPS
+FOA_TREE_PHOTOS = 8        # the synthetic ibug-style tree of train_foa
+FOA_DRIVER_STEPS = 8
+GAN_BATCH = 4
+GAN_SIZE = 256
+LPIPS_BATCH = 8
+
+
+def write_foa_tree(root: str, n: int = FOA_TREE_PHOTOS,
+                   size: int = 320) -> str:
+    """A seeded ibug-style directory: ``n`` photos (every other one a
+    baseline JPEG, the rest PNG) of a shaded face with dark strokes at its
+    68 landmarks, each with its 1-based ``.pts`` file."""
+    from animateportrait_tpu_torch.train.convergence import render_face
+    from animateportrait_tpu_torch.utils.assets import std_face_landmarks
+    from animateportrait_tpu_torch.utils.image import write_png
+    from animateportrait_tpu_torch.utils.jpeg import encode_jpeg
+
+    rng = np.random.default_rng(14)
+    base = std_face_landmarks().reshape(68, 3)[:, :2]
+    base = base - base.min(0)
+    base = base / base.max() * (0.5 * size) + 0.25 * size
+    os.makedirs(root, exist_ok=True)
+    for i in range(n):
+        lm = base[:, ::-1] + rng.uniform(-4, 4, (68, 2))
+        img = render_face(lm, size)
+        img = np.clip(img * rng.uniform(0.6, 1.0, 3) * 255 + rng.normal(
+            0, 6, img.shape), 0, 255).astype(np.uint8)
+        stem = os.path.join(root, f"face{i:02d}")
+        if i % 2:
+            with open(stem + ".jpg", "wb") as f:
+                f.write(encode_jpeg(img[:, :, ::-1]))
+        else:
+            write_png(stem + ".png", img)
+        with open(stem + ".pts", "w") as f:
+            f.write("version: 1\nn_points: 68\n{\n")
+            f.writelines(f"{x + 1:.3f} {y + 1:.3f}\n" for y, x in lm)
+            f.write("}\n")
+    return root
+
+
+def phase14_foa(dev: torch.device, card: str, tmp: str) -> dict:
+    """``train_foa`` for ``FOA_DRIVER_STEPS`` steps at 256^2, batch 4, over
+    a seeded ibug-style tree with augmentation on (geometric p 0.5, the
+    TPS warps on the card), the host's share of the run in the data layer;
+    then ``predict_artistic_landmarks`` with PDMs from ``train_pdm`` on
+    synthetic shapes, ms per photo."""
+    from animateportrait_tpu_torch.data import face_of_art as fdata
+    from animateportrait_tpu_torch.models.face_of_art import (
+        PART_INDS, predict_artistic_landmarks, train_pdm)
+    from animateportrait_tpu_torch.train import face_of_art as ftrain
+
+    root = write_foa_tree(os.path.join(tmp, "ibug"))
+    t0 = time.perf_counter()
+    items = fdata.load_foa_image_list(root, image_size=256)
+    load_s = time.perf_counter() - t0
+    if len(items) != FOA_TREE_PHOTOS:
+        raise AssertionError(f"[14] {len(items)} items of "
+                             f"{FOA_TREE_PHOTOS} photos")
+    batches_s = []
+    orig = fdata.foa_epoch_batches
+
+    def timed_batches(*a, **kw):
+        it = orig(*a, **kw)
+        while True:
+            t = time.perf_counter()
+            try:
+                b = next(it)
+            except StopIteration:
+                return
+            batches_s.append(time.perf_counter() - t)
+            yield b
+
+    logs = []
+    zero_counters()
+    fdata.foa_epoch_batches = timed_batches
+    try:
+        t0 = time.perf_counter()
+        tr = ftrain.train_foa(items, train_iter=FOA_DRIVER_STEPS,
+                              batch_size=4, image_size=256, p_geom=0.5,
+                              augment=True, print_every=4, seed=0,
+                              log_fn=logs.append, device=dev)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        fdata.foa_epoch_batches = orig
+    launches = read_counters()
+    if tr.steps != FOA_DRIVER_STEPS or len(logs) != FOA_DRIVER_STEPS // 4:
+        raise AssertionError(f"[14] train_foa: {tr.steps} steps, {logs}")
+    if any(launches.values()):
+        raise AssertionError(f"[14] train_foa launched {launches}")
+    share = sum(batches_s) / total
+    say(f"[14] train_foa, {FOA_DRIVER_STEPS} steps at 256^2, batch 4, "
+        f"augmentation on (p_geom 0.5) over {len(items)} photos (PNG and "
+        f"JPEG, loaded in {load_s:.3f} s): {total:.3f} s, "
+        f"{FOA_DRIVER_STEPS / total:.3f} steps/s, the data layer (texture -> "
+        f"geometric (TPS on the card) -> basic, targets) {sum(batches_s):.3f}"
+        f" s = {100 * share:.1f}% of the run on {card}; last log: "
+        f"{logs[-1]}; K1/K2/K2b launches {launches}")
+    rng = np.random.default_rng(15)
+    faces = items[0].lms[None] + rng.normal(0, 2.0, (40, 68, 2))
+    pdms = {part: train_pdm(faces[:, inds], 3)
+            for part, inds in PART_INDS.items()}
+    model = tr.model.eval()
+    predict_artistic_landmarks(items[0].image, model, pdms)
+    ms = []
+    for it in items:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lms = predict_artistic_landmarks(it.image, model, pdms)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if lms.shape != (68, 2) or not np.isfinite(lms).all():
+            raise AssertionError(f"[14] predict_artistic_landmarks {lms}")
+    say(f"[14] predict_artistic_landmarks (net on the card, part-PDM "
+        f"correction and evidence-weighted tuning on the host): median "
+        f"{np.median(ms):.2f} ms per 256^2 photo over {len(ms)} on {card}")
+    return {"steps_per_s": FOA_DRIVER_STEPS / total, "host_share": share,
+            "launches": launches, "predict_ms": float(np.median(ms))}
+
+
+def gan_inputs(name: str, size: int, batch: int, dev, dtype=torch.float32,
+               seed: int = 0) -> list:
+    """Seeded inputs of ``define_g(name)``'s forward: the photo, landmark
+    images, motion grids (N, H, W, 2), flow (N, 2, H, W) and mask as the
+    net's mode takes them."""
+    from animateportrait_tpu_torch.models import gan_extra as gx
+
+    g = torch.Generator().manual_seed(seed)
+
+    def u(*shape, lo=-1.0, hi=1.0):
+        return (lo + (hi - lo) * torch.rand(*shape, generator=g)).to(
+            dev, dtype)
+
+    def land(c=1):
+        return torch.where(u(batch, c, size, size) > 0.8, 1.0, -1.0).to(dtype)
+
+    x = u(batch, 3, size, size)
+    motion, motion2 = u(batch, size, size, 2), u(batch, size, size, 2)
+    flow, mask = u(batch, 2, size, size, lo=-3, hi=3), u(batch, 1, size,
+                                                         size, lo=0)
+    if name in gx.CONDITIONAL:
+        mode = gx.CONDITIONAL[name][1]
+        return {"none": [x, land(), land()],
+                "fw": [x, land(), land(), motion],
+                "fw2": [x, land(), land(), motion],
+                "ifw": [x, land(), land(), motion, flow, mask]}[mode]
+    if name in gx.TRIDENT_VARIANTS:
+        v = gx.TRIDENT_VARIANTS[name]
+        lc = v.get("land_nc", 1)
+        return {"both": [x, land(lc), land(lc), motion, flow, mask],
+                "dual_motion": [x, land(), land(), motion, None, None,
+                                motion2],
+                "motion": [x, land(), land(), motion],
+                "flow": [x, land(), land(), None, flow, mask]}[v["warp"]]
+    if name == "resnet_9blocks_rcatland32_full_ifw":
+        return [x, land(), land(), motion, flow, mask]
+    if name == "resnet_9blocks_rcatland4":
+        return [x, land(), land()]
+    if name == "resnet_9blocks_rcatland2":
+        return [x, x.roll(7, 2)]
+    if name == "resnet_style2_9blocks":
+        return [x, u(batch, 3, size // 4, size // 4)]
+    if name == "regressor":
+        return [u(batch, 3, 11, 11)]
+    return [x]
+
+
+def gan_net(kind: str, name: str, ngf: int, seed: int = 0) -> torch.nn.Module:
+    """``define_g(name)`` (output_nc 1, the Regressor at arch 2, the one
+    with InstanceNorms) or ``define_d(name)`` with seeded N(0, 0.02)
+    weights (the reference's init)."""
+    from animateportrait_tpu_torch.models import gan_extra as gx
+    from animateportrait_tpu_torch.models.gan import init_weights
+
+    if kind == "d":
+        net = gx.define_d(name, 3, ndf=ngf)
+    else:
+        kw = {"arch": 2} if name == "regressor" else {}
+        net = gx.define_g(name, 3, 1, ngf=ngf, **kw)
+    return init_weights(net, generator=torch.Generator().manual_seed(seed))
+
+
+def _mean_square(out) -> torch.Tensor:
+    outs = out if isinstance(out, tuple) else (out,)
+    return sum(torch.mean(torch.square(o)) for o in outs)
+
+
+def gan_cases() -> list[tuple[str, str, int]]:
+    """(kind, name, input side) of every define_g and define_d name: 256^2,
+    the class discriminator at 512^2 (its 16x16 head), the Regressor at
+    its 11x11 patches."""
+    from animateportrait_tpu_torch.models import gan_extra as gx
+
+    cases = [("g", n, 11 if n == "regressor" else GAN_SIZE)
+             for n in sorted(gx.NETG)]
+    return cases + [("d", n, 512 if n == "cls" else GAN_SIZE)
+                    for n in sorted(gx.NETD)]
+
+
+def keep_by_shape(net) -> tuple[dict, list]:
+    """Pre-hooks keeping the first InstanceNorm input of each (shape, relu)
+    that ``net`` feeds its norms."""
+    from animateportrait_tpu_torch.nn import InstanceNorm2d
+
+    kept, hooks = {}, []
+    for mod in net.modules():
+        if isinstance(mod, InstanceNorm2d):
+            def keep(mod, args):
+                key = f"{tuple(args[0].shape)} relu={mod.relu}"
+                if key not in kept:
+                    kept[key] = (args[0].detach().clone(), mod.relu)
+            hooks.append(mod.register_forward_pre_hook(keep))
+    return kept, hooks
+
+
+def phase14_gan_extra(dev: torch.device, card: str) -> dict:
+    """Every ``define_g`` / ``define_d`` name at ngf (ndf) 64, batch 4: a warm
+    forward + backward that keeps the first InstanceNorm input of each
+    shape, K2 against its plain version and K2 + K2b against float64 on
+    those, then one forward + backward with the counters zeroed just
+    before it (K2 and K2b must both launch) and its time between CUDA
+    events."""
+    out, worst_fwd, worst_grad = {}, 0.0, {}
+    for kind, name, size in gan_cases():
+        net = gan_net(kind, name, 64).to(dev).train()
+        args = gan_inputs(name, size, GAN_BATCH, dev)
+        kept, hooks = keep_by_shape(net)
+        _mean_square(net(*args)).backward()
+        for h in hooks:
+            h.remove()
+        net.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counters()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        loss = _mean_square(net(*args))
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        torch.cuda.synchronize()
+        launches = read_counters()
+        if not (launches["instance_norm"] > 0
+                and launches["instance_norm_backward"] > 0):
+            raise AssertionError(f"[14] {name}: K2/K2b did not both launch: "
+                                 f"{launches}")
+        if not torch.isfinite(loss):
+            raise AssertionError(f"[14] {name}: loss {loss}")
+        tag = f"14 {name}"
+        fwd = k2_on_path(kept, tag, by_shape_lines=False)
+        grad = k2_gradient_on_path(kept, tag, by_shape_lines=False)
+        worst_fwd = max(worst_fwd, fwd)
+        for k, v in grad.items():
+            worst_grad[k] = max(worst_grad.get(k, 0.0), v)
+        planes = sorted({tuple(x.shape[2:]) for x, _ in kept.values()})
+        say(f"[14] {kind} {name} {GAN_BATCH}x3x{size}^2: forward "
+            f"{ev[0].elapsed_time(ev[1]):.3f} ms, backward "
+            f"{ev[1].elapsed_time(ev[2]):.3f} ms, peak memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB on "
+            f"{card}; K2 x{launches['instance_norm']}, K2b "
+            f"x{launches['instance_norm_backward']}; InstanceNorm planes "
+            f"{planes[0]} to {planes[-1]}")
+        out[name] = {"launches": launches, "planes": planes,
+                     "fwd_ms": ev[0].elapsed_time(ev[1]),
+                     "bwd_ms": ev[1].elapsed_time(ev[2])}
+        del net, args, kept, loss
+        torch.cuda.empty_cache()
+    if not any((2, 2) in r["planes"] for r in out.values()):
+        raise AssertionError("[14] no 2x2 InstanceNorm plane was held")
+    return {"nets": out, "k2_path_err": worst_fwd, "k2b_worst": worst_grad}
+
+
+def phase14_gan_parity(dev: torch.device) -> dict:
+    """Card against host at small widths (ngf 8, 64^2, batch 2; unet_256
+    at ngf 4 and 256^2, the class discriminator at 512^2 and batch 1):
+    every output within 1e-4 of its scale, the loss (mean square of the
+    outputs) within rtol 1e-4, every gradient leaf by ``grad_parity`` with
+    the host's float64 run."""
+    from animateportrait_tpu_torch.utils.smoke import (
+        cancelled_biases, grad_parity)
+
+    worst = {"out": 0.0, "grad": 0.0}
+    torch.backends.cudnn.deterministic = True
+    for kind, name, size in gan_cases():
+        small = {"unet_128": 128, "unet_256": 256, "cls": 512,
+                 "regressor": 11}.get(name, 64)
+        batch = 1 if name == "cls" else 2
+        ngf = 4 if name == "unet_256" else 8
+        runs = []
+        for where, dt in ((dev, torch.float32), ("cpu", torch.float32),
+                          ("cpu", torch.float64)):
+            net = gan_net(kind, name, ngf).to(where, dt).train()
+            out = net(*gan_inputs(name, small, batch, where, dt))
+            loss = _mean_square(out)
+            loss.backward()
+            outs = out if isinstance(out, tuple) else (out,)
+            runs.append(([o.detach().double().cpu() for o in outs],
+                         float(loss.detach()),
+                         {k: p.grad for k, p in net.named_parameters()}))
+        (oc, lc, gc), (oh, lh, gh), (_, _, g64) = runs
+        err = max(float((a - b).abs().max()) / float(b.abs().max())
+                  for a, b in zip(oc, oh))
+        if err > 1e-4 or abs(lc - lh) > 1e-4 * abs(lh):
+            raise AssertionError(f"[14] {name}: card vs host outputs {err:.2e}"
+                                 f" of their scale, loss {lc} vs {lh}")
+        errs = grad_parity(gc, gh, g64, cancelled_biases(net))
+        k = max(errs, key=errs.get)
+        say(f"[14] card vs host, {kind} {name} {batch}x3x{small}^2 ngf "
+            f"{ngf}: outputs {err:.2e} of their scale, loss rtol "
+            f"{abs(lc - lh) / abs(lh):.2e}; gradients by grad_parity: worst "
+            f"{k} {errs[k]:.2e} (bar 1e-3)")
+        if errs[k] > 1e-3:
+            raise AssertionError(f"[14] {name}: gradient {k} at {errs[k]:.3e}")
+        worst["out"] = max(worst["out"], err)
+        worst["grad"] = max(worst["grad"], errs[k])
+    torch.backends.cudnn.deterministic = False
+    return worst
+
+
+def phase14_lpips(dev: torch.device, card: str, frames: np.ndarray) -> dict:
+    """LPIPS (vgg, alex, squeeze; ``lpips=True`` and ``spatial=True``, seeded
+    weights) on two batches of phase 3's frames, ms per pair (CUDA events
+    over 5 calls after a warm one), counters 0; card against host on the
+    first two pairs at 64^2 within 1e-4 of the distance's scale."""
+    from animateportrait_tpu_torch.models import lpips
+    from animateportrait_tpu_torch.train.convergence import seeded
+
+    x = torch.from_numpy(frames[:2 * LPIPS_BATCH, ..., 0].astype(
+        np.float32) / 127.5 - 1.0)[:, None].expand(-1, 3, -1, -1)
+    a, b = x[:LPIPS_BATCH].contiguous(), x[LPIPS_BATCH:].contiguous()
+    out = {}
+    for pnet in ("vgg", "alex", "squeeze"):
+        for spatial in (False, True):
+            net = seeded(lambda: lpips.PNetLin(pnet, spatial=spatial), 3)
+            host = net.eval()
+            with torch.no_grad():
+                want = host(a[:2, :, :64, :64], b[:2, :, :64, :64])
+                card_net = copy.deepcopy(host).to(dev)
+                got = card_net(a[:2, :, :64, :64].to(dev),
+                               b[:2, :, :64, :64].to(dev)).cpu()
+                err = float((got - want).abs().max() / want.abs().max())
+                if err > 1e-4:
+                    raise AssertionError(f"[14] LPIPS {pnet}: card vs host "
+                                         f"{err:.2e}")
+                ad, bd = a.to(dev), b.to(dev)
+                card_net(ad, bd)
+                zero_counters()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                for _ in range(5):
+                    d = card_net(ad, bd)
+                ev[1].record()
+                torch.cuda.synchronize()
+            launches = read_counters()
+            if any(launches.values()) or not torch.isfinite(d).all():
+                raise AssertionError(f"[14] LPIPS {pnet}: {launches}")
+            ms = ev[0].elapsed_time(ev[1]) / 5 / LPIPS_BATCH
+            key = f"{pnet}{'_spatial' if spatial else ''}"
+            out[key] = {"ms_per_pair": ms, "card_vs_host": err,
+                        "launches": launches}
+            say(f"[14] LPIPS {key}: {ms:.3f} ms per 256^2 pair (batch "
+                f"{LPIPS_BATCH}) on {card}, distance shape "
+                f"{tuple(d.shape)}, mean {float(d.mean()):.4f}; card vs host "
+                f"{err:.2e} of the distance; K1/K2/K2b launches {launches}")
+    return out
+
+
+def phase14(dev: torch.device, card: str, main_run: dict) -> dict:
+    """The landmark-detector trainers, the network registry and LPIPS, and
+    ``train.convergence`` for ``M1_CONVERGENCE_STEPS`` steps over all seven
+    runs."""
     from animateportrait_tpu_torch.train import convergence
 
-    timed = phase13_timed(dev, card)
-    parity = phase13_parity(dev)
-    zero_counters()
     t0 = time.perf_counter()
-    rows = convergence.run_all(M1_CONVERGENCE_STEPS, dev,
-                               say=lambda m: None)
+    timed = phase13_timed(dev, card, ("fan", "foa"), "14")
+    parity = phase13_parity(dev, ("fan", "foa"), "14")
+    with tempfile.TemporaryDirectory() as tmp:
+        foa = phase14_foa(dev, card, tmp)
+    gan = phase14_gan_extra(dev, card)
+    gan_parity = phase14_gan_parity(dev)
+    lp = phase14_lpips(dev, card, main_run["frames"])
+    zero_counters()
+    t1 = time.perf_counter()
+    rows = convergence.run_all(M1_CONVERGENCE_STEPS, dev, say=lambda m: None)
     torch.cuda.synchronize()
     for line in convergence.table(rows).splitlines():
-        say(f"[13] {line}")
-    if not all(last < first for _, first, last in rows):
-        raise AssertionError(f"[13] a convergence metric did not fall: {rows}")
+        say(f"[14] {line}")
+    if len(rows) != 8 or not all(last < first for _, first, last in rows):
+        raise AssertionError(f"[14] a convergence metric did not fall: {rows}")
     launches = read_counters()
     if any(launches.values()):
-        raise AssertionError(f"[13] kernel launches {launches} in the "
+        raise AssertionError(f"[14] kernel launches {launches} in the "
                              "convergence runs")
-    say(f"[13] train.convergence --steps {M1_CONVERGENCE_STEPS}: all "
-        f"{len(rows)} metrics fall, {time.perf_counter() - t0:.1f} s; K1/K2/"
-        f"K2b launches {launches}")
-    return {"timed": timed, "parity": parity, "convergence": rows,
+    say(f"[14] train.convergence --steps {M1_CONVERGENCE_STEPS}: all "
+        f"{len(convergence.RUNS)} runs, {len(rows)} metrics fall, "
+        f"{time.perf_counter() - t1:.1f} s; K1/K2/K2b launches {launches}")
+    say(f"[14] phase 14 in {time.perf_counter() - t0:.1f} s")
+    return {"timed": timed, "parity": parity, "foa": foa, "gan": gan,
+            "gan_parity": gan_parity, "lpips": lp, "convergence": rows,
             "launches": launches}
 
 
@@ -2572,10 +2982,14 @@ def main() -> None:
         user_photo = phase11(dev, main_run, trainer)
     surface = phase12(dev, main_run)
     trainers = phase13(dev, card)
+    zoo = phase14(dev, card, main_run)
     rec["instance_norm"]["max_abs_err"] = max(
         rec["instance_norm"]["max_abs_err"],
         surface["test_cli"]["k2_path_err"],
-        surface["p2c_full"]["k2_path_err"])
+        surface["p2c_full"]["k2_path_err"], zoo["gan"]["k2_path_err"])
+    k2b = rec.setdefault("instance_norm_backward", {})
+    k2b["max_abs_err"] = max(k2b.get("max_abs_err", 0.0),
+                             zoo["gan"]["k2b_worst"]["k2b_abs"])
     stop_processes()
     say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     src = "animateportrait_tpu_torch/csrc/"
@@ -2642,8 +3056,14 @@ def main() -> None:
         "test_cli": surface["test_cli"]["launches"],
         "video_cli": surface["video"]["launches"],
         **{f"train_{name}": run["launches"]
-           for name, run in trainers["timed"].items()},
-        "train_convergence": trainers["launches"]}
+           for name, run in (*trainers["timed"].items(),
+                             *zoo["timed"].items())},
+        "train_foa_driver": zoo["foa"]["launches"],
+        **{f"gan_extra_{name}": run["launches"]
+           for name, run in zoo["gan"]["nets"].items()},
+        **{f"lpips_{name}": run["launches"]
+           for name, run in zoo["lpips"].items()},
+        "train_convergence": zoo["launches"]}
     # "launches": K1's, K2's and K2-bf16's on the user's entry point (the
     # cartoon CLI runs of phases 5 and 9), K2b's and K2b-bf16's in the timed
     # training steps (phases 7 and 10); "launches_by_path" has every path's

@@ -6,9 +6,11 @@ cartoon, ``render_visuals`` too), the MTCNN cascade, Photo2Cartoon, the
 speaker embedding and the Module2 training step; ``test_cli.main`` and
 ``cli.main --video`` on the card, the batched front end against
 single calls, and one step of each Module1-side trainer (content,
-speaker-aware, flow regression, image translation, pose transfer) on the
-card against the host and a float64 host run, and their convergence runs
-with no kernel launch. They skip without a CUDA device.
+speaker-aware, flow regression, image translation, pose transfer, FAN,
+face_of_art) on the card against the host and a float64 host run, and
+their convergence runs with no kernel launch; a few ``define_g`` /
+``define_d`` nets (K2 and K2b on the card) and LPIPS card against host.
+They skip without a CUDA device.
 
 This file imports neither JAX nor the JAX package, so it runs where JAX is
 not installed; the repo's conftest imports JAX, so on such a machine run
@@ -864,7 +866,7 @@ def test_batched_front_end_matches_single_calls_on_the_card(cuda_device,
 
 
 @pytest.mark.parametrize("name", ["content", "speaker", "flow", "imtrans",
-                                  "pose"])
+                                  "pose", "fan", "foa"])
 def test_module1_trainer_step_card_vs_host(cuda_device, name):
     """One step at the small width on the card and on the host from the
     same weights and batch: the metrics within rtol 1e-4 (PSNR within 0.01
@@ -904,5 +906,68 @@ def test_module1_convergence_runs_fall_on_the_card(cuda_device):
     from animateportrait_tpu_torch.train import convergence
 
     rows = convergence.run_all(20, cuda_device, say=lambda m: None)
-    assert len(rows) == 6
+    assert len(rows) == 8
     assert all(last < first for _, first, last in rows), rows
+
+
+@pytest.mark.parametrize("name", ["resnet_9blocks",
+                                  "resnet_9blocks_rcatland32_ifw",
+                                  "resnet_9blocks_rcatland32_full_ifw2",
+                                  "unet_256", "cls"])
+def test_gan_extra_card_vs_host(cuda_device, name):
+    """A ``define_g`` / ``define_d`` net at a small width on the card and
+    on the host: K2 and K2b both launch on the card; the outputs within
+    1e-4 of their scale, the loss (mean square) within rtol 1e-4 and every
+    gradient leaf by ``grad_parity`` with a float64 host run
+    (chip_smoke.py phase 14 runs every name)."""
+    import chip_smoke as cs
+    from animateportrait_tpu_torch.utils.smoke import (
+        cancelled_biases, grad_parity)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = "d" if name == "cls" else "g"
+    size = {"unet_256": 256, "cls": 512}.get(name, 64)
+    runs = []
+    for dev, dt in ((cuda_device, torch.float32), ("cpu", torch.float32),
+                    ("cpu", torch.float64)):
+        before = (instnorm.instance_norm.launches,
+                  instnorm.instance_norm_backward.launches)
+        net = cs.gan_net(kind, name, 4 if name == "unet_256" else 8).to(
+            dev, dt).train()
+        out = net(*cs.gan_inputs(name, size, 1 if name == "cls" else 2, dev,
+                                 dt))
+        loss = cs._mean_square(out)
+        loss.backward()
+        after = (instnorm.instance_norm.launches,
+                 instnorm.instance_norm_backward.launches)
+        if dev == cuda_device:
+            assert after[0] > before[0] and after[1] > before[1]
+        outs = out if isinstance(out, tuple) else (out,)
+        runs.append(([o.detach().double().cpu() for o in outs],
+                     float(loss.detach()),
+                     {k: p.grad for k, p in net.named_parameters()}))
+    (oc, lc, gc), (oh, lh, gh), (_, _, g64) = runs
+    for a, b in zip(oc, oh):
+        assert maxdiff(a, b) <= 1e-4 * float(b.abs().max())
+    assert abs(lc - lh) <= 1e-4 * abs(lh)
+    errs = grad_parity(gc, gh, g64, cancelled_biases(net))
+    assert max(errs.values()) <= 1e-3, max(errs, key=errs.get)
+
+
+@pytest.mark.parametrize("pnet", ["vgg", "alex", "squeeze"])
+def test_lpips_card_vs_host(cuda_device, pnet):
+    """LPIPS with seeded weights on the card and on the host: within 1e-4
+    of the distance's scale, no kernel of the port launched."""
+    from animateportrait_tpu_torch.models.lpips import PNetLin
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    net = PNetLin(pnet).eval()
+    a, b = (torch.rand(2, 3, 64, 64) * 2 - 1 for _ in range(2))
+    before = instnorm.instance_norm.launches
+    with torch.no_grad():
+        want = net(a, b)
+        got = net.to(cuda_device)(a.to(cuda_device), b.to(cuda_device)).cpu()
+    assert maxdiff(got, want) <= 1e-4 * float(want.abs().max())
+    assert instnorm.instance_norm.launches == before

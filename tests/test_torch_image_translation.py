@@ -295,10 +295,12 @@ def test_with_audio_dataset_and_stft_map_match_jax_exactly():
 @pytest.mark.parametrize("shape,out", [((321, 80), (256, 256)),
                                        ((321, 80), (224, 224)),
                                        ((40, 33), (17, 90)),
-                                       ((50, 60), (100, 120))])
+                                       ((50, 60), (100, 120)),
+                                       ((70, 45, 3), (64, 64))])
 def test_resize_linear_float_equals_cv2(shape, out):
-    """float32 planes byte-equal to cv2.resize (INTER_LINEAR, IPP on as
-    OpenCV runs by default); float64 within 1e-13 of it."""
+    """float32 planes and 3-channel images byte-equal to cv2.resize
+    (INTER_LINEAR, IPP on as OpenCV runs by default); float64 within 1e-13
+    of it."""
     import cv2
     from animateportrait_tpu_torch.utils.image import resize_linear_float
     rng = np.random.default_rng(shape[0] + out[0])

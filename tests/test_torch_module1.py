@@ -363,10 +363,16 @@ def test_convergence_runner_matches_the_jax_tool(name, monkeypatch):
 
 
 def test_convergence_runner_refuses_the_runs_not_ported():
+    """The runner takes all seven of the JAX tool's runs (face_of_art and
+    FAN were refused by name before they were ported) and refuses any
+    other name."""
     from animateportrait_tpu_torch.train import convergence
-    for name in ("foa", "fan"):
-        with pytest.raises(ValueError, match="not ported"):
-            convergence.run_all(1, "cpu", (name,))
+    assert convergence.RUNS == ("content", "speaker", "foa", "flow",
+                                "imtrans", "pose", "fan")
+    assert not hasattr(convergence, "NOT_PORTED")
+    rows = convergence.run_all(1, "cpu", ("foa", "fan"), say=lambda m: None)
+    assert [r[0] for r in rows] == ["face_of_art valid NME (argmax decode)",
+                                    "FAN/AWing NME (argmax decode)"]
     with pytest.raises(ValueError, match="not one of"):
         convergence.run_all(1, "cpu", ("gan",))
 
@@ -376,13 +382,14 @@ def test_trainers_default_to_the_card():
     caller asks for the CPU, and refuses without one (never a silent CPU
     fall back)."""
     from animateportrait_tpu_torch.train import (
-        flow_regression, image_translation, pose_transfer)
+        face_of_art, fan, flow_regression, image_translation, pose_transfer)
     from animateportrait_tpu_torch.utils.device import DEFAULT_DEVICE
     import inspect
     for cls in (tm1.ContentTrainer, tm1.SpeakerAwareTrainer,
                 flow_regression.FlowRegTrainer,
                 image_translation.ImageTranslationTrainer,
-                pose_transfer.PoseTransferTrainer):
+                pose_transfer.PoseTransferTrainer, fan.FANTrainer,
+                face_of_art.FOATrainer, face_of_art.train_foa):
         assert inspect.signature(cls).parameters["device"].default \
             == DEFAULT_DEVICE == "cuda"
     if torch.cuda.is_available():

@@ -168,12 +168,19 @@ def jax_tool_run(name: str, steps: int, monkeypatch):
         from animateportrait_tpu.train import image_translation as m
         capture(m, "init_image_translation_state", "init")
         capture(m, "build_image_translation_train_step", "build")
+    elif name == "foa":
+        from animateportrait_tpu.train import face_of_art as m
+        capture(m, "init_foa_state", "init")
+    elif name == "fan":
+        from animateportrait_tpu.train import fan as m
+        capture(m, "init_fan_state", "init")
     else:
         from animateportrait_tpu.train import pose_transfer as m
         capture(m, "init_pt_state", "init")
     run = {"content": tool.run_content, "speaker": tool.run_speaker_aware,
            "flow": tool.run_flow, "imtrans": tool.run_image_translation,
-           "pose": tool.run_pose_transfer}[name]
+           "pose": tool.run_pose_transfer, "foa": tool.run_foa,
+           "fan": tool.run_fan}[name]
     result = run(steps)
     state = seen["init"][1]
     z_of_step = None
@@ -193,6 +200,12 @@ def jax_tool_run(name: str, steps: int, monkeypatch):
     elif name == "flow":
         weights = {"flow": from_jax.flowunet_state_dict(state.variables,
                                                         num_scale=3)}
+    elif name == "foa":
+        weights = {"foa": from_jax.artistic_heatmap_state_dict(
+            {"params": state.params})}
+    elif name == "fan":
+        weights = {"fan": from_jax.fan_state_dict(state[0].variables,
+                                                  num_modules=1)}
     elif name == "imtrans":
         weights = {"imtrans": from_jax.resunet_state_dict(state.variables),
                    "vgg": from_jax.vgg19_state_dict(seen["build"][0][1])}
