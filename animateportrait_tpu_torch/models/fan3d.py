@@ -354,16 +354,22 @@ class FaceAlignment3D:
         return [self.landmarks_from_box(img_rgb, b) for b in boxes]
 
 
+class NoFaceError(ValueError):
+    """The detector found no face in the image (the one failure of a
+    landmark hook that a caller may skip a frame for)."""
+
+
 def make_fan_landmark_fn(fa: FaceAlignment3D, detector):
     """The end-to-end pipeline's landmark hook: aligned BGR photo ->
     (68, 3), from MTCNN's first box on the RGB image as float32 (the
-    driver takes ``shapes[0]``, main_end2end_module2.py:193)."""
+    driver takes ``shapes[0]``, main_end2end_module2.py:193); raises
+    ``NoFaceError`` when there is no box."""
 
     def fn(img_bgr: np.ndarray) -> np.ndarray:
         rgb = np.ascontiguousarray(img_bgr[:, :, ::-1])
         boxes, _ = detector(rgb.astype(np.float32))
         if len(boxes) == 0:
-            raise ValueError("no face detected for FAN landmarks")
+            raise NoFaceError("no face detected for FAN landmarks")
         return fa.landmarks_from_box(rgb, boxes[0])
 
     return fn

@@ -915,16 +915,48 @@ def _line2(img: np.ndarray, p1: tuple, p2: tuple) -> None:
     img[ys[keep], xs[keep]] = 255
 
 
-def _fill_convex(img: np.ndarray, v: list) -> None:
+def _line8(img: np.ndarray, p1: tuple, p2: tuple) -> None:
+    """``cv2.line(img, p1, p2, 255)`` (LINE_8) between integer points:
+    drawing.cpp's ``Line``, a ``LineIterator`` taken left to right over
+    the segment clipped to the image (Bresenham: one step along the
+    longer axis each pixel, one along the shorter when the error is
+    negative)."""
+    h, w = img.shape[:2]
+    p1, p2 = list(p1), list(p2)
+    if not _clip_line(w, h, p1, p2):
+        return
+    if p2[0] < p1[0]:
+        p1, p2 = p2, p1
+    dx, dy = p2[0] - p1[0], p2[1] - p1[1]
+    sy = -1 if dy < 0 else 1
+    if abs(dy) > dx:        # y is the longer axis
+        n, m, major, minor = abs(dy), dx, (0, sy), (1, 0)
+    else:
+        n, m, major, minor = dx, abs(dy), (1, 0), (0, sy)
+    err, x, y = n - 2 * m, p1[0], p1[1]
+    for _ in range(n + 1):
+        img[y, x] = 255
+        neg = err < 0
+        err += -2 * m + (2 * n if neg else 0)
+        x, y = x + major[0] + (minor[0] if neg else 0), \
+            y + major[1] + (minor[1] if neg else 0)
+
+
+def _fill_convex(img: np.ndarray, v: list, integer: bool = False) -> None:
     """drawing.cpp's ``FillConvexPoly`` for 8-connected lines and vertices
-    in 16-bit fixed point: the outline by ``_line2``, then each scanline
-    between two edges walked in fixed point."""
+    in 16-bit fixed point: the outline by ``_line2`` (``Line``, ``_line8``,
+    for ``integer`` vertices, which ``cv2.fillConvexPoly`` with no shift
+    draws), then each scanline between two edges walked in fixed point."""
     h, w = img.shape[:2]
     n = len(v)
     delta = _XY_ONE >> 1
     prev = v[-1]
     for p in v:
-        _line2(img, prev, p)
+        if integer:
+            _line8(img, (prev[0] >> _XY_SHIFT, prev[1] >> _XY_SHIFT),
+                   (p[0] >> _XY_SHIFT, p[1] >> _XY_SHIFT))
+        else:
+            _line2(img, prev, p)
         prev = p
     ys = [p[1] for p in v]
     imin = int(np.argmin(ys))

@@ -15,8 +15,10 @@ clip raises before anything is written.
 
 ``read_first_frame`` and ``read_pcm_track`` read the CLI's ``--video``
 without FFmpeg: the first frame of a raw or Motion-JPEG AVI, and its
-soundtrack when that is 16 kHz mono 16-bit PCM. Other containers (MP4,
-Matroska, ...) and codecs (H.264, MPEG-4, ...) are refused by name.
+soundtrack when that is 16 kHz mono 16-bit PCM; ``read_video_frames``
+reads every frame, as the dataset builder (``data/av2flau.py``) does.
+Other containers (MP4, Matroska, ...) and codecs (H.264, MPEG-4, ...) are
+refused by name.
 """
 from __future__ import annotations
 
@@ -256,11 +258,44 @@ def read_first_frame(path: str) -> np.ndarray:
     Other containers and codecs raise ``VideoUnsupported``, by name."""
     data, info, chunks = _avi(path)
     read = _frame_reader(path, info)
+    for body in _video_chunks(data, info, chunks):
+        return read(body)
+    raise ValueError(f"cannot read a frame from {path}: no video chunk")
+
+
+def _video_chunks(data: bytes, info: dict, chunks: list):
+    """The bytes of each non-empty chunk of the first video stream, in file
+    order. An empty chunk (a dropped frame) gives no frame: OpenCV's
+    ``VideoCapture`` skips it too, with or without an ``idx1`` index, in
+    raw and Motion-JPEG AVIs (measured against OpenCV 5.0)."""
     vid = _stream_tag(info, b"vids")
     for tag, start, size in chunks:
         if tag[:2] == vid and tag[2:] in (b"db", b"dc") and size:
-            return read(data[start: start + size])
-    raise ValueError(f"cannot read a frame from {path}: no video chunk")
+            yield data[start: start + size]
+
+
+def read_video_frames(path: str, max_frames: int = 250, every: int = 1
+                      ) -> tuple[np.ndarray, float]:
+    """Up to ``max_frames`` frames of an AVI, every ``every``-th decoded
+    one, and its frame rate, as the JAX package's
+    ``data/av2flau.py:read_video_frames`` reads them with
+    ``cv2.VideoCapture``: (T, H, W, 3) BGR uint8 (decoded as
+    ``read_first_frame`` decodes one), and fps = rate / scale of the video
+    stream's header, 25.0 when that is 0. Raises ``ValueError`` when no
+    frame decodes."""
+    data, info, chunks = _avi(path)
+    read = _frame_reader(path, info)
+    frames = []
+    for i, body in enumerate(_video_chunks(data, info, chunks)):
+        if len(frames) >= max_frames:
+            break
+        if i % every == 0:
+            frames.append(read(body))
+    if not frames:
+        raise ValueError(f"no frames decoded from {path}")
+    vs = info["streams"][int(_stream_tag(info, b"vids"))]
+    fps = vs["rate"] / vs["scale"] if vs["rate"] and vs["scale"] else 0.0
+    return np.stack(frames), float(fps or 25.0)
 
 
 def read_pcm_track(path: str, sr: int = 16000) -> np.ndarray:
@@ -297,12 +332,10 @@ def read_avi(path: str) -> dict:
         raise ValueError(f"{path}: RIFF size does not match the file")
     read = _frame_reader(path, info)
     vid, aud = _stream_tag(info, b"vids"), _stream_tag(info, b"auds")
-    frames, audio = [], []
-    for tag, start, size in chunks:
-        if tag[:2] == vid and tag[2:] in (b"db", b"dc") and size:
-            frames.append(read(data[start: start + size])[:, :, ::-1])
-        elif tag[:2] == aud and tag[2:] == b"wb":
-            audio.append(data[start: start + size])
+    frames = [read(body)[:, :, ::-1]
+              for body in _video_chunks(data, info, chunks)]
+    audio = [data[start: start + size] for tag, start, size in chunks
+             if tag[:2] == aud and tag[2:] == b"wb"]
     vs = info["streams"][int(vid)]
     return {"streams": [s["type"] for s in info["streams"]],
             "fps": vs["rate"] / vs["scale"], "size": info["size"],

@@ -146,6 +146,25 @@ Phases, each printing its own lines:
      phase 3's frames, ms a pair, card against host; and
      ``train.convergence`` for 20 steps over all seven runs, every metric
      falling, with no kernel launched.
+ 15. the last modules and the training-data tools: ``postalign_video`` on
+     phase 3's frames (frames/s; card against host: tracked points within
+     1e-3 px, uint8 frames within one level on at most 0.1% of the
+     values) and on a drifting clip (stabilized); ``read_video_frames`` on
+     the committed Motion-JPEG fixture (each frame byte-equal to the
+     SHA-256 of OpenCV's decode), then ``Av2FlauConverter`` with FAN3D +
+     depth (seeded, full width) and ``AudioPipeline`` (K1 once), card
+     against host on the raw and registered rows; the fakeB_static builder
+     over phase 8's 16 photos, drawing and cartoon, full width (ms a
+     photo, K2 launches a photo, K2 against its plain version on the
+     static nets' InstanceNorm inputs, card against host PSNR >= 40 dB);
+     ``get_data`` staging a tar of phase 8's tree (layout valid, a
+     traversal member refused) and ``get_puppet_info``; the stand-in
+     frozen nets for 100 + 100 steps, then the GAN convergence run at crop
+     256, ngf 64 with them, 40 steps resumed to 60 (losses finite, the
+     loss log continuous across the resume, K2 and K2b launched); and the
+     card's fp32 FAN gradients against a float64 host step with cuDNN's
+     default and deterministic algorithms and with cuDNN off, with the
+     ReLU inputs on the other side of the kink from float64.
 Then the loader's forkserver and multiprocessing's resource tracker are
 stopped, and no process the run started may still be running.
 
@@ -2925,6 +2944,378 @@ def phase14(dev: torch.device, card: str, main_run: dict) -> dict:
             "launches": launches}
 
 
+# phase 15: the last modules and the training-data tools (postalign,
+# av2flau, fakeB_static, get_data and puppet, the GAN convergence run with
+# its stand-in frozen nets), and the card's fp32 FAN gradients
+POSTALIGN_PT_ATOL = 1e-3        # tracked points, card against host, px
+FAKEB_MIN_PSNR = 40.0           # the static stylizations, card vs host
+VIDEO_FIXTURE = "face_clip_mjpg.avi"   # tests/torch_video_fixtures.py
+FAN_KINK = ("animateportrait_tpu_torch.models.fan", "F", "relu")
+
+
+def drifting_clip(n: int = 8, size: int = 96, seed: int = 1) -> np.ndarray:
+    """``tests/test_postalign.py``'s drifting clip: a smoothed blocky
+    texture shifted by a seeded random walk (bilinear, reflect), RGB
+    float32."""
+    from animateportrait_tpu_torch.pipeline.postalign import shift_reflect
+
+    rng = np.random.default_rng(0)
+    img = np.kron(rng.uniform(0, 255, (size // 8, size // 8)), np.ones((8, 8)))
+    pad = np.pad(img, 2, mode="symmetric")
+    img = sum(pad[i: i + size, j: j + size] for i in range(5)
+              for j in range(5)) / 25.0
+    offs = np.cumsum(np.random.default_rng(seed).uniform(-1.5, 1.5, (n, 2)),
+                     axis=0)
+    base = torch.as_tensor(img, dtype=torch.float32)
+    frames = [shift_reflect(base, torch.as_tensor(o, dtype=torch.float32))
+              .numpy() for o in offs]
+    return np.repeat(np.stack(frames)[..., None], 3, -1)
+
+
+def phase15_postalign(dev: torch.device, frames: np.ndarray) -> dict:
+    from animateportrait_tpu_torch.pipeline.postalign import postalign_video
+
+    clip = np.repeat(frames, 3, -1) if frames.shape[-1] == 1 else frames
+    postalign_video(clip[:8], device=dev)               # warm
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, pts = postalign_video(clip, device=dev, return_points=True)
+    dt = time.perf_counter() - t0
+    launches = read_counters()
+    t0 = time.perf_counter()
+    out_h, pts_h = postalign_video(clip, device="cpu", return_points=True)
+    dt_h = time.perf_counter() - t0
+    pt_err = float(np.abs(pts - pts_h).max())
+    d = np.abs(out.astype(np.int16) - out_h.astype(np.int16))
+    n_off = int(np.count_nonzero(d))
+    t = clip.shape[0] - 2
+    say(f"[15] postalign_video on phase 3's {clip.shape[0]} frames "
+        f"{clip.shape[1:]}: card {t / dt:.2f} frames/s ({dt:.3f} s), host "
+        f"{t / dt_h:.2f} frames/s; card vs host: tracked points max|diff| "
+        f"{pt_err:.3e} px (<= {POSTALIGN_PT_ATOL}), frames max|diff| "
+        f"{int(d.max())} level(s) on {n_off} of {d.size} values (<= 1 on "
+        f"<= 0.1%); kernel launches {launches}")
+    if not (pt_err <= POSTALIGN_PT_ATOL and d.max() <= 1
+            and n_off <= 1e-3 * d.size and out.shape == out_h.shape
+            == (t,) + clip.shape[1:]):
+        raise AssertionError("postalign card vs host")
+    drift_clip = drifting_clip()
+    stab_out = postalign_video(drift_clip, mask_region=(20, 20), device=dev)
+    sl = np.s_[:, 20:-20, 20:-20, :]
+    drift = float(np.mean(np.abs(np.diff(drift_clip[2:][sl], axis=0))))
+    stab = float(np.mean(np.abs(np.diff(stab_out[sl], axis=0))))
+    say(f"[15] postalign on a drifting 96^2 clip (tests/test_postalign.py): "
+        f"mean |frame difference| {drift:.3f} -> {stab:.3f} (< half)")
+    if not stab < 0.5 * drift:
+        raise AssertionError("postalign did not stabilize the drifting clip")
+    return {"frames_per_s": t / dt, "host_frames_per_s": t / dt_h,
+            "pt_err": pt_err, "frames_off": n_off, "launches": launches}
+
+
+def phase15_av2flau(dev: torch.device, tmp: str) -> dict:
+    import hashlib
+
+    from animateportrait_tpu_torch.data.av2flau import (
+        Av2FlauConverter, read_video_frames)
+    from animateportrait_tpu_torch.models import fan3d
+    from animateportrait_tpu_torch.models.autovc import AutoVCGenerator
+    from animateportrait_tpu_torch.pipeline.audio import AudioPipeline
+    from animateportrait_tpu_torch.utils.assets import ASSET_DIR
+    from animateportrait_tpu_torch.utils.smoke import init_random_, make_wav
+    from animateportrait_tpu_torch.utils.video import write_wav
+
+    path = os.path.join(ASSET_DIR, VIDEO_FIXTURE)
+    with open(os.path.join(ASSET_DIR, "video_fixtures.json")) as f:
+        rec = json.load(f)[VIDEO_FIXTURE]
+    t0 = time.perf_counter()
+    frames, fps = read_video_frames(path)
+    ms = (time.perf_counter() - t0) * 1e3
+    bad = [i for i, (a, h) in enumerate(zip(frames, rec["frames"]))
+           if hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+           != h["sha256"]]
+    say(f"[15] read_video_frames({VIDEO_FIXTURE}): {len(frames)} frames "
+        f"{frames.shape[1:]} at {fps} fps in {ms:.1f} ms; frames whose "
+        f"SHA-256 differs from OpenCV's decode: {bad}")
+    if bad or len(frames) != len(rec["frames"]) or fps != rec["fps"]:
+        raise AssertionError("the Motion-JPEG fixture does not decode as "
+                             "OpenCV decodes it")
+
+    # seeded full-width nets, as utils/smoke.py:write_fan_checkpoints
+    torch.manual_seed(0)
+    nets = {"fan": fan3d.FAN3D(), "depth": fan3d.ResNetDepth(),
+            "autovc": init_random_(AutoVCGenerator(),
+                                   torch.Generator().manual_seed(0))}
+    wav = write_wav(os.path.join(tmp, "speech.wav"), make_wav(6.0, seed=3))
+
+    def detector(rgb):
+        h, w = rgb.shape[:2]
+        return np.array([[w * 0.25, h * 0.2, w * 0.75, h * 0.8, 1.0]]), None
+
+    runs = {}
+    for label, where in (("card", dev), ("host", torch.device("cpu"))):
+        fa = fan3d.FaceAlignment3D(copy.deepcopy(nets["fan"]),
+                                   copy.deepcopy(nets["depth"]), where)
+        hook = fan3d.make_fan_landmark_fn(fa, detector)
+        raw = []
+
+        def landmarks(frame, hook=hook, raw=raw):
+            raw.append(hook(frame))
+            return raw[-1]
+
+        conv = Av2FlauConverter(landmarks, AudioPipeline(
+            copy.deepcopy(nets["autovc"]), device=where))
+        zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fl3d, feats, _ = conv.convert(path, wav, out_dir=os.path.join(
+            tmp, f"av2flau_{label}"), register=True)
+        dt = time.perf_counter() - t0
+        runs[label] = {"fl3d": fl3d, "raw": np.stack(raw), "s": dt,
+                       "feats": feats.mel_autovc, "launches": read_counters()}
+    c, h = runs["card"], runs["host"]
+    launches = c["launches"]
+    moved = np.abs(c["raw"][..., :2] - h["raw"][..., :2]).max(-1)   # (T, 68)
+    same = ~(moved > 0).any(-1)
+    reg_err = float(np.abs(c["fl3d"][same] - h["fl3d"][same]).max()) \
+        if same.any() else 0.0
+    z_err = float(np.abs(c["raw"][same, :, 2] - h["raw"][same, :, 2]).max()
+                  ) if same.any() else 0.0
+    au_err = float(np.abs(c["feats"] - h["feats"]).max())
+    say(f"[15] Av2FlauConverter (FAN3D + depth, seeded, full width; "
+        f"AudioPipeline on 6 s): card {c['s']:.2f} s, host {h['s']:.2f} s; "
+        f"{c['fl3d'].shape[0]} rows, frame indices equal: "
+        f"{np.array_equal(c['fl3d'][:, 0], h['fl3d'][:, 0])}; landmarks "
+        f"(x, y) that differ card vs host: {int((moved > 0).sum())} of "
+        f"{moved.size}, by up to {float(moved.max()):.3f} px; on the "
+        f"{int(same.sum())} frames whose (x, y) agree, raw z max|diff| "
+        f"{z_err:.3e} and registered rows max|diff| {reg_err:.3e}; "
+        f"AutoVC features max|diff| {au_err:.3e}; kernel launches on the "
+        f"card {launches}")
+    if not (np.array_equal(c["fl3d"][:, 0], h["fl3d"][:, 0])
+            and np.isfinite(c["fl3d"]).all() and launches["stft_magnitude"]
+            == 1 and reg_err <= 1e-3 and (moved > 0).mean() <= 0.05):
+        raise AssertionError("av2flau card vs host, or K1 not once")
+    return {"launches": launches, "landmarks_moved": int((moved > 0).sum()),
+            "reg_err": reg_err, "card_s": c["s"]}
+
+
+def phase15_fakeb(dev: torch.device, tmp: str, tree: str) -> dict:
+    import shutil
+
+    from animateportrait_tpu_torch.data import fakeb_static as fb
+    from animateportrait_tpu_torch.utils.image import read_image
+
+    out = {}
+    for style in ("drawing", "cartoon"):
+        root = os.path.join(tmp, f"fakeb_{style}")
+        shutil.copytree(os.path.join(tree, "Photo"),
+                        os.path.join(root, "Photo"))
+        photos = fb.photos_of(root)
+        net = fb.build_static_net(style, None, dev)
+        kept, hooks = keep_instance_norm_inputs({style: net})
+        fb.stylize(net, style, read_image(photos[0]))       # warm, keeps
+        for h in hooks:
+            h.remove()
+        k2_err = k2_on_path(kept, "15", by_shape_lines=False)
+        zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        written = fb.make_fakeb_static(root, style=style, device=dev,
+                                       net=net)
+        dt = time.perf_counter() - t0
+        launches = read_counters()
+        # the net's forward alone, CUDA events, median of 5
+        size = fb.IN_SIZE[style]
+        x = torch.zeros((1, 3, size, size), device=dev)
+        args = (x, torch.zeros((1, 3, 128, 128), device=dev)) \
+            if style == "drawing" else (x,)
+        net_ms = []
+        with torch.inference_mode():
+            for _ in range(6):
+                a, b = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+                a.record()
+                net(*args)
+                b.record()
+                torch.cuda.synchronize()
+                net_ms.append(a.elapsed_time(b))
+        host = fb.build_static_net(style, None, "cpu")
+        psnrs = [psnr(read_image(p)[:, :, ::-1], fb.stylize(
+            host, style, read_image(src)), 255.0)
+            for p, src in list(zip(written, photos))[:2]]
+        n = len(photos)
+        out[style] = {"ms_per_photo": dt / n * 1e3,
+                      "net_ms": float(np.median(net_ms[1:])),
+                      "k2_per_photo": launches["instance_norm"] / n,
+                      "launches": launches, "k2_path_err": k2_err,
+                      "psnr": min(psnrs)}
+        say(f"[15] fakeB_static {style} over phase 8's {n} photos (512^2 "
+            f"PNG, full width, seeded): {dt / n * 1e3:.1f} ms a photo with "
+            f"the host's read, resizes and PNG write (the net's forward "
+            f"{out[style]['net_ms']:.2f} ms, CUDA events, median of 5); K2 "
+            f"launches a photo {launches['instance_norm'] / n:.1f} "
+            f"({launches}); K2 against its plain version on the net's "
+            f"{len(kept)} InstanceNorm inputs max|diff| {k2_err:.3e}; card "
+            f"vs host on 2 photos: PSNR {min(psnrs):.2f} dB (>= "
+            f"{FAKEB_MIN_PSNR})")
+        if not (min(psnrs) >= FAKEB_MIN_PSNR and launches["instance_norm"]
+                > 0 and len(written) == n):
+            raise AssertionError(f"fakeB_static {style}: {out[style]}")
+        del net, host
+    return out
+
+
+def phase15_get_data(tmp: str, tree: str) -> None:
+    import shutil
+    import tarfile
+
+    from animateportrait_tpu_torch.utils.get_data import (
+        GetData, validate_umlvd_layout)
+    from animateportrait_tpu_torch.utils.image import read_image
+    from animateportrait_tpu_torch.utils.puppet import get_puppet_info
+
+    arch = os.path.join(tmp, "archives")
+    os.makedirs(arch)
+    t0 = time.perf_counter()
+    with tarfile.open(os.path.join(arch, "umlvd.tar"), "w") as tf:
+        tf.add(tree, arcname="umlvd")
+    staged = GetData(arch, verbose=False).get(
+        "umlvd.tar", save_path=os.path.join(tmp, "datasets"))
+    missing = validate_umlvd_layout(staged)
+    evil = os.path.join(tmp, "evil.txt")
+    with open(evil, "w") as f:
+        f.write("x")
+    with tarfile.open(os.path.join(arch, "evil.tar"), "w") as tf:
+        tf.add(evil, arcname="../evil_escape.txt")
+    try:
+        GetData(arch, verbose=False).get(
+            "evil.tar", save_path=os.path.join(tmp, "out"))
+        refused = False
+    except Exception:         # refused, as tests/test_get_data.py asserts
+        refused = True
+    escaped = os.path.exists(os.path.join(tmp, "evil_escape.txt"))
+    photo = sorted(os.listdir(os.path.join(staged, "Photo")))[0]
+    shutil.copy(os.path.join(staged, "Photo", photo),
+                os.path.join(tmp, "mypuppet.png"))
+    np.savetxt(os.path.join(tmp, "mypuppet_scale_shift.txt"),
+               [-0.01, -10.0, -20.0])
+    named = get_puppet_info("cat", tmp)
+    generic = get_puppet_info("mypuppet", tmp)
+    say(f"[15] get_data: staged {os.path.basename(staged)} from a tar of "
+        f"phase 8's tree in {time.perf_counter() - t0:.2f} s, missing "
+        f"layout dirs {missing}; a '../' member refused: {refused}, "
+        f"written outside: {escaped}; puppet: named bound "
+        f"{named[0].shape}, generic bound {generic[0].shape} "
+        f"{generic[0][0, :6].tolist()}")
+    # the reference's "w" is the photo's height - 1 (utils/puppet.py)
+    height = read_image(os.path.join(tmp, "mypuppet.png")).shape[0]
+    if missing or not refused or escaped or generic[0].shape != (1, 24) \
+            or generic[0][0, 3] != (height - 1) // 4:
+        raise AssertionError("get_data / puppet")
+
+
+def phase15_convergence(dev: torch.device, tmp: str) -> dict:
+    from animateportrait_tpu_torch.train import gan_convergence as gc
+    from animateportrait_tpu_torch.train import standin_frozen as sf
+
+    frozen = os.path.join(tmp, "standin")
+    t0 = time.perf_counter()
+    summary = sf.main([frozen, "--steps", "100", "--sphere_steps", "100",
+                       "--n_faces", "400", "--ids", "12", "--per_id", "20",
+                       "--device", str(dev)])
+    t_sf = time.perf_counter() - t0
+    say(f"[15] standin_frozen, 100 + 100 steps over 400 faces and 12 x 20 "
+        f"identities, in {t_sf:.1f} s: held-out landmark error "
+        f"{summary['mfn_val_px_err']:.2f} px (NME "
+        f"{summary['mfn_nme_pct']:.2f}%), identity accuracy "
+        f"{summary['sphere_val_acc'] * 100:.1f}%")
+    work = os.path.join(tmp, "gan")
+    gc.build_dataset(os.path.join(work, "drawing"))
+    ckpt = os.path.join(work, "ckpt")
+    zero_counters()
+    t0 = time.perf_counter()
+    gc.run_training(os.path.join(work, "drawing"), ckpt, 256, 40, 60, 50, 64,
+                    print_freq=1, frozen_dir=frozen, device=dev,
+                    in_process=True)
+    dt = time.perf_counter() - t0
+    launches = read_counters()
+    rows = gc.read_metrics(ckpt)
+    keys = [k for k in rows[0] if k not in ("epoch", "iters")]
+    finite = all(np.isfinite([r[k] for k in keys]).all() for r in rows)
+    first = {k: float(np.mean([r[k] for r in rows[:8]])) for k in keys}
+    last = {k: float(np.mean([r[k] for r in rows[-8:]])) for k in keys}
+    say(f"[15] gan_convergence at crop 256, ngf 64, batch 1 with the "
+        f"stand-ins: 40 steps, resumed to 60, in {dt:.1f} s (both "
+        f"train_cli.main calls, their loaders and saves); loss log iters "
+        f"{rows[0]['iters']}..{rows[-1]['iters']} ({len(rows)} rows), "
+        f"finite: {finite}; first/last 8 means: " + ", ".join(
+            f"{k} {first[k]:.4f} -> {last[k]:.4f}"
+            for k in ("warp_B", "geom_B", "iden_B", "D_A", "G_A"))
+        + f"; kernel launches {launches}")
+    if not (finite and [r["iters"] for r in rows] == list(range(1, 61))
+            and launches["instance_norm"] > 0
+            and launches["instance_norm_backward"] > 0):
+        raise AssertionError("the GAN convergence run")
+    return {"launches": launches, "seconds": dt, "standin": summary,
+            "first": first, "last": last}
+
+
+def phase15_fan_gradients(dev: torch.device) -> dict:
+    """The small FAN step's fp32 gradients on the card against the host's
+    float64 step (ROADMAP Queue 3): with cuDNN's default algorithms, its
+    deterministic ones, and cuDNN off; the host's fp32 step beside them;
+    and the ReLU inputs on the other side of the kink from float64."""
+    from animateportrait_tpu_torch.utils.smoke import (
+        cancelled_biases, grad_parity, trainer_smoke)
+
+    host64 = trainer_smoke("fan", "cpu", small=True, dtype=torch.float64)
+    host64.step()
+    gd = host64.grads()
+    noise = {f"{n}.{b}" for n, net in host64.nets.items()
+             for b in cancelled_biases(net)}
+    out = {}
+    KINKS["fan"] = FAN_KINK
+    for label, where, cudnn, det in (
+            ("host", "cpu", True, False),
+            ("card, cuDNN default", dev, True, False),
+            ("card, cuDNN deterministic", dev, True, True),
+            ("card, cuDNN off", dev, False, False)):
+        torch.backends.cudnn.enabled = cudnn
+        torch.backends.cudnn.deterministic = det
+        try:
+            run = trainer_smoke("fan", where, small=True)
+            run.step()
+            errs = grad_parity(run.grads(), gd, None, noise)
+            flips = kink_flips("fan", where, cudnn=cudnn)
+        finally:
+            torch.backends.cudnn.enabled = True
+            torch.backends.cudnn.deterministic = False
+        k = max(errs, key=errs.get)
+        out[label] = {"worst": errs[k], "leaf": k,
+                      "over_1e-3": sum(v > 1e-3 for v in errs.values()),
+                      "leaves": len(errs), "flips": flips}
+        say(f"[15] FAN small step, fp32 gradients against the host's "
+            f"float64 step, {label}: worst leaf {k} at {errs[k]:.3e} of its "
+            f"scale, {out[label]['over_1e-3']} of {len(errs)} leaves above "
+            f"1e-3; ReLU inputs on the other side of the kink from float64: "
+            f"{flips[0]} (the farthest from it {flips[1]:.2e} of its "
+            f"tensor's largest |value|)")
+    del KINKS["fan"]
+    return out
+
+
+def phase15(dev: torch.device, main_run: dict, tmp: str, tree: str) -> dict:
+    t0 = time.perf_counter()
+    res = {"postalign": phase15_postalign(dev, main_run["frames"]),
+           "av2flau": phase15_av2flau(dev, tmp),
+           "fakeb": phase15_fakeb(dev, tmp, tree)}
+    phase15_get_data(tmp, tree)
+    res["convergence"] = phase15_convergence(dev, tmp)
+    res["fan_gradients"] = phase15_fan_gradients(dev)
+    say(f"[15] phase 15 in {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def child_processes() -> list[str]:
     """The processes whose parent is this one, as "pid command"."""
     out = []
@@ -2980,13 +3371,17 @@ def main() -> None:
         render_bf16 = phase9(dev, main_run)
         train_bf16 = phase10(dev, trainer)
         user_photo = phase11(dev, main_run, trainer)
-    surface = phase12(dev, main_run)
-    trainers = phase13(dev, card)
-    zoo = phase14(dev, card, main_run)
+        surface = phase12(dev, main_run)
+        trainers = phase13(dev, card)
+        zoo = phase14(dev, card, main_run)
+        p15 = os.path.join(tmp, "p15")
+        os.makedirs(p15)
+        tools = phase15(dev, main_run, p15, os.path.join(tmp, "data"))
     rec["instance_norm"]["max_abs_err"] = max(
         rec["instance_norm"]["max_abs_err"],
         surface["test_cli"]["k2_path_err"],
-        surface["p2c_full"]["k2_path_err"], zoo["gan"]["k2_path_err"])
+        surface["p2c_full"]["k2_path_err"], zoo["gan"]["k2_path_err"],
+        *(r["k2_path_err"] for r in tools["fakeb"].values()))
     k2b = rec.setdefault("instance_norm_backward", {})
     k2b["max_abs_err"] = max(k2b.get("max_abs_err", 0.0),
                              zoo["gan"]["k2b_worst"]["k2b_abs"])
@@ -3063,7 +3458,12 @@ def main() -> None:
            for name, run in zoo["gan"]["nets"].items()},
         **{f"lpips_{name}": run["launches"]
            for name, run in zoo["lpips"].items()},
-        "train_convergence": zoo["launches"]}
+        "train_convergence": zoo["launches"],
+        "postalign": tools["postalign"]["launches"],
+        "av2flau": tools["av2flau"]["launches"],
+        **{f"fakeb_static_{style}": run["launches"]
+           for style, run in tools["fakeb"].items()},
+        "gan_convergence": tools["convergence"]["launches"]}
     # "launches": K1's, K2's and K2-bf16's on the user's entry point (the
     # cartoon CLI runs of phases 5 and 9), K2b's and K2b-bf16's in the timed
     # training steps (phases 7 and 10); "launches_by_path" has every path's

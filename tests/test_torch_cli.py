@@ -354,6 +354,37 @@ def test_cli_main_writes_video_fls_and_dumps(inputs):
     np.testing.assert_array_equal(avi["frames"], out.frames)
 
 
+
+def test_cli_frames_depend_on_the_cpu_thread_count_only(inputs):
+    """The cartoon pipeline's frames on the CPU at two torch thread
+    counts: within one level on at most 0.1% of the values (torch's CPU
+    kernels split their sums by thread; these frames measured 766 of
+    3 932 160 values one level apart between 2 and 4 threads on an
+    8-core x86 host). At one thread count two calls
+    are bit-equal (``test_cli_main_writes_video_fls_and_dumps``), so a
+    one-level difference between two calls in one process needs another
+    thread count in effect."""
+    from animateportrait_tpu_torch.pipeline.audio import load_wav
+
+    d, png, wav, ckpt = inputs
+    argv = ["--jpg", png, "--audio", wav, "--exp", "formal/cartoon",
+            "--ckpt_dir", ckpt, "--output", str(d / "out_threads"), *TINY]
+    pipe = cli.build_pipeline(cli.build_argparser().parse_args(argv))
+    threads = torch.get_num_threads()
+
+    def frames(n):
+        torch.set_num_threads(n)
+        with torch.inference_mode():
+            return pipe(read_image(png), load_wav(wav),
+                        rng=np.random.default_rng(0)).frames.astype(int)
+
+    try:
+        a, b = frames(2), frames(4)
+    finally:
+        torch.set_num_threads(threads)
+    diff = np.abs(a - b)
+    assert diff.max() <= 1 and np.count_nonzero(diff) <= 1e-3 * diff.size
+
 def test_cli_drawing_output_name_and_gray_frames(inputs):
     d, png, wav, ckpt = inputs
     res = cli.main(["--jpg", png, "--audio", wav, "--exp", "formal/drawing",

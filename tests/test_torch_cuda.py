@@ -9,8 +9,8 @@ single calls, and one step of each Module1-side trainer (content,
 speaker-aware, flow regression, image translation, pose transfer, FAN,
 face_of_art) on the card against the host and a float64 host run, and
 their convergence runs with no kernel launch; a few ``define_g`` /
-``define_d`` nets (K2 and K2b on the card) and LPIPS card against host.
-They skip without a CUDA device.
+``define_d`` nets (K2 and K2b on the card) and LPIPS card against host;
+``postalign_video`` card against host. They skip without a CUDA device.
 
 This file imports neither JAX nor the JAX package, so it runs where JAX is
 not installed; the repo's conftest imports JAX, so on such a machine run
@@ -971,3 +971,34 @@ def test_lpips_card_vs_host(cuda_device, pnet):
         got = net.to(cuda_device)(a.to(cuda_device), b.to(cuda_device)).cpu()
     assert maxdiff(got, want) <= 1e-4 * float(want.abs().max())
     assert instnorm.instance_norm.launches == before
+
+
+def test_postalign_card_vs_host(cuda_device):
+    """``postalign_video`` on the card (one frame's LK as a CUDA graph)
+    against the host on a drifting 64-frame clip: tracked points within
+    1e-3 px, uint8 frames within one level on at most 0.1% of the values,
+    and the clip stabilized; no kernel of the port launched."""
+    from animateportrait_tpu_torch.pipeline.postalign import (
+        postalign_video, shift_reflect)
+
+    rng = np.random.default_rng(0)
+    base = torch.as_tensor(np.kron(rng.uniform(0, 255, (16, 16)),
+                                   np.ones((8, 8))), dtype=torch.float32)
+    offs = np.cumsum(rng.uniform(-1.5, 1.5, (64, 2)), axis=0)
+    clip = np.stack([shift_reflect(base, torch.as_tensor(
+        o, dtype=torch.float32)).numpy() for o in offs])
+    clip = np.repeat(np.clip(np.round(clip), 0, 255).astype(np.uint8)[
+        ..., None], 3, -1)
+    before = instnorm.instance_norm.launches
+    out, pts = postalign_video(clip, mask_region=(20, 20),
+                               device=cuda_device, return_points=True)
+    ref, ref_pts = postalign_video(clip, mask_region=(20, 20), device="cpu",
+                                   return_points=True)
+    assert instnorm.instance_norm.launches == before
+    assert np.abs(pts - ref_pts).max() <= 1e-3
+    d = np.abs(out.astype(np.int16) - ref.astype(np.int16))
+    assert d.max() <= 1 and np.count_nonzero(d) <= 1e-3 * d.size
+    sl = np.s_[:, 20:-20, 20:-20, :]
+    drift = np.mean(np.abs(np.diff(clip[2:][sl].astype(float), axis=0)))
+    stab = np.mean(np.abs(np.diff(out[sl].astype(float), axis=0)))
+    assert stab < 0.5 * drift

@@ -258,13 +258,16 @@ for m in ("train.module1", "train.flow_regression", "train.image_translation",
           "data.audio2landmark", "data.image_translation", "utils.metrics",
           "utils.vis", "models.fan", "models.face_of_art", "models.gan_extra",
           "models.lpips", "train.fan", "train.face_of_art",
-          "data.face_of_art", "io.menpo_pickle"):
+          "data.face_of_art", "io.menpo_pickle", "pipeline.postalign",
+          "data.av2flau", "utils.puppet", "utils.get_data",
+          "data.fakeb_static", "train.gan_convergence",
+          "train.standin_frozen", "io.to_flax"):
     assert "animateportrait_tpu_torch." + m in mods, m
 from animateportrait_tpu_torch.utils.smoke import trainer_smoke
 from animateportrait_tpu_torch.train.convergence import run_all
 from animateportrait_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg
 from animateportrait_tpu_torch.utils.video import (
-    read_first_frame, read_pcm_track)
+    read_first_frame, read_pcm_track, read_video_frames)
 from animateportrait_tpu_torch.utils.image import draw_landmarks
 print(len(mods))
 """
@@ -274,7 +277,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 71
+    assert int(out.stdout.strip()) >= 79
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
