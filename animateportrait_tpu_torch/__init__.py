@@ -11,5 +11,6 @@ reads (canonical face, AutoVC normalization, target speaker embedding) in
 Subpackages mirror the JAX package: ``ops`` (numerics, with the kernel
 wrappers ``ops.stft`` and ``ops.instnorm``), ``models``, ``pipeline``,
 ``io`` (JAX-variables -> state-dict converters) and ``utils``; ``csrc``
-holds the CUDA sources and ``kernels`` builds and loads them.
+holds the CUDA sources and ``kernels`` builds and loads them;
+``parallel`` and ``utils.distributed`` run the multi-card paths.
 """

@@ -41,8 +41,9 @@ the soundtrack; another container, codec or track is refused by name.
 ``--warp_mode tps`` builds each frame batch's motion grid with the
 on-device thin-plate spline instead of the reference's griddata-linear
 grid (``pipeline/render.py``). ``--render_bf16`` runs the renderer's
-per-frame nets in bf16, through K2 in bf16 on the card. Not ported:
-``--render_dp`` (one card); argparse rejects it.
+per-frame nets in bf16, through K2 in bf16 on the card. ``--render_dp``
+replicates the per-frame nets to every visible card and splits each
+frame batch over them (one card: the path without the flag).
 
 ``--device`` (default ``cuda``) is where every net runs; without a CUDA
 device, ``cuda`` is an error, never a silent fall back to the CPU.
@@ -101,6 +102,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--gender", default="F", choices=["M", "F"])
     p.add_argument("--frame_batch", type=int, default=32,
                    help="frames per renderer batch")
+    p.add_argument("--render_dp", action="store_true",
+                   help="shard each frame batch across all visible "
+                        "devices (multi-chip data-parallel rendering)")
     p.add_argument("--render_bf16", action="store_true",
                    help="run the per-frame nets (trident generator + "
                         "intrinsic-flow Unet) in bfloat16; the "
@@ -246,6 +250,7 @@ def build_pipeline(args):
                         frame_batch=args.frame_batch, output_uint8=True,
                         device=device, style=style, cartoon_g=cartoon_g,
                         use_bf16=args.render_bf16,
+                        data_parallel=args.render_dp,
                         motion_mode=args.warp_mode),
         landmark_fn=landmark_fn)
 

@@ -758,6 +758,15 @@ def fan_state_dict(variables: Tree, num_modules: int = 4
 # models/gan_extra.py ----------------------------------------------------
 
 
+def resnet_block_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
+    """One ``models/gan.py:ResnetBlock`` (its two reflect-padded convs)."""
+    p = variables["params"]
+    sd = {}
+    _conv2d(sd, "conv_block.1", p["conv0"])
+    _conv2d(sd, "conv_block.5", p["conv1"])
+    return sd
+
+
 def resnet_g_state_dict(variables: Tree, n_blocks: int = 9
                         ) -> dict[str, torch.Tensor]:
     """Inverse of ``load_resnet_g_params``: the reference's ``model``

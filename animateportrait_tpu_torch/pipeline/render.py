@@ -34,6 +34,14 @@ inputs to ``encode_static`` (the matted photo and the source dots), to
 ``decode`` (the target dots) and to FlowUnet; the motion grids, the flows
 and their masks stay fp32, and the generator's output is taken back to
 fp32 before the blend. MODNet and the static nets stay fp32.
+
+``data_parallel`` (the CLI's ``--render_dp``) is the JAX renderer's
+frame sharding: a replica of the per-frame nets (the generator and
+FlowUnet) on every visible card (``devices`` names them instead, repeats
+allowed), ``frame_batch`` rounded up to a multiple of the replicas, the
+per-photo work once and its outputs copied to each replica, each batch's
+frames split in order over the replicas and their frames gathered in
+order. One replica is the single-card path.
 """
 from __future__ import annotations
 
@@ -81,6 +89,13 @@ def landmark_dot_images(lm68: torch.Tensor, size: int) -> torch.Tensor:
     return hit[:, None].float() * 2.0 - 1.0
 
 
+def _indexed(device: torch.device) -> torch.device:
+    """``cuda`` as the card it means now (``cuda:<current>``)."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 class Module2Renderer:
     """Photo + per-frame target landmarks -> stylized frames.
 
@@ -100,7 +115,8 @@ class Module2Renderer:
                  style: str = "drawing",
                  cartoon_g: Photo2CartoonGenerator | None = None,
                  use_bf16: bool = False, motion_mode: str = "linear",
-                 crop_size: int = CROP_SIZE):
+                 crop_size: int = CROP_SIZE, data_parallel: bool = False,
+                 devices: list | None = None):
         static = {"drawing": ("static_g", static_g),
                   "cartoon": ("cartoon_g", cartoon_g)}
         if style not in static:
@@ -127,6 +143,24 @@ class Module2Renderer:
             self.g = cast_parameters(copy.deepcopy(self.g), self.dtype)
             self.flowunet = cast_parameters(copy.deepcopy(self.flowunet),
                                             self.dtype)
+        # (generator, FlowUnet, device) of each replica; the first on
+        # ``device`` holds the nets above
+        self.replicas = [(self.g, self.flowunet, self.device)]
+        if data_parallel:
+            home = _indexed(self.device)
+            if devices is None:
+                visible = ([torch.device("cuda", i) for i in
+                            range(torch.cuda.device_count())]
+                           if home.type == "cuda" else [home])
+                devices = [home] + [d for d in visible if d != home]
+            devices = [_indexed(resolve_device(d)) for d in devices]
+            self.replicas = [
+                (self.g, self.flowunet, home) if i == 0 and d == home
+                else (copy.deepcopy(self.g).to(d),
+                      copy.deepcopy(self.flowunet).to(d), d)
+                for i, d in enumerate(devices)]
+            n = len(self.replicas)
+            self.frame_batch = -(-frame_batch // n) * n
 
     def prepare(self, photo: torch.Tensor):
         """photo (1, 3, cs, cs) in [-1, 1] -> (matted photo, mask,
@@ -159,12 +193,14 @@ class Module2Renderer:
                                     dots.to(self.dtype))
 
     def frames(self, g_cache, mask, fake_static, a_lm68, tb_lm68s,
-               motions=None, simplices=None, return_all: bool = False):
-        """One frame batch. a_lm68 (1, 68, 2); tb_lm68s (B, 68, 2); the
-        ``motions`` (B, cs, cs, 2), or the ``simplices`` of each frame
-        for the linear grid, or neither for the TPS grid. ``return_all``:
-        a dict of the batch's intermediates (NCHW, fp32) in place of the
-        frames."""
+               motions=None, simplices=None, return_all: bool = False,
+               replica: int = 0):
+        """One frame batch, on ``replica``'s nets and device (its inputs
+        there). a_lm68 (1, 68, 2); tb_lm68s (B, 68, 2); the ``motions``
+        (B, cs, cs, 2), or the ``simplices`` of each frame for the linear
+        grid, or neither for the TPS grid. ``return_all``: a dict of the
+        batch's intermediates (NCHW, fp32) in place of the frames."""
+        g, flowunet, _ = self.replicas[replica]
         B = tb_lm68s.shape[0]
         cs = self.crop_size
         if motions is None and simplices is None:
@@ -176,7 +212,7 @@ class Module2Renderer:
         tb_lm_imgs = landmark_dot_images(tb_lm68s, cs)
         j1 = kp_to_map_binary((224, 224), a_lm68 * (7.0 / 8.0))
         j2 = kp_to_map_binary((224, 224), tb_lm68s * (7.0 / 8.0))
-        flow_out, vis_out, _, _ = self.flowunet(
+        flow_out, vis_out, _, _ = flowunet(
             torch.cat([j1.expand(B, -1, -1, -1), j2], dim=1).to(self.dtype))
         m = (torch.argmax(vis_out, dim=1, keepdim=True) < 2).float()
         # in bf16, flow_out * 20.0 is rounded to bf16 and the mask makes it
@@ -185,8 +221,8 @@ class Module2Renderer:
                               mode="bilinear", align_corners=True)
         fmasks = F.interpolate(m, size=(cs, cs), mode="bilinear",
                                align_corners=True)
-        fake_b = self.g.decode(g_cache, tb_lm_imgs.to(self.dtype), motions,
-                               flows, fmasks).float()
+        fake_b = g.decode(g_cache, tb_lm_imgs.to(self.dtype), motions,
+                          flows, fmasks).float()
         mask1 = F.grid_sample(mask.expand(B, -1, -1, -1), motions,
                               align_corners=True)
         out = ((fake_b / 2 + 0.5) * mask1
@@ -209,9 +245,11 @@ class Module2Renderer:
                        tb_lm68s: np.ndarray, motions: np.ndarray | None,
                        return_all: bool = False):
         """The per-photo work, once (the matte, the static stylization,
-        ``encode``), then ``frames`` per ``frame_batch`` of the frames,
-        padded to whole batches by repeating the last: -> (photo_fore,
-        mask, a generator of each batch's ``frames`` output)."""
+        ``encode``), its outputs copied to each replica, then ``frames``
+        per ``frame_batch`` of the frames, padded to whole batches by
+        repeating the last, each batch split in order over the replicas:
+        -> (photo_fore, mask, a generator of each batch's list of
+        ``frames`` outputs, one per replica, in frame order)."""
         dev = self.device
         cs = self.crop_size
         photo_t = torch.as_tensor(photo, dtype=torch.float32,
@@ -219,7 +257,11 @@ class Module2Renderer:
         a68 = torch.as_tensor(a_lm68, dtype=torch.float32, device=dev)[None]
         photo_fore, mask, fake_static = self.prepare(photo_t)
         g_cache = self.encode(photo_fore, a68)
+        per_photo = [({k: v.to(d) for k, v in g_cache.items()}, mask.to(d),
+                      fake_static.to(d), a68.to(d))
+                     for _, _, d in self.replicas]
         fb = self.frame_batch
+        part = fb // len(self.replicas)
         pad = (-tb_lm68s.shape[0]) % fb
         tb68_p = np.concatenate([tb_lm68s, np.repeat(tb_lm68s[-1:], pad, 0)])
         mo_p = tris_p = None
@@ -230,14 +272,19 @@ class Module2Renderer:
 
         def batches():
             for j in range(0, tb68_p.shape[0], fb):
-                lm = torch.as_tensor(tb68_p[j: j + fb], dtype=torch.float32,
-                                     device=dev)
-                mo = None if mo_p is None else torch.as_tensor(
-                    mo_p[j: j + fb], dtype=torch.float32, device=dev)
-                tri = None if tris_p is None else torch.as_tensor(
-                    tris_p[j: j + fb], device=dev)
-                yield self.frames(g_cache, mask, fake_static, a68, lm, mo,
-                                  tri, return_all=return_all)
+                outs = []
+                for r, (_, _, d) in enumerate(self.replicas):
+                    a, b = j + r * part, j + (r + 1) * part
+                    lm = torch.as_tensor(tb68_p[a:b], dtype=torch.float32,
+                                         device=d)
+                    mo = None if mo_p is None else torch.as_tensor(
+                        mo_p[a:b], dtype=torch.float32, device=d)
+                    tri = None if tris_p is None else torch.as_tensor(
+                        tris_p[a:b], device=d)
+                    outs.append(self.frames(*per_photo[r], lm, mo, tri,
+                                            return_all=return_all,
+                                            replica=r))
+                yield outs
 
         return photo_fore, mask, batches()
 
@@ -251,7 +298,8 @@ class Module2Renderer:
         motions: optional (T, cs, cs, 2) grids that replace the
         renderer's own (the reference's griddata grids)."""
         _, _, batches = self._photo_batches(photo, a_lm68, tb_lm68s, motions)
-        outs = [out.permute(0, 2, 3, 1).cpu().numpy() for out in batches]
+        outs = [out.permute(0, 2, 3, 1).cpu().numpy()
+                for parts in batches for out in parts]
         return np.concatenate(outs, axis=0)[:tb_lm68s.shape[0]]
 
     def render_visuals(self, photo: np.ndarray, a_lm68: np.ndarray,
@@ -273,7 +321,7 @@ class Module2Renderer:
             photo, a_lm68, np.asarray(tb_lm68s, np.float32), motions,
             return_all=True)
         parts = [{k: v.float().permute(0, 2, 3, 1).cpu().numpy()
-                  for k, v in vis.items()} for vis in batches]
+                  for k, v in vis.items()} for outs in batches for vis in outs]
         vis = {k: np.concatenate([p[k] for p in parts])[:T] for k in parts[0]}
         for k, v in (("real_A", photo_fore), ("fg_mask", mask * 2 - 1)):
             vis[k] = np.repeat(v.float().permute(0, 2, 3, 1).cpu().numpy(),

@@ -44,6 +44,7 @@ import math
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.distributed as dist
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
@@ -57,6 +58,7 @@ from animateportrait_tpu_torch.models.perception import (
 from animateportrait_tpu_torch.ops.tps import (
     linear_motion_grid, motion_grid_from_landmarks, sparse_image_warp)
 from animateportrait_tpu_torch.ops.warp import sample_bicubic
+from animateportrait_tpu_torch.utils import distributed as ddp
 from animateportrait_tpu_torch.utils.assets import face_lmark_lookup
 from animateportrait_tpu_torch.utils.device import (
     DEFAULT_DEVICE, resolve_device)
@@ -388,6 +390,32 @@ def init_state(cfg: Module2Config, gen: torch.Generator,
         pool_count=0, compute_dtype=cfg.compute_dtype)
 
 
+def abs_l1(x: torch.Tensor) -> torch.Tensor:
+    """|x| whose derivative at an exact tie (x == 0) is 1, as ``jnp.abs``'s
+    is (torch's ``abs`` takes 0 there): an L1 loss's gradient then matches
+    the JAX package's on pixels where the two images agree exactly."""
+    return torch.where(x >= 0, x, -x)
+
+
+def broadcast_state(state: TrainState, group=None) -> None:
+    """Give every rank of ``group`` rank 0's state, in place: G and the
+    Ds, their Adam moments, the pool, the step and the pool count. Every
+    rank's state must have the same structure (Adam's moments exist on all
+    ranks or on none). Adam's per-parameter step counts (host scalars,
+    which NCCL does not carry) are left as they are: every rank has taken
+    or restored the same number of updates."""
+    ddp.broadcast_module(state.g, group)
+    ddp.broadcast_module(state.d, group)
+    for opt in (state.g_opt, state.d_opt):
+        ddp.broadcast_tensors([v for st in opt.state.values()
+                               for k, v in st.items() if k != "step"],
+                              group)
+    ddp.broadcast_tensors([state.pool], group)
+    counts = [state.step, state.pool_count]
+    dist.broadcast_object_list(counts, src=0, group=group)
+    state.step, state.pool_count = counts
+
+
 def make_example_batch(cfg: Module2Config, batch_size: int = 1,
                        size: int | None = None,
                        device: torch.device | str = DEFAULT_DEVICE) -> dict:
@@ -669,7 +697,7 @@ class Module2TrainStep:
                 + torch.mean((fake_B2 + 1.0) * m2)) * cfg.lambda_geom_lipline
             loss = loss + l_lip
         if cfg.warp_loss:
-            losses["warp_B"] = l_warp = torch.mean(torch.abs(
+            losses["warp_B"] = l_warp = torch.mean(abs_l1(
                 fake_B - shared["fakeB_static_warp"])) * cfg.lambda_warp
             loss = loss + l_warp
 
@@ -678,7 +706,7 @@ class Module2TrainStep:
         with torch.no_grad():
             fb_warp = sparse_image_warp(fake_B.detach(), tb.flip(-1),
                                         tb2.flip(-1))[0]
-        losses["warp_inter1"] = l_inter = torch.mean(torch.abs(
+        losses["warp_inter1"] = l_inter = torch.mean(abs_l1(
             fake_B2 - fb_warp)) * cfg.lambda_warp_inter
         loss = loss + l_inter
 
@@ -738,32 +766,58 @@ class Module2TrainStep:
         return loss, losses
 
     def grads(self, state: TrainState, batch: dict, frozen: FrozenNets,
-              gen: torch.Generator) -> Grads:
+              gen: torch.Generator, group=None) -> Grads:
         """The G-then-D gradient pass of one step; ``state`` is not
         modified. The G gradients are taken with respect to G's parameters
         only (the discriminators' weight gradients are never formed in the
         G pass); the D loss sees the fakes detached. ``gen`` draws the two
-        pool queries."""
+        pool queries.
+
+        With a process ``group``, ``batch`` is this rank's contiguous slice
+        of the global batch (equal slices, in rank order) and the step is
+        the JAX package's data-parallel one: the detached fakes of every
+        rank are gathered, the pool is queried with the global batch (every
+        rank draws the same, from the same step-seeded ``gen``, so the pool
+        stays replicated), each rank's D loss takes its slice of the pooled
+        images, and the gradients and losses are averaged over the ranks
+        (the mean of equal slices' means is the global mean)."""
         shared = self.forward_shared(batch, frozen)
         g_names, g_params = zip(*state.g.named_parameters())
         g_loss, fake_B, fake_B2, g_losses = self.g_loss(
             state.g, state.d, batch, shared, frozen)
         g_grads = torch.autograd.grad(g_loss, g_params)
         fake_B, fake_B2 = fake_B.detach(), fake_B2.detach()
+        if group is None:
+            queried = fake_B, fake_B2
+        else:
+            queried = (ddp.all_gather_batch(fake_B, group),
+                       ddp.all_gather_batch(fake_B2, group))
         pool, count, pooled_B = pool_query(state.pool, state.pool_count,
-                                           fake_B, gen)
-        pool, count, pooled_B2 = pool_query(pool, count, fake_B2, gen)
+                                           queried[0], gen)
+        pool, count, pooled_B2 = pool_query(pool, count, queried[1], gen)
+        if group is not None:
+            rank, n = dist.get_rank(group), fake_B.shape[0]
+            pooled_B = pooled_B[rank * n:(rank + 1) * n]
+            pooled_B2 = pooled_B2[rank * n:(rank + 1) * n]
         d_loss, d_losses = self.d_loss(state.d, batch, fake_B, fake_B2,
                                        pooled_B, pooled_B2)
         d_names, d_params = zip(*state.d.named_parameters())
         d_grads = torch.autograd.grad(d_loss, d_params, allow_unused=True)
         d_grads = [torch.zeros_like(p) if gr is None else gr
                    for p, gr in zip(d_params, d_grads)]
+        metrics = {k: v.detach() for k, v in {**g_losses, **d_losses}.items()}
+        if group is not None:
+            # one flattened buffer per net, and one for the losses
+            g_grads = list(g_grads)
+            ddp.all_reduce_mean_(g_grads, group)
+            ddp.all_reduce_mean_(d_grads, group)
+            names = list(metrics)
+            stacked = [torch.stack([metrics[k].float() for k in names])]
+            ddp.all_reduce_mean_(stacked, group)
+            metrics = dict(zip(names, stacked[0].unbind()))
         return Grads(g=dict(zip(g_names, g_grads)),
                      d=dict(zip(d_names, d_grads)), pool=pool,
-                     pool_count=count,
-                     metrics={k: v.detach() for k, v in
-                              {**g_losses, **d_losses}.items()})
+                     pool_count=count, metrics=metrics)
 
     @torch.no_grad()
     def visuals(self, state: TrainState, batch: dict, frozen: FrozenNets
@@ -790,11 +844,18 @@ class Module2TrainStep:
         return visuals, aux
 
     def step(self, state: TrainState, batch: dict, frozen: FrozenNets,
-             gen: torch.Generator) -> dict[str, torch.Tensor]:
+             gen: torch.Generator, group=None) -> dict[str, torch.Tensor]:
         """One training step, in place: both gradients from the old state,
         then both Adam updates at ``lr_at(cfg, state.step)``. Returns the
-        losses."""
-        grads = self.grads(state, batch, frozen, gen)
+        losses. With a process ``group``, the data-parallel step of
+        ``grads``; every rank then takes the same Adam update."""
+        grads = self.grads(state, batch, frozen, gen, group)
+        self.apply_grads(state, grads)
+        return grads.metrics
+
+    def apply_grads(self, state: TrainState, grads: Grads) -> None:
+        """Both Adam updates of ``grads`` at ``lr_at(cfg, state.step)``, the
+        pool after the step's queries and the step count, in place."""
         lr = lr_at(self.cfg, state.step)
         for net, opt, gr in ((state.g, state.g_opt, grads.g),
                              (state.d, state.d_opt, grads.d)):
@@ -806,7 +867,6 @@ class Module2TrainStep:
             opt.zero_grad(set_to_none=True)
         state.pool, state.pool_count = grads.pool, grads.pool_count
         state.step += 1
-        return grads.metrics
 
 
 def build_train_step(cfg: Module2Config) -> Module2TrainStep:

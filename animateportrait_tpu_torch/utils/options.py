@@ -6,8 +6,9 @@ drive ``python -m animateportrait_tpu_torch.train_cli``. Port of
 to ``<checkpoints_dir>/<name>/<phase>_opt.txt`` as the reference does
 (base_options.py:89-112).
 
-Not ported yet, and refused with an error that names the flag:
-``--data_parallel`` above 1 (one process drives one card). ``--device``
+``--data_parallel N`` trains on N ranks, one card each (``data_parallel_
+world``: 0, the JAX default, takes every visible card, or one rank on
+``--device cpu``; more ranks than cards is an error). ``--device``
 (default ``cuda``) is where the step runs; ``--compute_dtype bfloat16``
 trains in the JAX package's mixed precision (``train/module2.py``).
 """
@@ -153,7 +154,8 @@ def build_train_argparser() -> argparse.ArgumentParser:
                         "solves)")
     p.add_argument("--steps_per_epoch", type=int, default=1000)
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="0 or 1 only: one process drives one card")
+                   help="data-parallel ranks, one card each (0 = every "
+                        "visible card; one rank on --device cpu)")
     p.add_argument("--remat", type=int, default=0,
                    help="recompute the generator forwards in the backward "
                         "(torch.utils.checkpoint): memory for larger "
@@ -175,10 +177,6 @@ def to_configs(args: argparse.Namespace
             "supported (the umlvd datasets' landmark/TPS arithmetic is "
             "tied to the load_size->crop_size geometry; other modes "
             "mis-scale landmarks in the reference too)")
-    if args.data_parallel > 1:
-        raise SystemExit(
-            f"--data_parallel {args.data_parallel} is not ported yet: the "
-            "port trains on one card")
     btoA = getattr(args, "direction", "AtoB") == "BtoA"
     cartoon = "cartoon" in args.model or "cartoon" in args.dataset_mode
     m2 = Module2Config(
@@ -239,6 +237,26 @@ def to_configs(args: argparse.Namespace
         use_clips=not cartoon,
     )
     return m2, data
+
+
+def data_parallel_world(requested: int, device: str,
+                        n_cards: int | None = None) -> int:
+    """The ranks of ``--data_parallel requested`` on ``device``'s type: 0
+    takes every visible card (one rank on the CPU). On CUDA, more ranks
+    than ``n_cards`` (default: the visible cards) is an error that names
+    both numbers, where the JAX package shrinks its mesh to the devices it
+    has."""
+    import torch
+
+    if requested < 0:
+        raise SystemExit(f"--data_parallel {requested}: a count of ranks")
+    if torch.device(device).type != "cuda":
+        return requested or 1
+    n_cards = torch.cuda.device_count() if n_cards is None else n_cards
+    if requested > n_cards:
+        raise SystemExit(f"--data_parallel {requested}: more ranks than the "
+                         f"{n_cards} visible CUDA cards")
+    return requested or max(n_cards, 1)
 
 
 def archive_options(args: argparse.Namespace) -> str:

@@ -166,14 +166,16 @@ def write_fan_checkpoints(directory: str, seed: int = 0,
 def build_pipeline(nets: dict[str, nn.Module], device: torch.device | str,
                    frame_batch: int = 8, output_uint8: bool = True,
                    style: str = "drawing", detector=None,
-                   use_bf16: bool = False, motion_mode: str = "linear"):
+                   use_bf16: bool = False, motion_mode: str = "linear",
+                   data_parallel: bool = False, devices: list | None = None):
     """The slice's ``TalkingPortraitPipeline`` on ``device``: ``detector``
     (the fixed-box stub when None), ``AudioPipeline(chunk=512)`` without a
     voice encoder, default landmark amplifiers, and the renderer of
     ``style`` (the static net ``nets["static_g"]`` for drawing,
     ``nets["photo2cartoon"]`` for cartoon), its per-frame nets in bf16 with
     ``use_bf16`` (``--render_bf16``), its motion grids by ``motion_mode``
-    (``--warp_mode``)."""
+    (``--warp_mode``), its per-frame nets replicated over ``devices`` (or
+    every visible card) with ``data_parallel`` (``--render_dp``)."""
     from animateportrait_tpu_torch.pipeline.audio import AudioPipeline
     from animateportrait_tpu_torch.pipeline.end2end import (
         TalkingPortraitPipeline)
@@ -188,7 +190,8 @@ def build_pipeline(nets: dict[str, nn.Module], device: torch.device | str,
                         nets.get("static_g"), frame_batch=frame_batch,
                         output_uint8=output_uint8, device=device,
                         style=style, cartoon_g=nets.get("photo2cartoon"),
-                        use_bf16=use_bf16, motion_mode=motion_mode))
+                        use_bf16=use_bf16, motion_mode=motion_mode,
+                        data_parallel=data_parallel, devices=devices))
 
 
 def _face_landmarks(rng: np.random.Generator, size: int) -> np.ndarray:
@@ -602,3 +605,212 @@ def grad_parity(got: dict, ref: dict, ref64: dict | None, noise: set
             if d > 1e-3:
                 out[k] = 1e-3 * rel(g, exact[k]) / (3 * d)
     return out
+
+
+# --- the multi-card paths' ranks (``utils/distributed.py:spawn``) -----------
+
+
+def _kept_instance_norm_inputs(nets: list) -> tuple[dict, list]:
+    """Pre-hooks that keep the first input of each shape that an
+    InstanceNorm2d of ``nets`` sees, with its ReLU flag."""
+    from animateportrait_tpu_torch.nn import InstanceNorm2d
+
+    kept, hooks = {}, []
+    for net in nets:
+        for mod in net.modules():
+            if isinstance(mod, InstanceNorm2d):
+                def keep(mod, args):
+                    key = (tuple(args[0].shape), mod.relu)
+                    if key not in kept:
+                        kept[key] = args[0].detach().clone()
+                hooks.append(mod.register_forward_pre_hook(keep))
+    return kept, hooks
+
+
+def k2_against_plain(kept: dict) -> float:
+    """The largest |K2 - its plain version| on the kept InstanceNorm
+    inputs (0 on the CPU, where the wrapper is the plain version)."""
+    from animateportrait_tpu_torch.ops.instnorm import (
+        instance_norm, instance_norm_plain)
+
+    err = 0.0
+    with torch.inference_mode():
+        for (_, relu), x in kept.items():
+            got = instance_norm(x, relu=relu)
+            want = instance_norm_plain(x, relu=relu)
+            err = max(err, float((got.float() - want.float()).abs().max()))
+    return err
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def dp_step_run(cfg, batch: dict, steps: int, device: torch.device,
+                group=None) -> dict:
+    """``steps`` Module2 training steps from ``train_cli``'s seeded state
+    and frozen nets (seeds 0 and 1) on ``batch`` (a dict of numpy arrays,
+    the global batch), each step's pool drawn from a generator seeded by
+    the step on ``device``, as ``train_cli`` draws it. With a process
+    ``group``, this rank's contiguous slice of the batch in the
+    data-parallel step; without, the whole batch in one process. Returns
+    each step's losses and gradients, the pool and its count
+    after each step, the parameters before and after each step (all on
+    the host),
+    K2's and K2b's launches in the steps, each step's ms (host clock to a
+    synchronize), the bytes a step all-reduces, and the largest |K2 - its
+    plain version| on the first step's InstanceNorm inputs of G and the
+    Ds."""
+    import time
+
+    import torch.distributed as dist
+
+    from animateportrait_tpu_torch.ops.instnorm import (
+        instance_norm, instance_norm_backward)
+    from animateportrait_tpu_torch.train import module2 as m2
+
+    def host(tree):
+        return {k: v.detach().cpu().clone() for k, v in tree.items()}
+
+    rank, world = (0, 1) if group is None else (dist.get_rank(group),
+                                                dist.get_world_size(group))
+    n = next(iter(batch.values())).shape[0] // world
+    local = {k: torch.as_tensor(v[rank * n:(rank + 1) * n]).to(device)
+             for k, v in batch.items()}
+    state = m2.init_state(cfg, torch.Generator().manual_seed(0), device)
+    frozen = m2.init_frozen_random(torch.Generator().manual_seed(1), device)
+    step_fn = m2.build_train_step(cfg)
+    kept, hooks = _kept_instance_norm_inputs([state.g, state.d])
+
+    out = {"metrics": [], "grads": [], "pools": [], "pool_counts": [],
+           "ms": [],
+           "params": [{"g": host(dict(state.g.named_parameters())),
+                       "d": host(dict(state.d.named_parameters()))}]}
+    instance_norm.launches = instance_norm_backward.launches = 0
+    for i in range(steps):
+        _sync(device)
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=device).manual_seed(state.step)
+        grads = step_fn.grads(state, local, frozen, gen, group)
+        step_fn.apply_grads(state, grads)
+        _sync(device)
+        out["ms"].append(1e3 * (time.perf_counter() - t0))
+        for h in hooks:
+            h.remove()
+        hooks = []
+        out["grads"].append({"g": host(grads.g), "d": host(grads.d)})
+        out["metrics"].append({k: float(v) for k, v in grads.metrics.items()})
+        out["pools"].append(grads.pool.cpu())
+        out["pool_counts"].append(grads.pool_count)
+        out["params"].append({"g": host(dict(state.g.named_parameters())),
+                              "d": host(dict(state.d.named_parameters()))})
+    out["launches"] = {"instance_norm": instance_norm.launches,
+                       "instance_norm_backward":
+                       instance_norm_backward.launches}
+    # G's and the Ds' gradients, and the step's losses, in fp32
+    out["allreduce_bytes"] = 0 if group is None else 4 * (
+        sum(p.numel() for p in state.g.parameters())
+        + sum(p.numel() for p in state.d.parameters())
+        + len(out["metrics"][0]))
+    out["k2_err"] = k2_against_plain(kept)
+    return out
+
+
+def dp_step_rank(rank: int, world: int, device: torch.device, cfg,
+                 batch: dict, steps: int, out_dir: str) -> None:
+    """``dp_step_run`` as one rank of the default group; its result goes
+    to ``<out_dir>/rank<rank>.pt``."""
+    import torch.distributed as dist
+
+    res = dp_step_run(cfg, batch, steps, device, dist.group.WORLD)
+    res["backend"] = dist.get_backend()
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def resnet_blocks(dim: int, n: int, seed: int = 0) -> list[dict]:
+    """The state dicts of ``n`` seeded random ``models/gan.py:
+    ResnetBlock(dim)``s (``init_random_``)."""
+    from animateportrait_tpu_torch.models.gan import ResnetBlock
+
+    gen = torch.Generator().manual_seed(seed)
+    return [init_random_(ResnetBlock(dim), gen).state_dict()
+            for _ in range(n)]
+
+
+def gpipe_rank(rank: int, world: int, device: torch.device,
+               blocks: list[dict], x: np.ndarray, microbatches: list,
+               out_dir: str) -> None:
+    """One stage of a ``parallel.gpipe_apply`` run of the ResNet blocks
+    ``blocks`` (state dicts, split over the ranks by ``stage_blocks``) on
+    ``x`` (NCHW numpy), once for each count of ``microbatches``; writes
+    ``<out_dir>/rank<rank>.pt``: the output of each count, K2's launches
+    in them, ms each (host clock to a synchronize), the error of an
+    indivisible batch, and the largest |K2 - its plain version| on this
+    stage's InstanceNorm inputs."""
+    import time
+
+    import torch.distributed as dist
+
+    from animateportrait_tpu_torch.models.gan import ResnetBlock
+    from animateportrait_tpu_torch.ops.instnorm import instance_norm
+    from animateportrait_tpu_torch.parallel import (
+        gpipe_apply, resnet_stage, stage_blocks)
+
+    dim = x.shape[1]
+    mods = []
+    for sd in stage_blocks(blocks, world, rank):
+        block = ResnetBlock(dim)
+        block.load_state_dict(sd)
+        mods.append(block)
+    stage = resnet_stage(mods).to(device).eval()
+    xt = torch.as_tensor(x).to(device)
+    kept, hooks = _kept_instance_norm_inputs([stage])
+    out = {"y": {}, "launches": {}, "ms": {}}
+    for m in microbatches:
+        instance_norm.launches = 0
+        _sync(device)
+        t0 = time.perf_counter()
+        y = gpipe_apply(stage, xt, num_microbatches=m)
+        _sync(device)
+        out["ms"][m] = 1e3 * (time.perf_counter() - t0)
+        out["launches"][m] = instance_norm.launches
+        out["y"][m] = y.cpu()
+        for h in hooks:
+            h.remove()
+        hooks = []
+    try:
+        gpipe_apply(stage, xt[:1], num_microbatches=world + 1)
+        out["indivisible"] = None
+    except ValueError as e:
+        out["indivisible"] = str(e)
+    out["k2_err"] = k2_against_plain(kept)
+    out["backend"] = dist.get_backend()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def adam_update_parity(new: dict, ref: dict, old: dict, decisive_by: dict,
+                       lr: float, steps: int = 1) -> tuple[float, float]:
+    """Parameters after ``steps`` Adam updates from ``old`` (``new``)
+    against a reference run's (``ref``), by name, as
+    ``tests/test_torch_train.py`` holds an update: Adam moves an element
+    whose gradient is rounding noise by up to lr a step with the noise's
+    sign, so the updates are held where they are decided, on the elements
+    whose ``decisive_by`` (a gradient of the run) exceeds 5e-2 of the
+    tree's largest. Returns (the largest |update| over 1.5 lr a step, the
+    largest |update - ref's update| on the decisive elements over
+    2e-2 |ref's| + 2e-2 lr): each passes at <= 1."""
+    def t(x):
+        return torch.as_tensor(x).detach().double().cpu()
+
+    top = max(float(t(g).abs().max()) for g in decisive_by.values())
+    step_bound, decided = 0.0, 0.0
+    for k, p0 in old.items():
+        d, r = t(new[k]) - t(p0), t(ref[k]) - t(p0)
+        step_bound = max(step_bound, float(d.abs().max()) / (1.5 * lr
+                                                             * steps))
+        mask = t(decisive_by[k]).abs() > 5e-2 * top
+        if bool(mask.any()):
+            decided = max(decided, float(((d - r).abs() / (
+                2e-2 * r.abs() + 2e-2 * lr))[mask].max()))
+    return step_bound, decided

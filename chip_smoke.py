@@ -165,6 +165,29 @@ Phases, each printing its own lines:
      card's fp32 FAN gradients against a float64 host step with cuDNN's
      default and deterministic algorithms and with cuDNN off, with the
      ReLU inputs on the other side of the kink from float64.
+ 16. the multi-card paths on this one card (``utils/distributed.py``):
+     (a) phase 7's step on a global batch of 4 over 2 ranks (gloo, both
+     on this card) for 2 steps against the single-process step on the
+     same batch: the losses, the pool after each step, the first step's
+     gradients (``grad_parity``) and Adam's updates
+     (``adam_update_parity``), each within the larger of its bar and 3x
+     the wider of the one process's own spreads (called again; with
+     cuDNN's deterministic algorithms), and rank 0's half-batch
+     gradients (the all-reduce left out) beyond the gradient bar; the
+     ranks' G bit-equal; K2 and K2b launched on each rank, K2 against its
+     plain version on each rank's InstanceNorm inputs, ms a step and the
+     bytes a step all-reduces; (b)
+     ``train_cli.main --multihost 1 --num_processes 1`` (NCCL) over phase
+     8's tree for 2 steps: one loss log, one checkpoint tree; (c)
+     ``cli.main --render_dp``: one replica on one card (the launches of
+     the run without it), frames bit-equal to that run's and to a second
+     run without it under cuDNN's deterministic algorithms; a renderer with two replicas on this card
+     on phase 3's inputs >= 40 dB from phase 3's frames (frames/s, K2
+     against its plain version on the second replica's inputs); (d)
+     ``parallel.gpipe_apply`` of the generator's 9-block bottleneck (256
+     channels at 64^2, batch 6) over 3 ranks (gloo) at M = 3 and 6
+     against the blocks in sequence on the same microbatches (rtol =
+     atol = 2e-5), K2's launches per rank.
 Then the loader's forkserver and multiprocessing's resource tracker are
 stopped, and no process the run started may still be running.
 
@@ -3316,6 +3339,353 @@ def phase15(dev: torch.device, main_run: dict, tmp: str, tree: str) -> dict:
     return res
 
 
+# --- phase 16: the multi-card paths on one card ------------------------------
+
+DP_RANKS = 2
+DP_STEPS = 2
+DP_LOSS_RTOL = 1e-4
+DP_LEAF_BAR = 1e-3      # of a gradient leaf's scale (grad_parity)
+DP_POOL_ATOL = 1e-4     # the fakes of the same G, batch 2 against batch 4
+DP_POOL2_ATOL = 1e-3    # the fakes of a G after one Adam update
+RENDER_DP_MIN_PSNR = 40.0
+GPIPE_STAGES = 3
+GPIPE_TOL = dict(rtol=2e-5, atol=2e-5)   # tests/test_parallel.py:47
+
+
+def spawned(fn, devices: list, *args) -> tuple[list, float]:
+    """``utils/distributed.py:spawn`` of ``fn`` on ``devices``, each rank
+    writing ``rank<r>.pt``: (the ranks' records, wall seconds, the ranks'
+    start included)."""
+    from animateportrait_tpu_torch.utils import distributed as ddp
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ddp.spawn(fn, devices, *args, d, timeout=600)
+        wall = time.perf_counter() - t0
+        return [torch.load(os.path.join(d, f"rank{r}.pt"))
+                for r in range(len(devices))], wall
+
+
+def phase16_dp_step(dev: torch.device, card: str) -> dict:
+    """(a) phase 7's step on a global batch of 4 over 2 ranks on this card
+    (gloo), against the single-process step on the same batch."""
+    from animateportrait_tpu_torch.train import module2 as m2
+    from animateportrait_tpu_torch.utils.smoke import (
+        adam_update_parity, cancelled_biases, dp_step_rank, dp_step_run,
+        grad_parity)
+
+    cfg = m2.Module2Config(batch_d_passes=True)
+    batch = {k: v.numpy() for k, v in m2.make_random_batch(
+        cfg, TRAIN_BATCH, torch.Generator().manual_seed(2), "cpu").items()}
+    ranks, wall = spawned(dp_step_rank, [dev] * DP_RANKS, cfg, batch,
+                          DP_STEPS)
+    single = dp_step_run(cfg, batch, DP_STEPS, dev)
+    for r, rec in enumerate(ranks):
+        say(f"[16] DP step rank {r} ({rec['backend']}, batch "
+            f"{TRAIN_BATCH // DP_RANKS} of {TRAIN_BATCH}): ms a step "
+            f"{', '.join(f'{t:.1f}' for t in rec['ms'])}, "
+            f"{rec['allreduce_bytes'] / 2 ** 20:.1f} MiB all-reduced a step, "
+            f"launches {rec['launches']}, K2 vs plain on its InstanceNorm "
+            f"inputs {rec['k2_err']:.2e} ({card}; smoke figures)")
+        if min(rec["launches"].values()) <= 0:
+            raise AssertionError(f"rank {r}: a kernel never launched: "
+                                 f"{rec['launches']}")
+        if rec["k2_err"] > K2_ATOL:
+            raise AssertionError(f"rank {r}: K2 vs plain {rec['k2_err']}")
+    say(f"[16] single process, batch {TRAIN_BATCH}: ms a step "
+        f"{', '.join(f'{t:.1f}' for t in single['ms'])}; the 2 ranks took "
+        f"{wall:.1f} s of wall time, their start included")
+    # the one process's own spread: the same steps called again, and with
+    # cuDNN's deterministic algorithms. At full width and random weights a
+    # rounding-level change of the forward moves fp32 gradients past ReLU
+    # and PReLU kinks by percent (ROADMAP Queue 3), Adam turns the noise
+    # elements' gradients into +-lr steps, and batch 2 against batch 4 is
+    # such a change: each comparison is held to the larger of its bar and
+    # 3x the wider of the two spreads
+    others = {"called again": dp_step_run(cfg, batch, DP_STEPS, dev)}
+    torch.backends.cudnn.deterministic = True
+    try:
+        others["cuDNN deterministic"] = dp_step_run(cfg, batch, DP_STEPS, dev)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    def loss_diffs(run):
+        return [max(abs(run["metrics"][s][k] - v) / max(abs(v), 1e-5)
+                    for k, v in single["metrics"][s].items())
+                for s in range(DP_STEPS)]
+
+    def pool_diffs(run):
+        return [float((run["pools"][s] - single["pools"][s]).abs().max())
+                for s in range(DP_STEPS)]
+
+    def spread(diffs):
+        return [max(v) for v in zip(*(diffs(o) for o in others.values()))]
+
+    dp = ranks[0]
+    checks = []          # (what, value, bar)
+    bars = {}            # each net's gradient bar
+    for s_, (e, sp) in enumerate(zip(loss_diffs(dp), spread(loss_diffs))):
+        checks.append((f"losses step {s_ + 1}", e, max(DP_LOSS_RTOL, 3 * sp)))
+    for s_, (e, sp, bar) in enumerate(zip(pool_diffs(dp), spread(pool_diffs),
+                                          (DP_POOL_ATOL, DP_POOL2_ATOL))):
+        checks.append((f"pool step {s_ + 1}", e, max(bar, 3 * sp)))
+    for net in ("g", "d"):
+        noise = cancelled_biases(getattr(m2.init_state(
+            cfg, torch.Generator().manual_seed(0), "cpu"), net))
+        errs = grad_parity(dp["grads"][0][net], single["grads"][0][net],
+                           None, noise)
+        spreads = {name: grad_parity(o["grads"][0][net],
+                                     single["grads"][0][net], None, noise)
+                   for name, o in others.items()}
+        widest = max(max(v.values()) for v in spreads.values())
+        k = max(errs, key=errs.get)
+        checks.append((f"step 1 {net.upper()} gradients, worst leaf {k}",
+                       errs[k], max(DP_LEAF_BAR, 3 * widest)))
+        bars[net] = max(DP_LEAF_BAR, 3 * widest)
+        n_dp = sum(e > DP_LEAF_BAR for e in errs.values())
+        say(f"[16] step 1 {net.upper()} gradients: {n_dp} of {len(errs)} "
+            f"leaves of the 2 ranks above {DP_LEAF_BAR} of their scale "
+            f"from one process; the one process against itself, "
+            + ", ".join(f"{name}: worst {max(v.values()):.3e}, "
+                        f"{sum(e > DP_LEAF_BAR for e in v.values())} above"
+                        for name, v in spreads.items()))
+    for net in ("g", "d"):
+        bound, decided = adam_update_parity(
+            dp["params"][1][net], single["params"][1][net],
+            single["params"][0][net], single["grads"][0][net], cfg.lr)
+        checks.append((f"{net.upper()}'s step 1 Adam update, decisive "
+                       f"elements", decided, 1.0))
+        checks.append((f"{net.upper()}'s updates, of 1.5 lr a step", max(
+            bound, adam_update_parity(
+                dp["params"][DP_STEPS][net], single["params"][DP_STEPS][net],
+                single["params"][0][net], single["grads"][0][net], cfg.lr,
+                DP_STEPS)[0]), 1.0))
+    same = all(torch.equal(p, q) for p, q in zip(ranks[0]["params"][-1]["g"]
+                                                  .values(),
+                                                  ranks[1]["params"][-1]["g"]
+                                                  .values()))
+    for what, value, bar in checks:
+        say(f"[16] 2 ranks vs one process, {what}: {value:.3e} (<= "
+            f"{bar:.3e})")
+    say(f"[16] pool counts {dp['pool_counts']} (one process "
+        f"{single['pool_counts']}); the ranks' G bit-equal: {same}")
+    # the fault the gradient checks are for, a rank's own half-batch
+    # gradients (the all-reduce left out), must fail each net's bar
+    half = dp_step_run(cfg, {k: v[:TRAIN_BATCH // DP_RANKS]
+                             for k, v in batch.items()}, 1, dev)
+    faults = []          # (what, value, the bar it must exceed)
+    for net in ("g", "d"):
+        noise = cancelled_biases(getattr(m2.init_state(
+            cfg, torch.Generator().manual_seed(0), "cpu"), net))
+        errs = grad_parity(half["grads"][0][net], single["grads"][0][net],
+                           None, noise)
+        say(f"[16] step 1 {net.upper()} gradients of rank 0's half batch "
+            f"alone (the fault) against one process: worst "
+            f"{max(errs.values()):.3e} (> {bars[net]:.3e}; {card})")
+        faults.append((f"step 1 {net.upper()} gradients of the fault",
+                       max(errs.values()), bars[net]))
+    failed = ([c for c in checks if not c[1] <= c[2]]
+              + [f for f in faults if not f[1] > f[2]])
+    if failed or not same or dp["pool_counts"] != single["pool_counts"]:
+        raise AssertionError(f"DP step: {failed}, ranks equal {same}")
+    return {"launches": {f"dp_step_rank{r}": rec["launches"]
+                         for r, rec in enumerate(ranks)},
+            "k2_err": max(rec["k2_err"] for rec in ranks)}
+
+
+def phase16_multihost(dev: torch.device, tree: str, tmp: str) -> dict:
+    """(b) ``train_cli.main --multihost 1`` as one process (NCCL at world
+    size 1) over phase 8's tree, 2 steps."""
+    from animateportrait_tpu_torch import train_cli
+    from animateportrait_tpu_torch.io.checkpoint import CheckpointManager
+    from animateportrait_tpu_torch.utils.distributed import free_port
+
+    ck = os.path.join(tmp, "ck_mh")
+    argv = ["--dataroot", tree, *README_DRAWING, "--crop_size", "256",
+            "--load_size", "286", "--ngf", "64", "--ndf", "64",
+            "--batch_size", str(TRAIN_BATCH), "--num_threads", "8",
+            "--print_freq", "1", "--max_steps", "2", "--checkpoints_dir", ck,
+            "--frozen_dir", os.path.join(tmp, "frozen"), "--multihost", "1",
+            "--num_processes", "1", "--process_id", "0",
+            "--coordinator_address", f"127.0.0.1:{free_port()}"]
+    zero_counters()
+    t0 = time.perf_counter()
+    run = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    exp = os.path.join(ck, "training", "drawing1")
+    with open(os.path.join(exp, "loss_log.txt")) as f:
+        log = f.read()
+    steps = CheckpointManager(os.path.join(exp, "checkpoints")).all_steps()
+    say(f"[16] train_cli.main --multihost 1 --num_processes 1 (NCCL) over "
+        f"phase 8's tree: 2 steps in {wall:.1f} s of wall time; "
+        f"{log.count('(epoch')} loss lines, checkpoint steps {steps}, "
+        f"launches {launches}")
+    if not (log.count("Training Loss") == 1 and log.count("(epoch") == 2
+            and steps == [2] and run.state.step == 2
+            and sorted(os.listdir(ck)) == ["training"]):
+        raise AssertionError(f"multihost trainer: log {log!r}, steps {steps}")
+    if min(launches["instance_norm"], launches["instance_norm_backward"]) \
+            <= 0:
+        raise AssertionError(f"a kernel never launched: {launches}")
+    return {"launches": launches}
+
+
+def phase16_render(dev: torch.device, main_run: dict) -> dict:
+    """(c) ``cli.main --render_dp`` on one card against the same call
+    without it, and two renderer replicas on this card on phase 3's
+    inputs."""
+    from animateportrait_tpu_torch import cli
+    from animateportrait_tpu_torch.utils.smoke import (
+        build_pipeline, full_width_nets, make_wav, write_mtcnn_weights)
+    from animateportrait_tpu_torch.utils.video import read_avi, write_wav
+
+    with tempfile.TemporaryDirectory() as tmp:
+        photo = write_photo(os.path.join(tmp, "portrait.ppm"))
+        wav_path = write_wav(os.path.join(tmp, "speech.wav"),
+                             make_wav(6.0, seed=3))
+        ckpt = os.path.join(tmp, "ckpt")
+        write_mtcnn_weights(os.path.join(ckpt, "mtcnn"), seed=0)
+        frames, cli_launches = [], []
+        # without the flag, with it, and without it again; cuDNN's default
+        # algorithms are not bit-repeatable on the card (1 level at ~2500
+        # values between two calls), its deterministic ones are
+        torch.backends.cudnn.deterministic = True
+        try:
+            for i, flag in enumerate(([], ["--render_dp"], [])):
+                zero_counters()
+                res = cli.main(["--jpg", photo, "--audio", wav_path,
+                                "--exp", "formal/cartoon", "--frame_batch",
+                                "8", "--ckpt_dir", ckpt, *flag, "--output",
+                                os.path.join(tmp, f"out{i}")])
+                cli_launches.append(read_counters())
+                frames.append(read_avi(res.path)["frames"].astype(np.int16))
+        finally:
+            torch.backends.cudnn.deterministic = False
+
+    def diff(a, b):
+        return int(np.abs(a - b).max()), int(np.count_nonzero(a != b))
+
+    # one card is one replica, the path without the flag: the same
+    # launches and the same frames
+    dp, again = diff(frames[1], frames[0]), diff(frames[2], frames[0])
+    say(f"[16] cli.main --render_dp on one card, cuDNN's deterministic "
+        f"algorithms: {frames[1].shape[0]} "
+        f"frames; against the run without the flag max |diff| {dp[0]} "
+        f"levels at {dp[1]} of {frames[0].size} values; "
+        f"a second run without the flag: {again[0]} levels at {again[1]}; "
+        f"launches {cli_launches[1]} (without the flag "
+        f"{cli_launches[0]})")
+    if not (dp == again == (0, 0) and cli_launches[1] == cli_launches[0]
+            and min(cli_launches[1]["stft_magnitude"],
+                    cli_launches[1]["instance_norm"]) > 0):
+        raise AssertionError(f"--render_dp on one card: {dp} against the "
+                             f"CLI's own {again}, launches "
+                             f"{cli_launches}")
+
+    nets = full_width_nets(seed=0)
+    pipe = build_pipeline(nets, dev, frame_batch=8, output_uint8=True,
+                          data_parallel=True, devices=[dev, dev])
+    photo = np.random.default_rng(0).uniform(0, 255, (512, 512, 3)).astype(
+        np.uint8)
+    second = pipe.renderer.replicas[1][0]
+    kept, hooks = keep_instance_norm_inputs({"replica1": second})
+    with torch.inference_mode():
+        pipe(photo, make_wav(6.0, seed=1))
+        torch.cuda.synchronize()
+        for h in hooks:
+            h.remove()
+        zero_counters()
+        t0 = time.perf_counter()
+        out = pipe(photo, make_wav(6.0, seed=2))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_counters()
+    T = out.frames.shape[0]
+    diff = int(np.abs(out.frames.astype(np.int16)
+                      - main_run["frames"].astype(np.int16)).max())
+    p = psnr(out.frames, main_run["frames"], peak=255.0)
+    say(f"[16] 2 renderer replicas on one card, phase 3's inputs: {T} "
+        f"frames in {dt:.3f} s = {T / dt:.2f} frames/s (phase 3, one "
+        f"replica: {main_run['frames_per_s']:.2f}; smoke figures); vs phase "
+        f"3's frames max |diff| {diff} levels, PSNR {p:.2f} dB (>= "
+        f"{RENDER_DP_MIN_PSNR}); launches {launches}")
+    if not (out.frames.shape == main_run["frames"].shape
+            and p >= RENDER_DP_MIN_PSNR and second is not pipe.renderer.g
+            and len(pipe.renderer.replicas) == 2):
+        raise AssertionError(f"2 replicas: PSNR {p}, {out.frames.shape}")
+    if min(launches["stft_magnitude"], launches["instance_norm"]) <= 0:
+        raise AssertionError(f"a kernel never launched: {launches}")
+    return {"launches": {"render_dp_cli": cli_launches[1],
+                         "render_dp_replicas": launches},
+            "k2_err": k2_on_path(kept, "16")}
+
+
+def phase16_gpipe(dev: torch.device, card: str) -> dict:
+    """(d) the generator's 9-block bottleneck at full width (256 channels
+    at 64^2, batch 6) as a 3-stage GPipe on this card (gloo), M = 3 and 6,
+    against the 9 blocks in sequence."""
+    from animateportrait_tpu_torch.models.gan import ResnetBlock
+    from animateportrait_tpu_torch.parallel import seq_apply
+    from animateportrait_tpu_torch.utils.smoke import gpipe_rank, resnet_blocks
+
+    blocks = resnet_blocks(256, 9, seed=5)
+    x = np.random.default_rng(6).standard_normal(
+        (6, 256, 64, 64)).astype(np.float32)
+    ms = [3, 6]
+    ranks, wall = spawned(gpipe_rank, [dev] * GPIPE_STAGES, blocks, x, ms)
+    mods = []
+    for sd in blocks:
+        b = ResnetBlock(x.shape[1])
+        b.load_state_dict(sd)
+        mods.append(b.to(dev).eval())
+    xt = torch.as_tensor(x, device=dev)
+    worst = 0.0
+    for m in ms:
+        # the same microbatch shapes as the pipeline's, so cuDNN takes the
+        # same algorithms; and the whole batch at once, printed
+        want = torch.cat([seq_apply(mods, c) for c in xt.chunk(m)]).cpu()
+        whole = seq_apply(mods, xt).cpu()
+        errs = [float((rec["y"][m] - want).abs().max()) for rec in ranks]
+        worst = max(worst, *errs)
+        ms_by_rank = ", ".join(f"{rec['ms'][m]:.1f}" for rec in ranks)
+        say(f"[16] GPipe, 3 stages x 3 blocks, M = {m}: max |pipe - "
+            f"sequence| by rank {', '.join(f'{e:.2e}' for e in errs)} "
+            f"(rtol = atol = 2e-5); the whole batch in sequence "
+            f"{float((ranks[-1]['y'][m] - whole).abs().max()):.2e} off; "
+            f"ms a call by rank {ms_by_rank}; K2 launches by rank "
+            f"{[rec['launches'][m] for rec in ranks]} ({card}; smoke "
+            f"figures)")
+        for r, rec in enumerate(ranks):
+            if not torch.allclose(rec["y"][m], want, **GPIPE_TOL):
+                raise AssertionError(f"GPipe M={m} rank {r}: {errs[r]}")
+    for r, rec in enumerate(ranks):
+        want = {m: 3 * 2 * m for m in ms}
+        if rec["launches"] != want or rec["k2_err"] > K2_ATOL or \
+                "not divisible" not in (rec["indivisible"] or ""):
+            raise AssertionError(f"GPipe rank {r}: launches "
+                                 f"{rec['launches']} (want {want}), K2 "
+                                 f"{rec['k2_err']}, {rec['indivisible']}")
+    say(f"[16] GPipe ranks ran over {ranks[0]['backend']} in {wall:.1f} s "
+        f"of wall time, their start included; an indivisible batch raised "
+        f"{ranks[0]['indivisible']!r}")
+    return {"launches": {f"gpipe_rank{r}": {"instance_norm": sum(
+        rec["launches"].values())} for r, rec in enumerate(ranks)},
+        "k2_err": max(rec["k2_err"] for rec in ranks)}
+
+
+def phase16(dev: torch.device, card: str, main_run: dict, tmp: str,
+            tree: str) -> dict:
+    t0 = time.perf_counter()
+    out = {"dp": phase16_dp_step(dev, card)}
+    out["multihost"] = phase16_multihost(dev, tree, tmp)
+    out["render"] = phase16_render(dev, main_run)
+    out["gpipe"] = phase16_gpipe(dev, card)
+    say(f"[16] phase 16 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def child_processes() -> list[str]:
     """The processes whose parent is this one, as "pid command"."""
     out = []
@@ -3377,11 +3747,13 @@ def main() -> None:
         p15 = os.path.join(tmp, "p15")
         os.makedirs(p15)
         tools = phase15(dev, main_run, p15, os.path.join(tmp, "data"))
+        multi = phase16(dev, card, main_run, tmp, os.path.join(tmp, "data"))
     rec["instance_norm"]["max_abs_err"] = max(
         rec["instance_norm"]["max_abs_err"],
         surface["test_cli"]["k2_path_err"],
         surface["p2c_full"]["k2_path_err"], zoo["gan"]["k2_path_err"],
-        *(r["k2_path_err"] for r in tools["fakeb"].values()))
+        *(r["k2_path_err"] for r in tools["fakeb"].values()),
+        *(multi[k]["k2_err"] for k in ("dp", "render", "gpipe")))
     k2b = rec.setdefault("instance_norm_backward", {})
     k2b["max_abs_err"] = max(k2b.get("max_abs_err", 0.0),
                              zoo["gan"]["k2b_worst"]["k2b_abs"])
@@ -3463,7 +3835,10 @@ def main() -> None:
         "av2flau": tools["av2flau"]["launches"],
         **{f"fakeb_static_{style}": run["launches"]
            for style, run in tools["fakeb"].items()},
-        "gan_convergence": tools["convergence"]["launches"]}
+        "gan_convergence": tools["convergence"]["launches"],
+        **multi["dp"]["launches"],
+        "train_cli_multihost": multi["multihost"]["launches"],
+        **multi["render"]["launches"], **multi["gpipe"]["launches"]}
     # "launches": K1's, K2's and K2-bf16's on the user's entry point (the
     # cartoon CLI runs of phases 5 and 9), K2b's and K2b-bf16's in the timed
     # training steps (phases 7 and 10); "launches_by_path" has every path's

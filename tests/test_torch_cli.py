@@ -398,13 +398,23 @@ def test_cli_drawing_output_name_and_gray_frames(inputs):
 def test_cli_rejects_what_it_does_not_run(inputs, tmp_path, capsys):
     d, png, wav, ckpt = inputs
     base = ["--audio", wav, "--ckpt_dir", ckpt, "--output", str(tmp_path)]
-    for flag in (["--warp_mode", "cubic"], ["--render_dp"]):
-        with pytest.raises(SystemExit) as e:
-            cli.main(["--jpg", png, *base, *flag, *TINY])
-        assert e.value.code == 2
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--jpg", png, *base, "--warp_mode", "cubic", *TINY])
+    assert e.value.code == 2
     err = capsys.readouterr().err
     assert "invalid choice: 'cubic'" in err
-    assert "unrecognized arguments: --render_dp" in err
+    # --render_dp is run now, and parses as the JAX CLI parses it; on the
+    # CPU the renderer has one replica (tests/test_torch_parallel.py
+    # renders with two)
+    from animateportrait_tpu.cli import build_argparser as jax_argparser
+
+    shared = ["--jpg", png, *base, *TINY[:-2]]       # all but --device
+    for flag, want in (([], False), (["--render_dp"], True)):
+        targs = cli.build_argparser().parse_args(
+            [*shared, *flag, "--device", "cpu"])
+        jargs = jax_argparser().parse_args([*shared, *flag])
+        assert targs.render_dp is jargs.render_dp is want
+    assert len(cli.build_pipeline(targs).renderer.replicas) == 1
     jpg = str(tmp_path / "face.jpg")
     with open(jpg, "wb") as f:
         f.write(b"\xff\xd8\xff\xe0" + bytes(64))

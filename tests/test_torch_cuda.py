@@ -10,7 +10,9 @@ speaker-aware, flow regression, image translation, pose transfer, FAN,
 face_of_art) on the card against the host and a float64 host run, and
 their convergence runs with no kernel launch; a few ``define_g`` /
 ``define_d`` nets (K2 and K2b on the card) and LPIPS card against host;
-``postalign_video`` card against host. They skip without a CUDA device.
+``postalign_video`` card against host; the data-parallel step of two
+ranks and a renderer of two replicas, both on one card. They skip without
+a CUDA device.
 
 This file imports neither JAX nor the JAX package, so it runs where JAX is
 not installed; the repo's conftest imports JAX, so on such a machine run
@@ -1002,3 +1004,108 @@ def test_postalign_card_vs_host(cuda_device):
     drift = np.mean(np.abs(np.diff(clip[2:][sl].astype(float), axis=0)))
     stab = np.mean(np.abs(np.diff(out[sl].astype(float), axis=0)))
     assert stab < 0.5 * drift
+
+
+# --- the multi-card paths on one card (several ranks over gloo) -----------
+
+
+# The 2 ranks' gradients against one process's, of a leaf's scale
+# (grad_parity): the ranks' batch-2 passes round otherwise than one batch-4
+# pass on the card, and kinks flip, so they have read up to 5.4e-3 (G) and
+# 1.23e-2 (D) on an H100. The fault the bar is for, rank 0's own half-batch
+# gradients (the all-reduce left out), reads 1.92 (G) and 1.38 (D) there
+# and on the CPU; the test holds it beyond the bar in the same run.
+DP_LEAF_BAR = 5e-2
+
+
+def test_dp_step_two_ranks_on_the_card_match_one_process(cuda_device,
+                                                         tmp_path):
+    """The data-parallel step of 2 ranks on this card (gloo) against the
+    single-process step on the global batch of 4, at crop 64, ngf = ndf = 8,
+    for 2 steps (``chip_smoke.py`` phase 16 (a) at a small width): the
+    losses within rtol 1e-4, the first step's gradients by ``grad_parity``
+    within ``DP_LEAF_BAR`` of each leaf's scale, and rank 0's own
+    half-batch gradients (the all-reduce left out) beyond it; the ranks'
+    parameters bit-equal after both steps, the first Adam update on its
+    decisive elements, the pool after the first step (it only fills), K2
+    and K2b launched on each rank and K2 against its plain version on its
+    InstanceNorm inputs."""
+    from animateportrait_tpu_torch.train import module2 as m2
+    from animateportrait_tpu_torch.utils import distributed as ddp
+    from animateportrait_tpu_torch.utils.smoke import (
+        adam_update_parity, dp_step_rank, dp_step_run, grad_parity)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = m2.Module2Config(crop_size=64, ngf=8, ndf=8, pool_size=8,
+                           steps_per_epoch=2)
+    batch = {k: v.numpy() for k, v in m2.make_random_batch(
+        cfg, 4, torch.Generator().manual_seed(2), "cpu").items()}
+    ddp.spawn(dp_step_rank, [cuda_device] * 2, cfg, batch, 2, str(tmp_path),
+              timeout=600)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    single = dp_step_run(cfg, batch, 2, cuda_device)
+    half = dp_step_run(cfg, {k: v[:2] for k, v in batch.items()}, 1,
+                       cuda_device)
+    state = m2.init_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    for rec in ranks:
+        assert rec["backend"] == "gloo"
+        assert min(rec["launches"].values()) > 0, rec["launches"]
+        assert rec["k2_err"] <= K2_ATOL
+        for s in range(2):
+            for k, v in single["metrics"][s].items():
+                np.testing.assert_allclose(rec["metrics"][s][k], v,
+                                           rtol=1e-4, err_msg=k)
+        assert rec["pool_counts"] == single["pool_counts"] == [8, 8]
+        assert maxdiff(rec["pools"][0], single["pools"][0]) <= 1e-4
+    for net in ("g", "d"):
+        noise = in_cancelled_biases(getattr(state, net))
+        ref = single["grads"][0][net]
+        dp = grad_parity(ranks[0]["grads"][0][net], ref, None, noise)
+        fault = grad_parity(half["grads"][0][net], ref, None, noise)
+        assert max(dp.values()) <= DP_LEAF_BAR < max(fault.values()), (
+            net, max(dp.values()), max(fault.values()))
+        for k, v in ranks[0]["params"][-1][net].items():
+            assert torch.equal(v, ranks[1]["params"][-1][net][k]), k
+        bound, decided = adam_update_parity(
+            ranks[0]["params"][1][net], single["params"][1][net],
+            single["params"][0][net], single["grads"][0][net], cfg.lr)
+        assert bound <= 1.0 and decided <= 1.0, (net, bound, decided)
+
+
+def test_render_dp_two_replicas_on_the_card(cuda_device):
+    """Two renderer replicas on this card (``devices=[card, card]``) against
+    one, 10 frames: uint8 frames at PSNR >= 40 dB (cuDNN may take other
+    algorithms at 4 frames a replica than at 8), K2 launched (``chip_smoke.py``
+    phase 16 (c) at a small width)."""
+    import copy
+
+    from animateportrait_tpu_torch.pipeline.render import Module2Renderer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    nets = _small_renderer_nets()
+    rng = np.random.default_rng(0)
+    photo = rng.uniform(-1, 1, (256, 256, 3)).astype(np.float32)
+    a68 = rng.uniform(70, 190, (68, 2)).astype(np.float32)
+    tb68 = a68 + rng.uniform(-2, 2, (10, 68, 2)).astype(np.float32)
+    frames = []
+    for devices in (None, [cuda_device, cuda_device]):
+        r = Module2Renderer(*copy.deepcopy(nets), frame_batch=8,
+                            device=cuda_device, output_uint8=True,
+                            data_parallel=devices is not None,
+                            devices=devices)
+        assert len(r.replicas) == (1 if devices is None else 2)
+        launches = instnorm.instance_norm.launches
+        with torch.inference_mode():
+            frames.append(r(photo, a68, tb68))
+        assert instnorm.instance_norm.launches > launches
+    assert frames[0].shape == frames[1].shape == (10, 256, 256, 1)
+    assert psnr(frames[1], frames[0], peak=255.0) >= 40.0
+    # without devices: one replica on each visible card, "cuda" the
+    # current one
+    r = Module2Renderer(*copy.deepcopy(nets), frame_batch=7, device="cuda",
+                        data_parallel=True)
+    assert [d for _, _, d in r.replicas] == [
+        torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    assert r.replicas[0][0] is r.g

@@ -97,19 +97,19 @@ def _jax_side(cfg, state, frozen):
     return jstate, jfrozen, g_tx
 
 
-def _batches(cfg):
+def _batches(cfg, batch_size=1):
     """The JAX tests' batch (zeros, then every 4-D float entry uniform in
     [-1, 1] from a seeded numpy generator), NHWC for JAX and NCHW for the
     port."""
     from animateportrait_tpu.train import module2 as j2
 
-    jb = j2.make_example_batch(_jax_cfg(cfg), batch_size=1)
+    jb = j2.make_example_batch(_jax_cfg(cfg), batch_size=batch_size)
     rng = np.random.default_rng(0)
     for k, v in jb.items():
         if v.dtype == jnp.float32 and v.ndim == 4:
             jb[k] = jnp.asarray(rng.uniform(-1, 1, v.shape).astype(
                 np.float32))
-    tb = m2.make_example_batch(cfg, batch_size=1, device="cpu")
+    tb = m2.make_example_batch(cfg, batch_size=batch_size, device="cpu")
     assert set(tb) == set(jb)
     for k, v in jb.items():
         a = np.asarray(v)

@@ -3,8 +3,8 @@ configuration (crop 64, load 72, ngf = ndf = 8, sources of 96^2):
 
 - ``to_configs`` equal to the JAX one on every field the two configs share
   (the JAX ``compute_dtype`` being float32), for the readme's drawing and
-  cartoon commands and four flag variants; the flags the port refuses exit
-  with a message that names them;
+  cartoon commands and four flag variants; the flags the port once refused
+  (bf16, ``--data_parallel``, ``--multihost``) parse as the JAX CLI's;
 - the slice as a whole: a dataset batch of a ``write_umlvd_tree`` tree (the
   ``tri_motion`` branch) through the port's ``grads`` and the JAX
   ``grads_fn``, with the port's weights carried into the JAX package by its
@@ -89,18 +89,39 @@ def test_to_configs_match_jax(argv):
 @pytest.mark.parametrize("flag", [["--compute_dtype", "bfloat16"],
                                   ["--data_parallel", "2"],
                                   ["--multihost", "1"]])
-def test_refused_flags_exit_with_their_name(tmp_path, flag):
-    """The flags the port does not run exit with their name; a bf16 step is
-    no longer refused, and its config carries the dtype (the bf16 trainer
-    itself runs in tests/test_torch_bf16_train.py)."""
+def test_refused_flags_exit_with_their_name(tmp_path, flag, monkeypatch):
+    """The flags the port once refused are accepted now and parse as the
+    JAX CLI parses them: a bf16 step's config carries the dtype (the bf16
+    trainer itself runs in tests/test_torch_bf16_train.py), and the
+    multi-card flags (run in tests/test_torch_data_parallel.py) keep
+    their values and the JAX defaults of the others."""
+    from animateportrait_tpu import train_cli as jtrain_cli
+
     argv = ["--dataroot", str(tmp_path), "--device", "cpu", *flag]
-    if flag[1] == "bfloat16":
-        m2cfg, _ = toptions.to_configs(train_cli.build_argparser()
-                                       .parse_args(argv))
-        assert m2cfg.compute_dtype == "bfloat16"
-        return
-    with pytest.raises(SystemExit, match=f"{flag[0]} .*not ported yet"):
-        train_cli.main(argv)
+    if flag[0] == "--multihost":
+        argv += ["--coordinator_address", "127.0.0.1:1234",
+                 "--num_processes", "2", "--process_id", "1"]
+    targs = train_cli.build_argparser().parse_args(argv)
+    m2cfg, _ = toptions.to_configs(targs)
+    assert m2cfg.compute_dtype == ("bfloat16" if flag[1] == "bfloat16"
+                                   else "float32")
+    # the JAX CLI builds its parser inside main: stop it there
+    import argparse
+
+    parsed = {}
+
+    def grab(self, args=None, namespace=None):
+        parsed["args"] = self.parse_known_args(args)[0]
+        raise SystemExit(0)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", grab)
+    with pytest.raises(SystemExit):
+        jtrain_cli.main([a for a in argv if a not in ("--device", "cpu")])
+    monkeypatch.undo()
+    jargs = parsed["args"]
+    for k in ("data_parallel", "multihost", "coordinator_address",
+              "num_processes", "process_id"):
+        assert getattr(targs, k) == getattr(jargs, k), k
 
 
 def test_cuda_device_without_a_card_raises(tmp_path):
