@@ -66,6 +66,7 @@
 // What bounds it on this card: memory. Each element is read once and
 // written once and costs a handful of flops, so the bound is
 // 2 * sizeof(T) bytes per element (8 in fp32, 4 in bf16) over 3.35 TB/s.
+#include <algorithm>
 #include <cstdint>
 
 #include <cooperative_groups.h>
@@ -412,15 +413,21 @@ template <typename T, bool kBulk, bool kCluster>
 cudaError_t launch_smem(const T* x, T* y, float* stats, int planes, int hw,
                         int cluster, int slice, float eps, int relu,
                         cudaStream_t stream) {
-  // raise the kernel's dynamic shared memory limit once per size
-  static int limit = 48 * 1024;
+  // raise the kernel's dynamic shared memory limit once per size and
+  // card: the attribute belongs to the current card, and one process may
+  // launch on several (a renderer with a replica on each card)
+  constexpr int kCards = 64;
+  static int limit[kCards] = {};
+  int card = 0;
+  const cudaError_t got = cudaGetDevice(&card);
+  if (got != cudaSuccess) return got;
   const int bytes = static_cast<int>(sizeof(T)) * slice;
-  if (bytes > limit) {
+  if (card >= kCards || bytes > std::max(limit[card], 48 * 1024)) {
     const cudaError_t e = cudaFuncSetAttribute(
         instance_norm_smem_kernel<T, kBulk, kCluster>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
-    limit = bytes;
+    if (card < kCards) limit[card] = bytes;
   }
   // about 16 elements a thread, 64 to 512 threads
   int threads = 64;

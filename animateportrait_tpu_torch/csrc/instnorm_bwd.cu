@@ -44,6 +44,7 @@
 // What bounds it on this card: memory, 3 * sizeof(T) bytes an element
 // (read x and g, write dx: 12 in fp32, 6 in bf16) over 3.35 TB/s; ~10 flops
 // an element.
+#include <algorithm>
 #include <cstdint>
 
 #include <cooperative_groups.h>
@@ -311,15 +312,21 @@ template <typename T, bool kVec, bool kCluster>
 cudaError_t launch_smem(const T* x, const T* g, const float* stats, T* dx,
                         int planes, int hw, int cluster, int slice, int relu,
                         cudaStream_t stream) {
-  // raise the kernel's dynamic shared memory limit once per size
-  static int limit = 48 * 1024;
+  // raise the kernel's dynamic shared memory limit once per size and
+  // card: the attribute belongs to the current card, and one process may
+  // launch on several (a renderer with a replica on each card)
+  constexpr int kCards = 64;
+  static int limit[kCards] = {};
+  int card = 0;
+  const cudaError_t got = cudaGetDevice(&card);
+  if (got != cudaSuccess) return got;
   const int bytes = 2 * static_cast<int>(sizeof(T)) * slice;
-  if (bytes > limit) {
+  if (card >= kCards || bytes > std::max(limit[card], 48 * 1024)) {
     const cudaError_t e = cudaFuncSetAttribute(
         instance_norm_bwd_smem_kernel<T, kVec, kCluster>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
-    limit = bytes;
+    if (card < kCards) limit[card] = bytes;
   }
   // about 16 elements a thread, 64 to 512 threads
   int threads = 64;

@@ -480,4 +480,8 @@ def stop_worker_servers() -> None:
     # multiprocessing has no public way to stop either; both are 3.12's
     # module singletons, and _stop is a no-op for one that never started
     forkserver._forkserver._stop()
-    resource_tracker._resource_tracker._stop()
+    tracker = resource_tracker._resource_tracker
+    # a spawned process inherits its parent's tracker as a bare file
+    # descriptor, without the pid that _stop waits on: the parent's to stop
+    if tracker._pid is not None:
+        tracker._stop()

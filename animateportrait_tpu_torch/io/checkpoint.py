@@ -59,7 +59,14 @@ def load_flax_npz(path: str) -> dict:
 
 
 def train_state_dict(state) -> dict:
-    """A ``TrainState`` (``train/module2.py``) as one picklable dict."""
+    """A ``TrainState`` (``train/module2.py``) as one picklable dict. A
+    state sharded by ``train/fsdp.py`` is gathered whole first
+    (``gather_state``, a collective: every rank of its group calls this),
+    so its checkpoint is the one an unsharded run writes."""
+    if state.fsdp is not None:
+        from animateportrait_tpu_torch.train.fsdp import gather_state
+
+        state = gather_state(state)
     return {"step": int(state.step), "g": state.g.state_dict(),
             "d": state.d.state_dict(), "g_opt": state.g_opt.state_dict(),
             "d_opt": state.d_opt.state_dict(), "pool": state.pool,
@@ -70,7 +77,11 @@ def train_state_dict(state) -> dict:
 def load_train_state(state, obj: dict):
     """Load ``train_state_dict``'s dict into ``state``, in place, on the
     state's devices; returns ``state``. A checkpoint of another compute
-    dtype than the state's raises: its run would not go on as it was."""
+    dtype than the state's raises: its run would not go on as it was; so
+    does a sharded state (load the whole state, then shard it)."""
+    if state.fsdp is not None:
+        raise ValueError("load a checkpoint into an unsharded state, then "
+                         "shard it (train/fsdp.py:shard_state_fsdp)")
     saved = obj.get("compute_dtype", "float32")
     if saved != state.compute_dtype:
         raise ValueError(f"checkpoint of a {saved} run, restored into a "

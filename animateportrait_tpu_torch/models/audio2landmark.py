@@ -111,14 +111,19 @@ class MultiHeadAttention(nn.Module):
         self.out = nn.Linear(d_model, d_model)
 
     def forward(self, q, k, v):
+        return self.attend(self.q_linear(q), self.k_linear(k),
+                           self.v_linear(v))
+
+    def attend(self, q, k, v):
+        """The heads' attention of projected queries, keys and values,
+        through the output projection (the sequence-parallel pos projects
+        its keys and values before it gathers them)."""
         bs, dk = q.shape[0], self.d_model // self.heads
 
         def split(t):
             return t.reshape(bs, -1, self.heads, dk).transpose(1, 2)
 
-        qh = split(self.q_linear(q))
-        kh = split(self.k_linear(k))
-        vh = split(self.v_linear(v))
+        qh, kh, vh = split(q), split(k), split(v)
         scores = F.softmax(qh @ kh.transpose(-2, -1) / math.sqrt(dk), dim=-1)
         o = (scores @ vh).transpose(1, 2).reshape(bs, -1, self.d_model)
         return self.out(o)

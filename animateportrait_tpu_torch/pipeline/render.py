@@ -45,6 +45,7 @@ order. One replica is the single-card path.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 
 import numpy as np
@@ -196,10 +197,21 @@ class Module2Renderer:
                motions=None, simplices=None, return_all: bool = False,
                replica: int = 0):
         """One frame batch, on ``replica``'s nets and device (its inputs
-        there). a_lm68 (1, 68, 2); tb_lm68s (B, 68, 2); the ``motions``
-        (B, cs, cs, 2), or the ``simplices`` of each frame for the linear
-        grid, or neither for the TPS grid. ``return_all``: a dict of the
-        batch's intermediates (NCHW, fp32) in place of the frames."""
+        there), with that card the current one (the kernels launch on the
+        current card). a_lm68 (1, 68, 2); tb_lm68s (B, 68, 2); the
+        ``motions`` (B, cs, cs, 2), or the ``simplices`` of each frame for
+        the linear grid, or neither for the TPS grid. ``return_all``: a
+        dict of the batch's intermediates (NCHW, fp32) in place of the
+        frames."""
+        dev = self.replicas[replica][2]
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            return self._frames(g_cache, mask, fake_static, a_lm68,
+                                tb_lm68s, motions, simplices, return_all,
+                                replica)
+
+    def _frames(self, g_cache, mask, fake_static, a_lm68, tb_lm68s, motions,
+                simplices, return_all, replica):
         g, flowunet, _ = self.replicas[replica]
         B = tb_lm68s.shape[0]
         cs = self.crop_size

@@ -239,7 +239,9 @@ def build_dataset(root, n_a=6, n_b=6, n_clip=6, size=300, seed=0):
 def train_argv(root, ckpt_dir, crop, steps_per_epoch, ngf, print_freq=10,
                frozen_dir=None, device=DEFAULT_DEVICE) -> list[str]:
     """The JAX tool's ``train_cli`` flags (the readme's drawing command at
-    ``crop`` and ``ngf``) and the port's ``--device``."""
+    ``crop`` and ``ngf``), the port's ``--device``, and one card
+    (``--data_parallel 1``: the flag's default takes every visible card,
+    and the record is the one-card trainer's)."""
     return [
         "--dataroot", root, "--name", "overfit", "--model",
         "geomgm_ifw_fore", "--netG", "resnet_9blocks_rcatland32_full_ifw",
@@ -261,7 +263,7 @@ def train_argv(root, ckpt_dir, crop, steps_per_epoch, ngf, print_freq=10,
         # train/standin_frozen.py's output to give geom_B / iden_B a
         # meaningful frozen signal
         "--frozen_dir", frozen_dir or os.path.join(ckpt_dir, "frozen-none"),
-        "--device", str(device),
+        "--device", str(device), "--data_parallel", "1",
     ]
 
 

@@ -28,8 +28,12 @@ JAX's ``_cast``) and on bf16 copies of the frozen nets, every leaf cast
 come back to fp32; the losses, the TPS solves, the motion grids, the flows,
 the pool and Adam stay fp32. InstanceNorm runs K2 and K2b in bf16 on the
 card. ``torch.autocast`` is not used: it keeps some ops in fp32 and so
-rounds elsewhere than JAX's all-bf16 activations. The JAX package's FSDP
-sharding is not ported.
+rounds elsewhere than JAX's all-bf16 activations.
+
+A state sharded by ``train/fsdp.py:shard_state_fsdp`` (the JAX package's
+FSDP) takes the same step over its group: G and the Ds gathered whole once
+for the step, the gradients of the sharded leaves reduce-scattered into
+each rank's slice, Adam on the slices.
 
 Layouts: images (N, C, H, W) in [-1, 1]; landmarks (N, 68, 2) (x, y) in
 crop-size pixels; motion grids (N, H, W, 2) normalized (x, y); face
@@ -155,6 +159,8 @@ class TrainState:
     pool: torch.Tensor
     pool_count: int
     compute_dtype: str = "float32"
+    # train/fsdp.py:FSDPShards of a sharded state, else None
+    fsdp: object = None
 
 
 @dataclasses.dataclass
@@ -780,7 +786,21 @@ class Module2TrainStep:
         rank draws the same, from the same step-seeded ``gen``, so the pool
         stays replicated), each rank's D loss takes its slice of the pooled
         images, and the gradients and losses are averaged over the ranks
-        (the mean of equal slices' means is the global mean)."""
+        (the mean of equal slices' means is the global mean).
+
+        A sharded state (``train/fsdp.py``) takes this step over its own
+        group: its nets are gathered for the pass, and ``Grads`` holds
+        this rank's slice of the mean of each sharded leaf's gradient."""
+        fsdp = state.fsdp
+        if fsdp is None:
+            return self._grads(state, batch, frozen, gen, group)
+        if group is not None and group is not fsdp.group:
+            raise ValueError("a sharded state steps over its own group")
+        with fsdp.whole():
+            return self._grads(state, batch, frozen, gen, fsdp.group)
+
+    def _grads(self, state: TrainState, batch: dict, frozen: FrozenNets,
+               gen: torch.Generator, group) -> Grads:
         shared = self.forward_shared(batch, frozen)
         g_names, g_params = zip(*state.g.named_parameters())
         g_loss, fake_B, fake_B2, g_losses = self.g_loss(
@@ -806,18 +826,23 @@ class Module2TrainStep:
         d_grads = [torch.zeros_like(p) if gr is None else gr
                    for p, gr in zip(d_params, d_grads)]
         metrics = {k: v.detach() for k, v in {**g_losses, **d_losses}.items()}
+        g_grads, d_grads = (dict(zip(g_names, g_grads)),
+                            dict(zip(d_names, d_grads)))
+        if state.fsdp is not None:
+            reduced = state.fsdp.reduce_grads({"g": g_grads, "d": d_grads})
+            g_grads, d_grads = reduced["g"], reduced["d"]
+        elif group is not None:
+            # one flattened buffer per net
+            ddp.all_reduce_mean_(list(g_grads.values()), group)
+            ddp.all_reduce_mean_(list(d_grads.values()), group)
         if group is not None:
-            # one flattened buffer per net, and one for the losses
-            g_grads = list(g_grads)
-            ddp.all_reduce_mean_(g_grads, group)
-            ddp.all_reduce_mean_(d_grads, group)
+            # and one for the losses
             names = list(metrics)
             stacked = [torch.stack([metrics[k].float() for k in names])]
             ddp.all_reduce_mean_(stacked, group)
             metrics = dict(zip(names, stacked[0].unbind()))
-        return Grads(g=dict(zip(g_names, g_grads)),
-                     d=dict(zip(d_names, d_grads)), pool=pool,
-                     pool_count=count, metrics=metrics)
+        return Grads(g=g_grads, d=d_grads, pool=pool, pool_count=count,
+                     metrics=metrics)
 
     @torch.no_grad()
     def visuals(self, state: TrainState, batch: dict, frozen: FrozenNets
@@ -855,11 +880,14 @@ class Module2TrainStep:
 
     def apply_grads(self, state: TrainState, grads: Grads) -> None:
         """Both Adam updates of ``grads`` at ``lr_at(cfg, state.step)``, the
-        pool after the step's queries and the step count, in place."""
+        pool after the step's queries and the step count, in place (on
+        this rank's slices of a sharded state)."""
         lr = lr_at(self.cfg, state.step)
-        for net, opt, gr in ((state.g, state.g_opt, grads.g),
-                             (state.d, state.d_opt, grads.d)):
-            for name, p in net.named_parameters():
+        for key, opt, gr in (("g", state.g_opt, grads.g),
+                             ("d", state.d_opt, grads.d)):
+            params = (dict(getattr(state, key).named_parameters())
+                      if state.fsdp is None else state.fsdp.masters[key])
+            for name, p in params.items():
                 p.grad = gr[name]
             for group in opt.param_groups:
                 group["lr"] = lr

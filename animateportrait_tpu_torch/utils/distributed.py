@@ -122,6 +122,76 @@ def all_reduce_mean_(tensors: list[torch.Tensor], group=None) -> None:
             t.copy_(v.view_as(t))
 
 
+def all_gather_dim(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """Every rank's ``x`` (equal shapes), concatenated along ``dim`` in
+    rank order (the tensor-parallel generator's channel slices)."""
+    if dim == 0:
+        return all_gather_batch(x, group)
+    return torch.cat(all_gather_batch(x.movedim(dim, 0).unsqueeze(0),
+                                      group).unbind(0), dim=0).movedim(0, dim)
+
+
+def all_gather_flat(tensors: list[torch.Tensor], group=None
+                    ) -> list[torch.Tensor]:
+    """Every rank's ``tensors`` (the same shapes on every rank), through
+    one flattened buffer per dtype: for each tensor, the ranks' copies
+    stacked, (world, *shape), rank r's at [r]."""
+    _, n = world(group)
+    out: list = [None] * len(tensors)
+    for dtype in dict.fromkeys(t.dtype for t in tensors):
+        idx = [i for i, t in enumerate(tensors) if t.dtype == dtype]
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        every = all_gather_batch(flat[None], group)        # (n, total)
+        for i, part in zip(idx, every.split(
+                [tensors[i].numel() for i in idx], dim=1)):
+            out[i] = part.reshape(n, *tensors[i].shape)
+    return out
+
+
+def reduce_scatter_mean(parts: list[torch.Tensor], group=None
+                        ) -> list[torch.Tensor]:
+    """For each tensor of ``parts`` ((world, *shape): rank r's share at
+    [r]), the mean over the ranks of this rank's share, through one
+    flattened buffer per dtype: NCCL's reduce-scatter; under gloo, which
+    reduce-scatters no CUDA tensor, an all-reduce of the buffer and then
+    this rank's share of it."""
+    rank, n = world(group)
+    out: list = [None] * len(parts)
+    for dtype in dict.fromkeys(t.dtype for t in parts):
+        idx = [i for i, t in enumerate(parts) if t.dtype == dtype]
+        sizes = [parts[i][0].numel() for i in idx]
+        flat = torch.cat([parts[i][r].reshape(-1) for r in range(n)
+                          for i in idx])
+        total = sum(sizes)
+        if dist.get_backend(group) == "nccl":
+            mine = torch.empty(total, dtype=dtype, device=flat.device)
+            dist.reduce_scatter_tensor(mine, flat, group=group)
+        else:
+            dist.all_reduce(flat, group=group)
+            mine = flat[rank * total:(rank + 1) * total]
+        mine = mine / n
+        for i, v in zip(idx, mine.split(sizes)):
+            out[i] = v.view(parts[i].shape[1:])
+    return out
+
+
+def grid_groups(shape: tuple[int, int]) -> tuple:
+    """The (data group, model group) of this rank in a (data, model) grid
+    of the world's ranks, row-major (rank = i * model + j): the model
+    group is the rank's row of ``model`` ranks, the data group its column
+    of ``data`` ranks. Every rank builds every group (``dist.new_group``
+    is collective), in the same order."""
+    d, m = shape
+    rank, n = world()
+    if d * m != n:
+        raise ValueError(f"grid {shape} for {n} ranks")
+    rows = [dist.new_group(list(range(i * m, (i + 1) * m)), timeout=TIMEOUT)
+            for i in range(d)]
+    cols = [dist.new_group(list(range(j, n, m)), timeout=TIMEOUT)
+            for j in range(m)]
+    return cols[rank % m], rows[rank // m]
+
+
 def broadcast_tensors(tensors: list[torch.Tensor], group=None) -> None:
     """Overwrite ``tensors`` (the same shapes on every rank) with rank 0's,
     in place."""

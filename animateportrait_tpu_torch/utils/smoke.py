@@ -561,10 +561,11 @@ def cancelled_biases(net: nn.Module, norms: tuple | None = None) -> set:
                   if k.endswith("k_linear.bias")}
 
 
-def grad_parity(got: dict, ref: dict, ref64: dict | None, noise: set
-                ) -> dict[str, float]:
+def grad_parity(got: dict, ref: dict, ref64: dict | None, noise: set,
+                bar: float = 1e-3) -> dict[str, float]:
     """Each gradient leaf of ``got`` against ``ref`` (tensors or arrays by
-    key), as a number to be held to 1e-3:
+    key), as a number to be held to ``bar`` (1e-3; the same rule holds
+    parameters after a few steps at 1e-4):
 
     - a leaf whose gradient is 0 in exact arithmetic, one in ``noise`` (a
       cancelled bias) or one whose float64 value (``ref64``, else ``ref``)
@@ -572,10 +573,11 @@ def grad_parity(got: dict, ref: dict, ref64: dict | None, noise: set
       tree's largest |ref|;
     - any other leaf: max |got - ref| over its own largest |ref|; or, given
       ``ref64`` (a float64 run of the same step) and where ``ref``'s own
-      distance d from it is above 1e-3 of its scale (the step is
-      ill-conditioned in fp32 there), got's distance from ``ref64`` over
-      3 d, times 1e-3: the leaf passes when it is no farther from float64
-      than 3x ``ref``'s own fp32 distance.
+      distance d from it is above ``bar`` of its scale (the step is
+      ill-conditioned in fp32 there, or ``ref``'s is not repeatable),
+      got's distance from ``ref64`` over 3 d, times ``bar``: the leaf
+      passes when it is no farther from float64 than 3x ``ref``'s own
+      fp32 distance.
 
     Each leaf is judged on its own numbers only."""
     def arr(x):
@@ -602,8 +604,8 @@ def grad_parity(got: dict, ref: dict, ref64: dict | None, noise: set
         out[k] = rel(g, ref[k])
         if ref64 is not None:
             d = rel(ref[k], exact[k])
-            if d > 1e-3:
-                out[k] = 1e-3 * rel(g, exact[k]) / (3 * d)
+            if d > bar:
+                out[k] = bar * rel(g, exact[k]) / (3 * d)
     return out
 
 
@@ -648,20 +650,29 @@ def _sync(device: torch.device) -> None:
 
 
 def dp_step_run(cfg, batch: dict, steps: int, device: torch.device,
-                group=None) -> dict:
+                group=None, fsdp_min_size: int | None = None,
+                ckpt_dir: str | None = None, decompose: int | None = None
+                ) -> dict:
     """``steps`` Module2 training steps from ``train_cli``'s seeded state
     and frozen nets (seeds 0 and 1) on ``batch`` (a dict of numpy arrays,
     the global batch), each step's pool drawn from a generator seeded by
     the step on ``device``, as ``train_cli`` draws it. With a process
     ``group``, this rank's contiguous slice of the batch in the
-    data-parallel step; without, the whole batch in one process. Returns
-    each step's losses and gradients, the pool and its count
-    after each step, the parameters before and after each step (all on
-    the host),
-    K2's and K2b's launches in the steps, each step's ms (host clock to a
-    synchronize), the bytes a step all-reduces, and the largest |K2 - its
+    data-parallel step; without, the whole batch in one process, or with
+    ``decompose`` the step of that many ranks emulated in one process
+    (``decomposed_grads``). With ``fsdp_min_size`` too, the state FSDP-sharded over the group at that
+    ``min_size`` (``train/fsdp.py``). Returns each step's losses and
+    gradients, the pool and its count after each step, the parameters
+    before and after each step (all on the host, whole), K2's and K2b's
+    launches in the steps, each step's ms (host clock to a synchronize),
+    the bytes a step all-reduces (and, sharded, reduce-scatters; it
+    all-gathers as many), the peak memory on a card, and the largest |K2 - its
     plain version| on the first step's InstanceNorm inputs of G and the
-    Ds."""
+    Ds; sharded, also this rank's bytes of parameters plus moments
+    (``FSDPShards.nbytes``) and the shape of each master and moment.
+    With ``ckpt_dir``, the state after the steps is saved there through
+    ``io/checkpoint.py`` by rank 0 (a sharded one gathered whole on every
+    rank first)."""
     import time
 
     import torch.distributed as dist
@@ -669,9 +680,16 @@ def dp_step_run(cfg, batch: dict, steps: int, device: torch.device,
     from animateportrait_tpu_torch.ops.instnorm import (
         instance_norm, instance_norm_backward)
     from animateportrait_tpu_torch.train import module2 as m2
+    from animateportrait_tpu_torch.train.fsdp import (
+        gather_state, shard_state_fsdp)
 
     def host(tree):
         return {k: v.detach().cpu().clone() for k, v in tree.items()}
+
+    def params(state):
+        whole = gather_state(state)
+        return {"g": host(dict(whole.g.named_parameters())),
+                "d": host(dict(whole.d.named_parameters()))}
 
     rank, world = (0, 1) if group is None else (dist.get_rank(group),
                                                 dist.get_world_size(group))
@@ -682,39 +700,102 @@ def dp_step_run(cfg, batch: dict, steps: int, device: torch.device,
     frozen = m2.init_frozen_random(torch.Generator().manual_seed(1), device)
     step_fn = m2.build_train_step(cfg)
     kept, hooks = _kept_instance_norm_inputs([state.g, state.d])
+    sizes = [p.numel() for net in (state.g, state.d)
+             for p in net.parameters()]
+    if fsdp_min_size is not None:
+        shard_state_fsdp(state, group, fsdp_min_size)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
 
     out = {"metrics": [], "grads": [], "pools": [], "pool_counts": [],
-           "ms": [],
-           "params": [{"g": host(dict(state.g.named_parameters())),
-                       "d": host(dict(state.d.named_parameters()))}]}
+           "ms": [], "params": [params(state)]}
     instance_norm.launches = instance_norm_backward.launches = 0
     for i in range(steps):
         _sync(device)
         t0 = time.perf_counter()
         gen = torch.Generator(device=device).manual_seed(state.step)
-        grads = step_fn.grads(state, local, frozen, gen, group)
+        grads = (step_fn.grads(state, local, frozen, gen, group)
+                 if decompose is None else decomposed_grads(
+                     step_fn, state, local, frozen, gen, decompose))
         step_fn.apply_grads(state, grads)
         _sync(device)
         out["ms"].append(1e3 * (time.perf_counter() - t0))
         for h in hooks:
             h.remove()
         hooks = []
-        out["grads"].append({"g": host(grads.g), "d": host(grads.d)})
+        if i == 0 and device.type == "cuda":
+            out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+        g, d = grads.g, grads.d
+        if state.fsdp is not None:
+            g, d = (state.fsdp.gather_tree("g", g),
+                    state.fsdp.gather_tree("d", d))
+        out["grads"].append({"g": host(g), "d": host(d)})
         out["metrics"].append({k: float(v) for k, v in grads.metrics.items()})
         out["pools"].append(grads.pool.cpu())
         out["pool_counts"].append(grads.pool_count)
-        out["params"].append({"g": host(dict(state.g.named_parameters())),
-                              "d": host(dict(state.d.named_parameters()))})
+        out["params"].append(params(state))
     out["launches"] = {"instance_norm": instance_norm.launches,
                        "instance_norm_backward":
                        instance_norm_backward.launches}
     # G's and the Ds' gradients, and the step's losses, in fp32
     out["allreduce_bytes"] = 0 if group is None else 4 * (
-        sum(p.numel() for p in state.g.parameters())
-        + sum(p.numel() for p in state.d.parameters())
-        + len(out["metrics"][0]))
+        sum(sizes) + len(out["metrics"][0]))
+    if state.fsdp is not None:
+        fs = state.fsdp
+        shard = 4 * sum(m.numel() for *_, m, _ in fs.sharded())
+        # the sharded leaves leave the all-reduce for a reduce-scatter of
+        # the whole gradients and an all-gather of the slices
+        out["allreduce_bytes"] -= shard * fs.world
+        out["reduce_scatter_bytes"] = shard * fs.world
+        out["fsdp_bytes"] = fs.nbytes()
+        out["shapes"] = {
+            f"{key}.{name}": (tuple(m.shape), axis, tuple(
+                v.shape for k, v in fs.opts[key].state[m].items()
+                if k != "step"))
+            for key, name, _, m, axis in fs.sharded()}
     out["k2_err"] = k2_against_plain(kept)
+    if ckpt_dir is not None:
+        from animateportrait_tpu_torch.io.checkpoint import (
+            CheckpointManager, train_state_dict)
+
+        obj = train_state_dict(state)
+        if rank == 0:
+            CheckpointManager(ckpt_dir).save(state.step, obj)
     return out
+
+
+def decomposed_grads(step_fn, state, batch: dict, frozen, gen, n: int):
+    """The data-parallel ``Grads`` of n ranks emulated in one process:
+    each rank's contiguous slice of ``batch`` through ``step_fn.grads``
+    alone, the gradients and losses averaged, the pool filled in the
+    ranks' order. While the pool fills (it returns each query's own
+    images, so a slice's pass needs no other rank's fakes) this is the n
+    ranks' computation, each conv at a rank's batch; a step that would
+    fill the pool raises."""
+    from animateportrait_tpu_torch.train.module2 import Grads
+
+    per = next(iter(batch.values())).shape[0] // n
+    c = state.pool_count
+    if c + 2 * n * per > state.pool.shape[0]:
+        raise ValueError(f"the pool ({c} of {state.pool.shape[0]}) would "
+                         f"fill: the slices' passes need the other ranks' "
+                         f"fakes")
+    parts = [step_fn.grads(state, {k: v[r * per:(r + 1) * per]
+                                   for k, v in batch.items()}, frozen, gen)
+             for r in range(n)]
+    pool = state.pool.clone()
+    for r, gr in enumerate(parts):
+        # a rank's slice of each query (fake_B, then fake_B2) in rank order
+        for q in range(2):
+            at = c + q * n * per + r * per
+            pool[at:at + per] = gr.pool[c + q * per:c + (q + 1) * per]
+
+    def mean(key):
+        return {k: sum(getattr(gr, key)[k] for gr in parts) / n
+                for k in getattr(parts[0], key)}
+
+    return Grads(g=mean("g"), d=mean("d"), pool=pool,
+                 pool_count=c + 2 * n * per, metrics=mean("metrics"))
 
 
 def dp_step_rank(rank: int, world: int, device: torch.device, cfg,
@@ -728,6 +809,36 @@ def dp_step_rank(rank: int, world: int, device: torch.device, cfg,
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
+def fsdp_steps(rank: int, world: int, device: torch.device, cfg,
+               batch: dict, steps: int, min_size: int,
+               ckpt_root: str | None = None) -> dict:
+    """``dp_step_run`` data-parallel, then with the state FSDP-sharded at
+    ``min_size``, over the default group: ``{"dp": ..., "fsdp": ...,
+    "backend": ...}``; with ``ckpt_root``, each run's final state goes to
+    the checkpoint directory ``<ckpt_root>/<mode>``."""
+    import torch.distributed as dist
+
+    res = {mode: dp_step_run(cfg, batch, steps, device, dist.group.WORLD,
+                             size, None if ckpt_root is None
+                             else os.path.join(ckpt_root, mode))
+           for mode, size in (("dp", None), ("fsdp", min_size))}
+    res["backend"] = dist.get_backend()
+    return res
+
+
+def jobs_rank(rank: int, world: int, device: torch.device, jobs: dict,
+              out_dir: str) -> None:
+    """One rank of ``utils/distributed.py:spawn`` that runs record
+    functions (``fsdp_steps``, ``gpipe_run``, ``multichip.py:tp_run``,
+    ``sp_run``), several in one spawn: ``jobs`` maps a name to (fn, args),
+    each ``fn(rank, world, device, *args)`` returning its record (None on
+    a rank it leaves out), run in order; ``{name: record}`` goes to
+    ``<out_dir>/rank<rank>.pt``."""
+    torch.save({name: fn(rank, world, device, *args)
+                for name, (fn, args) in jobs.items()},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+
+
 def resnet_blocks(dim: int, n: int, seed: int = 0) -> list[dict]:
     """The state dicts of ``n`` seeded random ``models/gan.py:
     ResnetBlock(dim)``s (``init_random_``)."""
@@ -738,16 +849,17 @@ def resnet_blocks(dim: int, n: int, seed: int = 0) -> list[dict]:
             for _ in range(n)]
 
 
-def gpipe_rank(rank: int, world: int, device: torch.device,
-               blocks: list[dict], x: np.ndarray, microbatches: list,
-               out_dir: str) -> None:
+def gpipe_run(rank: int, world: int, device: torch.device,
+              blocks: list[dict], x: np.ndarray, microbatches: list,
+              stages: int | None = None) -> dict | None:
     """One stage of a ``parallel.gpipe_apply`` run of the ResNet blocks
-    ``blocks`` (state dicts, split over the ranks by ``stage_blocks``) on
-    ``x`` (NCHW numpy), once for each count of ``microbatches``; writes
-    ``<out_dir>/rank<rank>.pt``: the output of each count, K2's launches
-    in them, ms each (host clock to a synchronize), the error of an
-    indivisible batch, and the largest |K2 - its plain version| on this
-    stage's InstanceNorm inputs."""
+    ``blocks`` (state dicts, split over the stages by ``stage_blocks``) on
+    ``x`` (NCHW numpy), once for each count of ``microbatches``, over the
+    first ``stages`` ranks of the world (default all; every rank must
+    call, and the others return None). Returns the output of each count,
+    K2's launches in them, ms each (host clock to a synchronize), the
+    error of an indivisible batch, the largest |K2 - its plain version|
+    on this stage's InstanceNorm inputs, and the backend."""
     import time
 
     import torch.distributed as dist
@@ -757,9 +869,16 @@ def gpipe_rank(rank: int, world: int, device: torch.device,
     from animateportrait_tpu_torch.parallel import (
         gpipe_apply, resnet_stage, stage_blocks)
 
+    stages = stages or world
+    group = None
+    if stages < world:
+        # new_group is collective: every rank of the world builds it
+        group = dist.new_group(list(range(stages)))
+        if rank >= stages:
+            return None
     dim = x.shape[1]
     mods = []
-    for sd in stage_blocks(blocks, world, rank):
+    for sd in stage_blocks(blocks, stages, rank):
         block = ResnetBlock(dim)
         block.load_state_dict(sd)
         mods.append(block)
@@ -771,7 +890,7 @@ def gpipe_rank(rank: int, world: int, device: torch.device,
         instance_norm.launches = 0
         _sync(device)
         t0 = time.perf_counter()
-        y = gpipe_apply(stage, xt, num_microbatches=m)
+        y = gpipe_apply(stage, xt, group, num_microbatches=m)
         _sync(device)
         out["ms"][m] = 1e3 * (time.perf_counter() - t0)
         out["launches"][m] = instance_norm.launches
@@ -780,13 +899,13 @@ def gpipe_rank(rank: int, world: int, device: torch.device,
             h.remove()
         hooks = []
     try:
-        gpipe_apply(stage, xt[:1], num_microbatches=world + 1)
+        gpipe_apply(stage, xt[:1], group, num_microbatches=stages + 1)
         out["indivisible"] = None
     except ValueError as e:
         out["indivisible"] = str(e)
     out["k2_err"] = k2_against_plain(kept)
     out["backend"] = dist.get_backend()
-    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    return out
 
 
 def adam_update_parity(new: dict, ref: dict, old: dict, decisive_by: dict,

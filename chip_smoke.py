@@ -188,6 +188,37 @@ Phases, each printing its own lines:
      channels at 64^2, batch 6) over 3 ranks (gloo) at M = 3 and 6
      against the blocks in sequence on the same microbatches (rtol =
      atol = 2e-5), K2's launches per rank.
+ 17. the multi-card paths one rank a card, over NCCL, on n = min(4,
+     cards) cards (an even n, for the TP grid); (a), (b), (e), (f) and
+     (g) run in one spawn of the n ranks: (a) phase 7's step at global
+     batch 4 against one process running the ranks' step (each rank's
+     slice alone, at its batch: ``utils/smoke.py:decomposed_grads``) at
+     phase 16 (a)'s rule, 3x that process's own spread, the pool after
+     both steps too; the fault, rank 0's slice alone, beyond each
+     gradient bar; (b) the same step with the state
+     FSDP-sharded (``train/fsdp.py``) against (a)'s ranks, with each
+     rank's parameter + moment bytes and peak memory beside DP's; the
+     ranks' parameters bit-equal after both steps, K2 and K2b launched and
+     K2 against its plain version on every rank; (c) ``train_cli.main
+     --data_parallel n`` and ``--multihost`` as n processes
+     (``LOCAL_RANK``), 2 steps, each step's losses against one process
+     running the ranks' step on the same global batches within 3x that
+     process's own spread, and the first rank's share alone beyond it;
+     (d) ``cli.main --render_dp`` with
+     a replica a card, 8 frames a replica, bit-equal to phase 16's
+     one-card frames under cuDNN's deterministic algorithms, frames/s of
+     the render stage; (e) GPipe of the 9-block bottleneck, 3 stages on 3
+     cards, bit-equal to the blocks in sequence; (f) ``parallel.
+     tensor_parallel_generator`` of the full-width generator (ngf 64, 8
+     frames at 256^2) on a (n/2, 2) grid against one card within 1e-4;
+     (g) ``parallel.sequence_parallel_pos`` of the full-width pos branch
+     at T = 512, its attention outputs scaled by ``multichip.ATTN_GAIN``,
+     against one card within 1e-4, and the first rank's frames as a
+     sequence of their own beyond it; (h) ``multichip.
+     dryrun_multichip(n)``. Every part runs; the phase fails after them
+     if any failed. On one card it runs ``dryrun_multichip(2)`` over gloo
+     ranks that share the card, and says that (a)-(g) need two or more
+     cards.
 Then the loader's forkserver and multiprocessing's resource tracker are
 stopped, and no process the run started may still be running.
 
@@ -201,6 +232,11 @@ Any failure raises, and the script exits non-zero without a result. The
 line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. It needs a CUDA device: without one it
 stops in phase 0.
+
+``python3 chip_smoke.py --multi-card`` runs phases 0 and 1, the parts of
+phase 16 that phase 17 reads, and phase 17 alone, and prints no result
+line: on several cards, the multi-card paths at about half the whole
+run's time.
 """
 from __future__ import annotations
 
@@ -279,7 +315,10 @@ def phase0() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+        timeout=60, check=True).stdout.strip().splitlines()
+    for i, line in enumerate(smi[1:], 1):
+        say(f"[0] card {i}: {line}")
+    smi = smi[0]
     say(f"[0] card: {smi}")
     say(f"[0] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s), using "
@@ -1340,7 +1379,10 @@ def phase8(dev: torch.device, tmp: str) -> dict:
             "--save_latest_freq", "4", "--display_freq", "4",
             "--update_html_freq", "4", "--print_freq", "1",
             "--checkpoints_dir", ck, "--frozen_dir",
-            os.path.join(tmp, "frozen"), "--device", "cuda"]
+            os.path.join(tmp, "frozen"), "--device", "cuda",
+            # one process on one card (the flag's default 0 takes every
+            # visible card)
+            "--data_parallel", "1"]
     cfg, _ = to_configs(train_cli.build_argparser().parse_args(argv))
 
     torch.cuda.synchronize()
@@ -3349,6 +3391,7 @@ DP_POOL_ATOL = 1e-4     # the fakes of the same G, batch 2 against batch 4
 DP_POOL2_ATOL = 1e-3    # the fakes of a G after one Adam update
 RENDER_DP_MIN_PSNR = 40.0
 GPIPE_STAGES = 3
+GPIPE_MS = [3, 6]           # microbatch counts of phase 16 (d) and 17 (e)
 GPIPE_TOL = dict(rtol=2e-5, atol=2e-5)   # tests/test_parallel.py:47
 
 
@@ -3366,131 +3409,219 @@ def spawned(fn, devices: list, *args) -> tuple[list, float]:
                 for r in range(len(devices))], wall
 
 
-def phase16_dp_step(dev: torch.device, card: str) -> dict:
-    """(a) phase 7's step on a global batch of 4 over 2 ranks on this card
-    (gloo), against the single-process step on the same batch."""
-    from animateportrait_tpu_torch.train import module2 as m2
-    from animateportrait_tpu_torch.utils.smoke import (
-        adam_update_parity, cancelled_biases, dp_step_rank, dp_step_run,
-        grad_parity)
+def one_process_runs(cfg, batch: dict, dev: torch.device,
+                     decompose: int | None = None) -> tuple:
+    """``dp_step_run`` of phase 7's step in one process on the global
+    batch (with ``decompose``, that many ranks' step emulated: each rank's
+    slice alone, at the rank's batch), and its own spread: the same steps
+    called again, and with cuDNN's deterministic algorithms. At full
+    width and random weights a rounding-level change of the forward moves
+    fp32 gradients past ReLU and PReLU kinks by percent (ROADMAP Queue 3),
+    Adam turns the noise elements' gradients into +-lr steps, and a
+    smaller batch a rank is such a change: each comparison with one
+    process is held to the larger of its bar and 3x the wider of the two
+    spreads."""
+    from animateportrait_tpu_torch.utils.smoke import dp_step_run
 
-    cfg = m2.Module2Config(batch_d_passes=True)
-    batch = {k: v.numpy() for k, v in m2.make_random_batch(
-        cfg, TRAIN_BATCH, torch.Generator().manual_seed(2), "cpu").items()}
-    ranks, wall = spawned(dp_step_rank, [dev] * DP_RANKS, cfg, batch,
-                          DP_STEPS)
-    single = dp_step_run(cfg, batch, DP_STEPS, dev)
-    for r, rec in enumerate(ranks):
-        say(f"[16] DP step rank {r} ({rec['backend']}, batch "
-            f"{TRAIN_BATCH // DP_RANKS} of {TRAIN_BATCH}): ms a step "
-            f"{', '.join(f'{t:.1f}' for t in rec['ms'])}, "
-            f"{rec['allreduce_bytes'] / 2 ** 20:.1f} MiB all-reduced a step, "
-            f"launches {rec['launches']}, K2 vs plain on its InstanceNorm "
-            f"inputs {rec['k2_err']:.2e} ({card}; smoke figures)")
-        if min(rec["launches"].values()) <= 0:
-            raise AssertionError(f"rank {r}: a kernel never launched: "
-                                 f"{rec['launches']}")
-        if rec["k2_err"] > K2_ATOL:
-            raise AssertionError(f"rank {r}: K2 vs plain {rec['k2_err']}")
-    say(f"[16] single process, batch {TRAIN_BATCH}: ms a step "
-        f"{', '.join(f'{t:.1f}' for t in single['ms'])}; the 2 ranks took "
-        f"{wall:.1f} s of wall time, their start included")
-    # the one process's own spread: the same steps called again, and with
-    # cuDNN's deterministic algorithms. At full width and random weights a
-    # rounding-level change of the forward moves fp32 gradients past ReLU
-    # and PReLU kinks by percent (ROADMAP Queue 3), Adam turns the noise
-    # elements' gradients into +-lr steps, and batch 2 against batch 4 is
-    # such a change: each comparison is held to the larger of its bar and
-    # 3x the wider of the two spreads
-    others = {"called again": dp_step_run(cfg, batch, DP_STEPS, dev)}
+    def run():
+        return dp_step_run(cfg, batch, DP_STEPS, dev, decompose=decompose)
+
+    single = run()
+    others = {"called again": run()}
     torch.backends.cudnn.deterministic = True
     try:
-        others["cuDNN deterministic"] = dp_step_run(cfg, batch, DP_STEPS, dev)
+        others["cuDNN deterministic"] = run()
     finally:
         torch.backends.cudnn.deterministic = False
+    return single, others
 
-    def loss_diffs(run):
-        return [max(abs(run["metrics"][s][k] - v) / max(abs(v), 1e-5)
-                    for k, v in single["metrics"][s].items())
-                for s in range(DP_STEPS)]
 
-    def pool_diffs(run):
-        return [float((run["pools"][s] - single["pools"][s]).abs().max())
-                for s in range(DP_STEPS)]
+def _loss_diffs(run, ref) -> list:
+    return [max(abs(run["metrics"][s][k] - v) / max(abs(v), 1e-5)
+                for k, v in ref["metrics"][s].items())
+            for s in range(DP_STEPS)]
+
+
+def _pool_diffs(run, ref) -> list:
+    return [float((run["pools"][s] - ref["pools"][s]).abs().max())
+            for s in range(DP_STEPS)]
+
+
+def _noise(cfg, net: str) -> set:
+    from animateportrait_tpu_torch.train import module2 as m2
+    from animateportrait_tpu_torch.utils.smoke import cancelled_biases
+
+    return cancelled_biases(getattr(m2.init_state(
+        cfg, torch.Generator().manual_seed(0), "cpu"), net))
+
+
+def spread_bars(cfg, single: dict, others: dict, tag: str) -> dict:
+    """Each comparison's bar: the larger of its own and 3x the wider of
+    the one process's spreads (``one_process_runs``)."""
+    from animateportrait_tpu_torch.utils.smoke import grad_parity
 
     def spread(diffs):
-        return [max(v) for v in zip(*(diffs(o) for o in others.values()))]
+        return [max(v) for v in zip(*(diffs(o, single)
+                                      for o in others.values()))]
 
-    dp = ranks[0]
-    checks = []          # (what, value, bar)
-    bars = {}            # each net's gradient bar
-    for s_, (e, sp) in enumerate(zip(loss_diffs(dp), spread(loss_diffs))):
-        checks.append((f"losses step {s_ + 1}", e, max(DP_LOSS_RTOL, 3 * sp)))
-    for s_, (e, sp, bar) in enumerate(zip(pool_diffs(dp), spread(pool_diffs),
-                                          (DP_POOL_ATOL, DP_POOL2_ATOL))):
-        checks.append((f"pool step {s_ + 1}", e, max(bar, 3 * sp)))
+    bars = {"loss": [max(DP_LOSS_RTOL, 3 * sp)
+                     for sp in spread(_loss_diffs)],
+            "pool": [max(bar, 3 * sp) for sp, bar in zip(
+                spread(_pool_diffs), (DP_POOL_ATOL, DP_POOL2_ATOL))]}
     for net in ("g", "d"):
-        noise = cancelled_biases(getattr(m2.init_state(
-            cfg, torch.Generator().manual_seed(0), "cpu"), net))
-        errs = grad_parity(dp["grads"][0][net], single["grads"][0][net],
-                           None, noise)
         spreads = {name: grad_parity(o["grads"][0][net],
-                                     single["grads"][0][net], None, noise)
+                                     single["grads"][0][net], None,
+                                     _noise(cfg, net))
                    for name, o in others.items()}
         widest = max(max(v.values()) for v in spreads.values())
+        bars[net] = max(DP_LEAF_BAR, 3 * widest)
+        say(f"[{tag}] step 1 {net.upper()} gradients, the one process "
+            f"against itself: "
+            + ", ".join(f"{name}: worst {max(v.values()):.3e}, "
+                        f"{sum(e > DP_LEAF_BAR for e in v.values())} of "
+                        f"{len(v)} leaves above {DP_LEAF_BAR}"
+                        for name, v in spreads.items()))
+    return bars
+
+
+def check_against(tag: str, label: str, rec: dict, ref: dict, bars: dict,
+                  cfg) -> list:
+    """``rec`` (a ``dp_step_run`` record) against ``ref``'s: the losses
+    and the pool after each step, the first step's gradients by
+    ``grad_parity`` and Adam's updates by ``adam_update_parity``, each
+    printed with its bar; returns the (what, value, bar) that failed."""
+    from animateportrait_tpu_torch.utils.smoke import (
+        adam_update_parity, grad_parity)
+
+    checks = []          # (what, value, bar)
+    for s_, e in enumerate(_loss_diffs(rec, ref)):
+        checks.append((f"losses step {s_ + 1}", e, bars["loss"][s_]))
+    for s_, e in enumerate(_pool_diffs(rec, ref)):
+        checks.append((f"pool step {s_ + 1}", e, bars["pool"][s_]))
+    for net in ("g", "d"):
+        errs = grad_parity(rec["grads"][0][net], ref["grads"][0][net], None,
+                           _noise(cfg, net))
         k = max(errs, key=errs.get)
         checks.append((f"step 1 {net.upper()} gradients, worst leaf {k}",
-                       errs[k], max(DP_LEAF_BAR, 3 * widest)))
-        bars[net] = max(DP_LEAF_BAR, 3 * widest)
-        n_dp = sum(e > DP_LEAF_BAR for e in errs.values())
-        say(f"[16] step 1 {net.upper()} gradients: {n_dp} of {len(errs)} "
-            f"leaves of the 2 ranks above {DP_LEAF_BAR} of their scale "
-            f"from one process; the one process against itself, "
-            + ", ".join(f"{name}: worst {max(v.values()):.3e}, "
-                        f"{sum(e > DP_LEAF_BAR for e in v.values())} above"
-                        for name, v in spreads.items()))
+                       errs[k], bars[net]))
     for net in ("g", "d"):
         bound, decided = adam_update_parity(
-            dp["params"][1][net], single["params"][1][net],
-            single["params"][0][net], single["grads"][0][net], cfg.lr)
+            rec["params"][1][net], ref["params"][1][net],
+            ref["params"][0][net], ref["grads"][0][net], cfg.lr)
         checks.append((f"{net.upper()}'s step 1 Adam update, decisive "
                        f"elements", decided, 1.0))
         checks.append((f"{net.upper()}'s updates, of 1.5 lr a step", max(
             bound, adam_update_parity(
-                dp["params"][DP_STEPS][net], single["params"][DP_STEPS][net],
-                single["params"][0][net], single["grads"][0][net], cfg.lr,
+                rec["params"][DP_STEPS][net], ref["params"][DP_STEPS][net],
+                ref["params"][0][net], ref["grads"][0][net], cfg.lr,
                 DP_STEPS)[0]), 1.0))
+    for what, value, bar in checks:
+        say(f"[{tag}] {label}, {what}: {value:.3e} (<= {bar:.3e})")
+    if rec["pool_counts"] != ref["pool_counts"]:
+        checks.append(("pool counts", rec["pool_counts"], ref["pool_counts"]))
+        return checks[-1:]
+    return [c for c in checks if not c[1] <= c[2]]
+
+
+def fault_check(tag: str, cfg, batch: dict, world: int, single: dict,
+                bars: dict, dev: torch.device, card: str) -> list:
+    """The fault the gradient bars are for, rank 0's own slice of the
+    batch alone (the all-reduce left out), against one process: it must
+    exceed each net's bar. Returns the (what, value, bar) that did not."""
+    from animateportrait_tpu_torch.utils.smoke import dp_step_run, grad_parity
+
+    half = dp_step_run(cfg, {k: v[:TRAIN_BATCH // world]
+                             for k, v in batch.items()}, 1, dev)
+    failed = []
+    for net in ("g", "d"):
+        errs = grad_parity(half["grads"][0][net], single["grads"][0][net],
+                           None, _noise(cfg, net))
+        say(f"[{tag}] step 1 {net.upper()} gradients of rank 0's "
+            f"{TRAIN_BATCH // world} of {TRAIN_BATCH} alone (the fault) "
+            f"against one process: worst {max(errs.values()):.3e} (> "
+            f"{bars[net]:.3e}; {card})")
+        if not max(errs.values()) > bars[net]:
+            failed.append((f"step 1 {net.upper()} gradients of the fault",
+                           max(errs.values()), bars[net]))
+    return failed
+
+
+def check_ranks(tag: str, ranks: list, card: str, what: str) -> None:
+    """Each rank's record: K2 and K2b launched, K2 against its plain
+    version on the rank's InstanceNorm inputs; printed with its ms a step
+    and the bytes of its collectives."""
+    for r, rec in enumerate(ranks):
+        extra = ""
+        if "fsdp_bytes" in rec:
+            extra = (f", {rec['reduce_scatter_bytes'] / 2 ** 20:.1f} MiB "
+                     f"reduce-scattered and all-gathered a step")
+        say(f"[{tag}] {what} rank {r} ({rec['device']}, "
+            f"{rec['backend']}): ms a step "
+            f"{', '.join(f'{t:.1f}' for t in rec['ms'])}, "
+            f"{rec['allreduce_bytes'] / 2 ** 20:.1f} MiB all-reduced a "
+            f"step{extra}, launches {rec['launches']}, K2 vs plain on its "
+            f"InstanceNorm inputs {rec['k2_err']:.2e} ({card}; smoke "
+            f"figures)")
+        if min(rec["launches"].values()) <= 0:
+            raise AssertionError(f"{what} rank {r}: a kernel never "
+                                 f"launched: {rec['launches']}")
+        if rec["k2_err"] > K2_ATOL:
+            raise AssertionError(f"{what} rank {r}: K2 vs plain "
+                                 f"{rec['k2_err']}")
+
+
+def phase16_dp_step(dev: torch.device, card: str) -> dict:
+    """(a) phase 7's step on a global batch of 4 over 2 ranks on this card
+    (gloo), against the single-process step on the same batch."""
+    from animateportrait_tpu_torch.utils.smoke import dp_step_rank
+
+    ref = dp_reference(dev)
+    cfg, batch, single, bars = (ref[k] for k in ("cfg", "batch", "single",
+                                                 "bars"))
+    ranks, wall = spawned(dp_step_rank, [dev] * DP_RANKS, cfg, batch,
+                          DP_STEPS)
+    for rec in ranks:
+        rec["device"] = str(dev)
+    check_ranks("16", ranks, card, f"DP step (batch {TRAIN_BATCH // DP_RANKS}"
+                f" of {TRAIN_BATCH})")
+    say(f"[16] the 2 ranks took {wall:.1f} s of wall time, their start "
+        f"included")
+    dp = ranks[0]
+    failed = check_against("16", "2 ranks vs one process", dp, single, bars,
+                           cfg)
     same = all(torch.equal(p, q) for p, q in zip(ranks[0]["params"][-1]["g"]
                                                   .values(),
                                                   ranks[1]["params"][-1]["g"]
                                                   .values()))
-    for what, value, bar in checks:
-        say(f"[16] 2 ranks vs one process, {what}: {value:.3e} (<= "
-            f"{bar:.3e})")
     say(f"[16] pool counts {dp['pool_counts']} (one process "
         f"{single['pool_counts']}); the ranks' G bit-equal: {same}")
-    # the fault the gradient checks are for, a rank's own half-batch
-    # gradients (the all-reduce left out), must fail each net's bar
-    half = dp_step_run(cfg, {k: v[:TRAIN_BATCH // DP_RANKS]
-                             for k, v in batch.items()}, 1, dev)
-    faults = []          # (what, value, the bar it must exceed)
-    for net in ("g", "d"):
-        noise = cancelled_biases(getattr(m2.init_state(
-            cfg, torch.Generator().manual_seed(0), "cpu"), net))
-        errs = grad_parity(half["grads"][0][net], single["grads"][0][net],
-                           None, noise)
-        say(f"[16] step 1 {net.upper()} gradients of rank 0's half batch "
-            f"alone (the fault) against one process: worst "
-            f"{max(errs.values()):.3e} (> {bars[net]:.3e}; {card})")
-        faults.append((f"step 1 {net.upper()} gradients of the fault",
-                       max(errs.values()), bars[net]))
-    failed = ([c for c in checks if not c[1] <= c[2]]
-              + [f for f in faults if not f[1] > f[2]])
-    if failed or not same or dp["pool_counts"] != single["pool_counts"]:
+    failed += fault_check("16", cfg, batch, DP_RANKS, single, bars, dev, card)
+    if failed or not same:
         raise AssertionError(f"DP step: {failed}, ranks equal {same}")
-    return {"launches": {f"dp_step_rank{r}": rec["launches"]
-                         for r, rec in enumerate(ranks)},
-            "k2_err": max(rec["k2_err"] for rec in ranks)}
+    return dict(ref, launches={f"dp_step_rank{r}": rec["launches"]
+                               for r, rec in enumerate(ranks)},
+                k2_err=max(rec["k2_err"] for rec in ranks))
+
+
+def dp_inputs() -> tuple:
+    """Phase 7's step (fp32, batch 4) and a seeded random global batch
+    (numpy), the step of phase 16 (a) and phase 17 (a, b)."""
+    from animateportrait_tpu_torch.train import module2 as m2
+
+    cfg = m2.Module2Config(batch_d_passes=True)
+    return cfg, {k: v.numpy() for k, v in m2.make_random_batch(
+        cfg, TRAIN_BATCH, torch.Generator().manual_seed(2), "cpu").items()}
+
+
+def dp_reference(dev: torch.device) -> dict:
+    """``dp_inputs``' step in one process, with its own spread and the bars
+    it sets (``spread_bars``): the reference of phase 16 (a)."""
+    cfg, batch = dp_inputs()
+    single, others = one_process_runs(cfg, batch, dev)
+    say(f"[16] single process, batch {TRAIN_BATCH}: ms a step "
+        f"{', '.join(f'{t:.1f}' for t in single['ms'])}")
+    return {"cfg": cfg, "batch": batch, "single": single,
+            "bars": spread_bars(cfg, single, others, "16")}
 
 
 def phase16_multihost(dev: torch.device, tree: str, tmp: str) -> dict:
@@ -3532,54 +3663,72 @@ def phase16_multihost(dev: torch.device, tree: str, tmp: str) -> dict:
     return {"launches": launches}
 
 
+def render_cli(tmp: str, out: str, flags: list) -> tuple:
+    """``cli.main --exp formal/cartoon --frame_batch 8`` on a synthetic
+    PPM and a 6 s WAV (seeded; written into ``tmp`` once) with ``flags``,
+    under cuDNN's deterministic algorithms: (its ``RunResult``, its frames
+    as int16)."""
+    from animateportrait_tpu_torch import cli
+    from animateportrait_tpu_torch.utils.smoke import (
+        make_wav, write_mtcnn_weights)
+    from animateportrait_tpu_torch.utils.video import read_avi, write_wav
+
+    photo, wav_path = (os.path.join(tmp, "portrait.ppm"),
+                       os.path.join(tmp, "speech.wav"))
+    ckpt = os.path.join(tmp, "ckpt")
+    if not os.path.exists(photo):
+        write_photo(photo)
+        write_wav(wav_path, make_wav(6.0, seed=3))
+        write_mtcnn_weights(os.path.join(ckpt, "mtcnn"), seed=0)
+    torch.backends.cudnn.deterministic = True
+    try:
+        res = cli.main(["--jpg", photo, "--audio", wav_path, "--exp",
+                        "formal/cartoon", "--frame_batch", "8", "--ckpt_dir",
+                        ckpt, *flags, "--output", os.path.join(tmp, out)])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return res, read_avi(res.path)["frames"].astype(np.int16)
+
+
 def phase16_render(dev: torch.device, main_run: dict) -> dict:
     """(c) ``cli.main --render_dp`` on one card against the same call
     without it, and two renderer replicas on this card on phase 3's
     inputs."""
-    from animateportrait_tpu_torch import cli
     from animateportrait_tpu_torch.utils.smoke import (
-        build_pipeline, full_width_nets, make_wav, write_mtcnn_weights)
-    from animateportrait_tpu_torch.utils.video import read_avi, write_wav
+        build_pipeline, full_width_nets, make_wav)
 
+    # without the flag, again without it, and with it where this machine
+    # has one card (with more, the flag takes every card: phase 17 (d));
+    # cuDNN's default algorithms are not bit-repeatable on the card (1
+    # level at ~2500 values between two calls), its deterministic ones are
+    one_card = torch.cuda.device_count() == 1
     with tempfile.TemporaryDirectory() as tmp:
-        photo = write_photo(os.path.join(tmp, "portrait.ppm"))
-        wav_path = write_wav(os.path.join(tmp, "speech.wav"),
-                             make_wav(6.0, seed=3))
-        ckpt = os.path.join(tmp, "ckpt")
-        write_mtcnn_weights(os.path.join(ckpt, "mtcnn"), seed=0)
-        frames, cli_launches = [], []
-        # without the flag, with it, and without it again; cuDNN's default
-        # algorithms are not bit-repeatable on the card (1 level at ~2500
-        # values between two calls), its deterministic ones are
-        torch.backends.cudnn.deterministic = True
-        try:
-            for i, flag in enumerate(([], ["--render_dp"], [])):
-                zero_counters()
-                res = cli.main(["--jpg", photo, "--audio", wav_path,
-                                "--exp", "formal/cartoon", "--frame_batch",
-                                "8", "--ckpt_dir", ckpt, *flag, "--output",
-                                os.path.join(tmp, f"out{i}")])
-                cli_launches.append(read_counters())
-                frames.append(read_avi(res.path)["frames"].astype(np.int16))
-        finally:
-            torch.backends.cudnn.deterministic = False
+        frames, cli_launches, render_s = [], [], []
+        for i, flag in enumerate(([], [], ["--render_dp"])[:3 if one_card
+                                                            else 2]):
+            zero_counters()
+            res, f = render_cli(tmp, f"out{i}", flag)
+            cli_launches.append(read_counters())
+            frames.append(f)
+            render_s.append(res.stage_seconds["render"])
 
     def diff(a, b):
         return int(np.abs(a - b).max()), int(np.count_nonzero(a != b))
 
     # one card is one replica, the path without the flag: the same
     # launches and the same frames
-    dp, again = diff(frames[1], frames[0]), diff(frames[2], frames[0])
-    say(f"[16] cli.main --render_dp on one card, cuDNN's deterministic "
-        f"algorithms: {frames[1].shape[0]} "
-        f"frames; against the run without the flag max |diff| {dp[0]} "
-        f"levels at {dp[1]} of {frames[0].size} values; "
-        f"a second run without the flag: {again[0]} levels at {again[1]}; "
-        f"launches {cli_launches[1]} (without the flag "
-        f"{cli_launches[0]})")
-    if not (dp == again == (0, 0) and cli_launches[1] == cli_launches[0]
-            and min(cli_launches[1]["stft_magnitude"],
-                    cli_launches[1]["instance_norm"]) > 0):
+    again = diff(frames[1], frames[0])
+    dp = diff(frames[2], frames[0]) if one_card else again
+    say(f"[16] cli.main on one card, cuDNN's deterministic algorithms: "
+        f"{frames[0].shape[0]} frames; a second run max |diff| {again[0]} "
+        f"levels at {again[1]} of {frames[0].size} values; "
+        + (f"--render_dp (one replica): {dp[0]} levels at {dp[1]}; launches "
+           f"{cli_launches[2]} (without the flag {cli_launches[0]})"
+           if one_card else "--render_dp takes every card here: phase 17 "
+           "(d)"))
+    if not (dp == again == (0, 0) and cli_launches[-1] == cli_launches[0]
+            and min(cli_launches[-1]["stft_magnitude"],
+                    cli_launches[-1]["instance_norm"]) > 0):
         raise AssertionError(f"--render_dp on one card: {dp} against the "
                              f"CLI's own {again}, launches "
                              f"{cli_launches}")
@@ -3617,9 +3766,10 @@ def phase16_render(dev: torch.device, main_run: dict) -> dict:
         raise AssertionError(f"2 replicas: PSNR {p}, {out.frames.shape}")
     if min(launches["stft_magnitude"], launches["instance_norm"]) <= 0:
         raise AssertionError(f"a kernel never launched: {launches}")
-    return {"launches": {"render_dp_cli": cli_launches[1],
-                         "render_dp_replicas": launches},
-            "k2_err": k2_on_path(kept, "16")}
+    return {"launches": {"render_dp_cli" if one_card else "cartoon_cli_16":
+                         cli_launches[-1], "render_dp_replicas": launches},
+            "k2_err": k2_on_path(kept, "16"), "frames": frames[0],
+            "render_s": render_s[0]}
 
 
 def phase16_gpipe(dev: torch.device, card: str) -> dict:
@@ -3628,13 +3778,16 @@ def phase16_gpipe(dev: torch.device, card: str) -> dict:
     against the 9 blocks in sequence."""
     from animateportrait_tpu_torch.models.gan import ResnetBlock
     from animateportrait_tpu_torch.parallel import seq_apply
-    from animateportrait_tpu_torch.utils.smoke import gpipe_rank, resnet_blocks
+    from animateportrait_tpu_torch.utils.smoke import (
+        gpipe_run, jobs_rank, resnet_blocks)
 
     blocks = resnet_blocks(256, 9, seed=5)
     x = np.random.default_rng(6).standard_normal(
         (6, 256, 64, 64)).astype(np.float32)
-    ms = [3, 6]
-    ranks, wall = spawned(gpipe_rank, [dev] * GPIPE_STAGES, blocks, x, ms)
+    ms = GPIPE_MS
+    ranks, wall = spawned(jobs_rank, [dev] * GPIPE_STAGES,
+                          {"gpipe": (gpipe_run, (blocks, x, ms))})
+    ranks = [rec["gpipe"] for rec in ranks]
     mods = []
     for sd in blocks:
         b = ResnetBlock(x.shape[1])
@@ -3672,7 +3825,8 @@ def phase16_gpipe(dev: torch.device, card: str) -> dict:
         f"{ranks[0]['indivisible']!r}")
     return {"launches": {f"gpipe_rank{r}": {"instance_norm": sum(
         rec["launches"].values())} for r, rec in enumerate(ranks)},
-        "k2_err": max(rec["k2_err"] for rec in ranks)}
+        "k2_err": max(rec["k2_err"] for rec in ranks),
+        "ms": [max(rec["ms"][m] for rec in ranks) for m in ms]}
 
 
 def phase16(dev: torch.device, card: str, main_run: dict, tmp: str,
@@ -3683,6 +3837,497 @@ def phase16(dev: torch.device, card: str, main_run: dict, tmp: str,
     out["render"] = phase16_render(dev, main_run)
     out["gpipe"] = phase16_gpipe(dev, card)
     say(f"[16] phase 16 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# --- phase 17: the multi-card paths, one rank a card ----------------------
+
+P17_MAX_WORLD = 4
+TP_GRID_MODEL = 2           # the model axis of the TP grid (JAX's)
+TP_FRAMES = 8               # the renderer's frame batch
+TP_G = dict(output_nc=1, ngf=64, n_blocks=9, div=3, disp=3)
+SP_T = 512                  # one segment of the pos branch
+
+
+def phase17_spawn(devices: list) -> tuple[dict, dict, float]:
+    """(a, b), (e), (f) and (g) in one spawn of a rank a card over NCCL
+    (``utils/smoke.py:jobs_rank``): (each part's records by rank, each
+    part's inputs, the spawn's wall seconds, the ranks' start included).
+    """
+    from animateportrait_tpu_torch.models.audio2landmark import (
+        Audio2landmarkPos)
+    from animateportrait_tpu_torch.models.gan import TridentGeneratorFullIFW
+    from animateportrait_tpu_torch.multichip import (
+        gain_attention, generator_inputs, pos_inputs, sp_run, tp_run)
+    from animateportrait_tpu_torch.utils.smoke import (
+        fsdp_steps, gpipe_run, init_random_, jobs_rank, resnet_blocks)
+
+    n = len(devices)
+    stages = min(GPIPE_STAGES, n)
+    inputs = {
+        "gpipe": (resnet_blocks(256, 3 * stages, seed=5),
+                  np.random.default_rng(6).standard_normal(
+                      (6, 256, 64, 64)).astype(np.float32)),
+        "tp": (init_random_(TridentGeneratorFullIFW(**TP_G),
+                            torch.Generator().manual_seed(7)).state_dict(),
+               generator_inputs(np.random.default_rng(8), TP_FRAMES, 256)),
+        "sp": (gain_attention(init_random_(
+            Audio2landmarkPos(), torch.Generator().manual_seed(9))
+            .state_dict()), pos_inputs(np.random.default_rng(10), SP_T))}
+    jobs = {"steps": (fsdp_steps, (*dp_inputs(), DP_STEPS, 2 ** 16)),
+            "gpipe": (gpipe_run, (*inputs["gpipe"], GPIPE_MS, stages)),
+            "tp": (tp_run, ((n // TP_GRID_MODEL, TP_GRID_MODEL), TP_G,
+                            *inputs["tp"])),
+            "sp": (sp_run, inputs["sp"])}
+    ranks, wall = spawned(jobs_rank, devices, jobs)
+    return {name: [rec[name] for rec in ranks] for name in jobs}, inputs, wall
+
+
+def phase17_steps(ranks: list, devices: list, card: str) -> dict:
+    """(a) phase 7's step at global batch 4 over one rank a card (NCCL)
+    against one process running the ranks' step (each rank's slice alone,
+    at the rank's batch: ``utils/smoke.py:decomposed_grads``), at phase
+    16 (a)'s rule: 3x that process's own spread, and the fault, rank 0's
+    slice alone, beyond each gradient bar; (b) the same step
+    FSDP-sharded against (a)'s ranks at the same bars."""
+    cfg, batch = dp_inputs()
+    n = len(devices)
+    single, others = one_process_runs(cfg, batch, devices[0], decompose=n)
+    bars = spread_bars(cfg, single, others, "17")
+    n = len(devices)
+    dp = [r["dp"] for r in ranks]
+    fs = [r["fsdp"] for r in ranks]
+    for rec, d in zip(ranks, devices):
+        rec["dp"]["device"] = rec["fsdp"]["device"] = str(d)
+        rec["dp"]["backend"] = rec["fsdp"]["backend"] = rec["backend"]
+        if rec["backend"] != "nccl":
+            raise AssertionError(f"rank on {d}: {rec['backend']}")
+    check_ranks("17", dp, card, f"(a) DP step ({TRAIN_BATCH // n} of "
+                f"{TRAIN_BATCH})")
+    check_ranks("17", fs, card, f"(b) FSDP step ({TRAIN_BATCH // n} of "
+                f"{TRAIN_BATCH})")
+    say(f"[17] (a, b) one process running the {n} ranks' step: ms a step "
+        f"{', '.join(f'{t:.1f}' for t in single['ms'])}")
+    failed = check_against("17", f"(a) {n} ranks vs one process", dp[0],
+                           single, bars, cfg)
+    failed += fault_check("17", cfg, batch, n, single, bars, devices[0],
+                          card)
+    failed += check_against("17", f"(b) FSDP vs DP, {n} ranks", fs[0], dp[0],
+                            bars, cfg)
+
+    def ranks_equal(run):
+        last = run[0]["params"][-1]
+        return all(torch.equal(v, last[net][k]) for rec in run[1:]
+                   for net in ("g", "d")
+                   for k, v in rec["params"][-1][net].items())
+
+    same = [ranks_equal(dp), ranks_equal(fs)]
+    for r, (a, b) in enumerate(zip(dp, fs)):
+        by = b["fsdp_bytes"]
+        say(f"[17] (b) rank {r}: parameters + Adam moments "
+            f"{(by['sharded'] + by['replicated']) / 2 ** 20:.2f} MiB "
+            f"sharded ({by['sharded'] / 2 ** 20:.2f} MiB of sharded leaves, "
+            f"unsharded {by['unsharded'] / 2 ** 20:.2f} MiB), DP "
+            f"{(by['unsharded'] + by['replicated']) / 2 ** 20:.2f} MiB; "
+            f"peak memory in the first step FSDP "
+            f"{b['peak_bytes'] / 2 ** 30:.3f} GiB, DP "
+            f"{a['peak_bytes'] / 2 ** 30:.3f} GiB ({card})")
+        if by["sharded"] * n != by["unsharded"]:
+            raise AssertionError(f"rank {r}: {by}")
+    say(f"[17] the ranks' parameters bit-equal after {DP_STEPS} steps "
+        f"(DP, FSDP): {same}")
+    if failed or not all(same):
+        raise AssertionError(f"(a, b): {failed}, ranks equal {same}")
+    return {"launches": {
+        **{f"dp_step_nccl_rank{r}": rec["launches"]
+           for r, rec in enumerate(dp)},
+        **{f"fsdp_step_nccl_rank{r}": rec["launches"]
+           for r, rec in enumerate(fs)}},
+        "k2_err": max(rec["k2_err"] for rec in dp + fs)}
+
+
+def trainer_records(ck: str, name: str) -> list:
+    with open(os.path.join(ck, *name.split("/"), "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase17_trainer(n: int, tree: str, tmp: str, card: str) -> dict:
+    """(c) ``train_cli.main --data_parallel n`` and ``--multihost`` as n
+    processes (``LOCAL_RANK`` picks each one's card), 2 steps each at the
+    readme's drawing command over phase 8's tree, against one process on
+    the same global batches, in this process. The ranks' step emulated in
+    one process (``utils/smoke.py:decomposed_grads``: each rank's slice
+    alone, at the rank's batch) is the reference of both steps: each
+    step's losses within the larger of ``DP_LOSS_RTOL`` and 3x its own
+    spread (called again, and under cuDNN's deterministic algorithms),
+    and the fault, the first rank's share alone, beyond that bar. The
+    step at the whole batch in one process is printed beside: at the
+    second step Adam's first update has turned the rounding of a rank's
+    convs against the whole batch's into steps of lr."""
+    import subprocess
+    import sys
+
+    from animateportrait_tpu_torch import train_cli
+    from animateportrait_tpu_torch.data.umlvd_ifw import (
+        UMLVDIFWDataset, loader)
+    from animateportrait_tpu_torch.io.reference import load_frozen
+    from animateportrait_tpu_torch.train import module2 as m2
+    from animateportrait_tpu_torch.utils.distributed import free_port
+    from animateportrait_tpu_torch.utils.options import to_configs
+    from animateportrait_tpu_torch.utils.smoke import decomposed_grads
+
+    base = ["--dataroot", tree, *README_DRAWING, "--crop_size", "256",
+            "--load_size", "286", "--ngf", "64", "--ndf", "64",
+            "--batch_size", str(TRAIN_BATCH), "--num_threads", "4",
+            "--print_freq", "1", "--max_steps", "2",
+            "--frozen_dir", os.path.join(tmp, "frozen")]
+    name = "training/drawing1"
+    runs, walls = {}, {}
+    ck = os.path.join(tmp, "ck17_dp")
+    t0 = time.perf_counter()
+    train_cli.main([*base, "--data_parallel", str(n), "--checkpoints_dir",
+                    ck])
+    walls["dp"] = time.perf_counter() - t0
+    runs["dp"] = trainer_records(ck, name)
+    # --multihost: one process per card, each loading its own slice
+    ck = os.path.join(tmp, "ck17_mh")
+    argv = [*base, "--checkpoints_dir", ck, "--multihost", "1",
+            "--num_processes", str(n), "--coordinator_address",
+            f"127.0.0.1:{free_port()}"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "animateportrait_tpu_torch.train_cli", *argv,
+         "--process_id", str(i)], env=dict(os.environ, LOCAL_RANK=str(i)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    walls["multihost"] = time.perf_counter() - t0
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"--multihost process {i}:\n{out[-3000:]}")
+    runs["multihost"] = trainer_records(ck, name)
+    if f"{n} ranks over nccl" not in outs[0]:
+        raise AssertionError(f"--multihost: {outs[0][-2000:]}")
+
+    # one process on the global batches each mode loads: --data_parallel's
+    # rank 0 loads them from default_rng(0), each --multihost process its
+    # slice from default_rng(process id)
+    args = train_cli.build_argparser().parse_args(argv + ["--process_id",
+                                                          "0"])
+    cfg, data_cfg = to_configs(args)
+    ds = UMLVDIFWDataset(data_cfg)
+    dev = torch.device("cuda", 0)
+    per = -(-max(TRAIN_BATCH, n) // n)       # train_cli's slice a rank
+    streams = {"dp": [loader(ds, per * n, np.random.default_rng(0), 0,
+                             False)],
+               "multihost": [loader(ds, per, np.random.default_rng(i), 0,
+                                    False) for i in range(n)]}
+    frozen = load_frozen(args.frozen_dir, cfg,
+                         torch.Generator().manual_seed(1), dev)
+    step = m2.build_train_step(cfg)
+
+    def steps(batches, fn):
+        """The losses of ``fn(state, batch, gen)`` from the trainer's
+        initial state over ``batches``, the pool drawn as train_cli draws
+        it."""
+        state = m2.init_state(cfg, torch.Generator().manual_seed(0), dev)
+        return [{k: float(v) for k, v in fn(
+            state, {k: v.to(dev) for k, v in b.items()},
+            torch.Generator(device=dev).manual_seed(i)).items()}
+            for i, b in enumerate(batches)]
+
+    def whole(state, b, gen):
+        return step.step(state, b, frozen, gen)
+
+    def ranks(state, b, gen):
+        grads = decomposed_grads(step, state, b, frozen, gen, n)
+        step.apply_grads(state, grads)
+        return grads.metrics
+
+    def alone(state, b, gen):
+        return step.step(state, {k: v[:per] for k, v in b.items()}, frozen,
+                         gen)
+
+    def worst(run, ref):
+        """Each step's largest relative loss difference, and its loss."""
+        out = []
+        for got, want in zip(run, ref):
+            d = {k: abs(got[k] - v) / max(abs(v), 1e-5)
+                 for k, v in want.items()}
+            k = max(d, key=d.get)
+            out.append((d[k], k))
+        return out
+
+    failed = []
+    for mode, what in (("dp", "--data_parallel"), ("multihost",
+                                                   "--multihost")):
+        its = [iter(s) for s in streams[mode]]
+        batches = []
+        for _ in range(2):
+            parts = [next(it) for it in its]
+            batches.append({k: torch.cat([p[k] for p in parts])
+                            for k in parts[0]})
+        ref = steps(batches, ranks)
+        others = [steps(batches, ranks)]
+        torch.backends.cudnn.deterministic = True
+        try:
+            others.append(steps(batches, ranks))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        spread = [max(w[s][0] for w in (worst(o, ref) for o in others))
+                  for s in range(2)]
+        fault = worst(steps(batches, alone), ref)
+        got = worst(runs[mode], ref)
+        at_once = worst(runs[mode], steps(batches, whole))
+        for s_ in range(2):
+            bar = max(DP_LOSS_RTOL, 3 * spread[s_])
+            say(f"[17] (c) train_cli {what} {n}, losses step {s_ + 1}: "
+                f"against the ranks' step in one process {got[s_][0]:.3e} "
+                f"({got[s_][1]}) (<= {bar:.3e}: 3x that process's own "
+                f"{spread[s_]:.3e}), the first rank's share alone (the "
+                f"fault) {fault[s_][0]:.3e} ({fault[s_][1]}) (> the bar); "
+                f"against one process at the whole batch {at_once[s_][0]:.3e}"
+                f" ({at_once[s_][1]}) (printed)")
+            if not got[s_][0] <= bar < fault[s_][0]:
+                failed.append((what, s_ + 1, got[s_][0], bar, fault[s_][0]))
+    say(f"[17] (c) wall s with the start: --data_parallel {n} "
+        f"{walls['dp']:.1f}, --multihost x {n} {walls['multihost']:.1f} "
+        f"({card}; smoke figures)")
+    if failed:
+        raise AssertionError(f"(c) trainer losses (mode, step, reading, "
+                             f"bar, fault): {failed}")
+    return {}
+
+
+def phase17_render(n: int, card: str, one_card: dict) -> dict:
+    """(d) ``cli.main --render_dp`` with a replica on each of the n cards,
+    at a frame batch of 8 a replica, against phase 16's run on one card:
+    bit-equal frames under cuDNN's deterministic algorithms; frames/s of
+    the render stage beside one replica's."""
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_counters()
+        res, frames = render_cli(tmp, "out", ["--render_dp", "--frame_batch",
+                                              str(8 * n)])
+        launches = read_counters()
+    T = frames.shape[0]
+    d = np.abs(frames - one_card["frames"])
+    say(f"[17] (d) cli.main --render_dp, {n} replicas on {n} cards, 8 "
+        f"frames a replica: render stage {T / res.stage_seconds['render']:.2f}"
+        f" frames/s (one replica, phase 16: "
+        f"{T / one_card['render_s']:.2f}); against one card max |diff| "
+        f"{int(d.max())} levels at {int(np.count_nonzero(d))} of {d.size} "
+        f"values; launches {launches} ({card}; smoke figures)")
+    if frames.shape != one_card["frames"].shape or d.max() != 0:
+        raise AssertionError("--render_dp on n cards is not bit-equal to "
+                             "one card")
+    if min(launches["stft_magnitude"], launches["instance_norm"]) <= 0:
+        raise AssertionError(f"a kernel never launched: {launches}")
+    return {"launches": {"render_dp_cli_cards": launches}}
+
+
+def phase17_gpipe(ranks: list, inputs: tuple, devices: list, card: str,
+                  gloo_ms: list | None) -> dict:
+    """(e) GPipe of the 9-block bottleneck, 3 stages on 3 cards over NCCL
+    (no host staging), bit-equal to the blocks in sequence on the same
+    microbatches; printed beside phase 16 (d)'s ms over gloo where it
+    ran."""
+    from animateportrait_tpu_torch.models.gan import ResnetBlock
+    from animateportrait_tpu_torch.parallel import seq_apply
+
+    ranks = [r for r in ranks if r is not None]
+    stages = len(ranks)
+    blocks, x = inputs
+    mods = []
+    for sd in blocks:
+        b = ResnetBlock(x.shape[1])
+        b.load_state_dict(sd)
+        mods.append(b.to(devices[0]).eval())
+    xt = torch.as_tensor(x, device=devices[0])
+    for m in GPIPE_MS:
+        want = torch.cat([seq_apply(mods, c) for c in xt.chunk(m)]).cpu()
+        errs = [float((rec["y"][m] - want).abs().max()) for rec in ranks]
+        say(f"[17] (e) GPipe, {stages} stages on {stages} cards "
+            f"({ranks[0]['backend']}), M = {m}: max |pipe - sequence| by "
+            f"rank {', '.join(f'{e:.2e}' for e in errs)} (bit-equal); ms "
+            f"a call by rank {', '.join(f'{r['ms'][m]:.1f}' for r in ranks)}"
+            + (f" (gloo on one card, phase 16: "
+               f"{gloo_ms[GPIPE_MS.index(m)]:.1f})" if gloo_ms else "")
+            + f"; K2 launches by rank "
+            f"{[r['launches'][m] for r in ranks]} ({card}; smoke figures)")
+        if max(errs) != 0.0:
+            raise AssertionError(f"GPipe M={m} over NCCL: {errs}")
+    for r, rec in enumerate(ranks):
+        want = {m: 3 * 2 * m for m in GPIPE_MS}
+        if rec["backend"] != "nccl" or rec["launches"] != want or \
+                rec["k2_err"] > K2_ATOL:
+            raise AssertionError(f"GPipe rank {r}: {rec['backend']}, "
+                                 f"launches {rec['launches']}, K2 "
+                                 f"{rec['k2_err']}")
+    return {"launches": {f"gpipe_nccl_rank{r}": {"instance_norm": sum(
+        rec["launches"].values())} for r, rec in enumerate(ranks)},
+        "k2_err": max(rec["k2_err"] for rec in ranks)}
+
+
+def phase17_tp(ranks: list, inputs: tuple, dev: torch.device, card: str
+               ) -> dict:
+    """(f) the full-width trident generator (ngf 64, 9 blocks) on 8 frames
+    at 256^2, tensor-parallel on a (n/2, 2) grid of cards, against one
+    card."""
+    from animateportrait_tpu_torch.models.gan import TridentGeneratorFullIFW
+    from animateportrait_tpu_torch.multichip import TP_ATOL
+
+    state_dict, frames = inputs
+    g = TridentGeneratorFullIFW(**TP_G)
+    g.load_state_dict(state_dict)
+    g = g.to(dev).eval()
+    args = [torch.as_tensor(a, device=dev) for a in frames]
+    with torch.inference_mode():
+        g(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = g(*args)
+        torch.cuda.synchronize()
+        one_ms = 1e3 * (time.perf_counter() - t0)
+    want = want.cpu()
+    errs = [float((r["y"] - want).abs().max()) for r in ranks]
+    say(f"[17] (f) TP generator, grid ({len(ranks) // TP_GRID_MODEL}, "
+        f"{TP_GRID_MODEL}) over {ranks[0]['backend']}, {ranks[0]['sliced']} "
+        f"convs sliced, {TP_FRAMES} frames at 256^2: max |TP - one card| by "
+        f"rank {', '.join(f'{e:.2e}' for e in errs)} (<= {TP_ATOL}); ms a "
+        f"call by rank {', '.join(f'{r['ms']:.1f}' for r in ranks)}, one "
+        f"card {one_ms:.1f}; K2 by rank "
+        f"{[r['launches']['instance_norm'] for r in ranks]}, K2 vs plain "
+        f"{max(r['k2_err'] for r in ranks):.2e} ({card}; smoke figures)")
+    for r, rec in enumerate(ranks):
+        if not (errs[r] <= TP_ATOL and rec["backend"] == "nccl"
+                and rec["launches"]["instance_norm"] > 0
+                and rec["k2_err"] <= K2_ATOL):
+            raise AssertionError(f"TP rank {r}: {errs[r]}, {rec['backend']},"
+                                 f" {rec['launches']}, {rec['k2_err']}")
+    return {"launches": {f"tp_generator_rank{r}": rec["launches"]
+                         for r, rec in enumerate(ranks)},
+            "k2_err": max(rec["k2_err"] for rec in ranks)}
+
+
+def phase17_sp(ranks: list, inputs: tuple, dev: torch.device, card: str
+               ) -> dict:
+    """(g) the full-width pos branch on one 512-frame segment,
+    sequence-parallel over the cards, against one card, with the
+    attention's output projections scaled (``multichip.gain_attention``)
+    so that the first rank's frames as a sequence of their own miss the
+    bar, which is held too."""
+    from animateportrait_tpu_torch.models.audio2landmark import (
+        Audio2landmarkPos)
+    from animateportrait_tpu_torch.multichip import (
+        ATTN_GAIN, SP_ATOL, first_rank_alone)
+
+    state_dict, segment = inputs
+    n = len(ranks)
+    pos = Audio2landmarkPos()
+    pos.load_state_dict(state_dict)
+    pos = pos.to(dev).eval()
+    args = [torch.as_tensor(a, device=dev) for a in segment]
+    with torch.inference_mode():
+        pos(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = pos(*args)[0]
+        torch.cuda.synchronize()
+        one_ms = 1e3 * (time.perf_counter() - t0)
+        alone = first_rank_alone(pos, args, n)
+    alone = float((alone - want[:alone.shape[0]]).abs().max())
+    want = want.cpu()
+    errs = [float((r["y"] - want).abs().max()) for r in ranks]
+    say(f"[17] (g) SP pos, T = {SP_T} over {n} cards "
+        f"({ranks[0]['backend']}), attention outputs x {ATTN_GAIN}: max |SP "
+        f"- one card| by rank {', '.join(f'{e:.2e}' for e in errs)} (<= "
+        f"{SP_ATOL}); the first rank's {SP_T // n} frames as a sequence of "
+        f"their own (the fault) {alone:.2e} (> {SP_ATOL}); ms a call by "
+        f"rank {', '.join(f'{r['ms']:.1f}' for r in ranks)}, one card "
+        f"{one_ms:.1f} ({card}; smoke figures)")
+    if not (max(errs) <= SP_ATOL < alone) or ranks[0]["backend"] != "nccl":
+        raise AssertionError(f"SP: {errs}, the fault {alone}, "
+                             f"{ranks[0]['backend']}")
+    return {}
+
+
+def phase17_dryrun(n: int, card: str) -> dict:
+    """(h) ``dryrun_multichip(n)``: one card a rank where there are n."""
+    from animateportrait_tpu_torch.multichip import dryrun_multichip
+
+    t0 = time.perf_counter()
+    recs = dryrun_multichip(n)
+    wall = time.perf_counter() - t0
+    for r, rec in enumerate(recs):
+        st = rec["step"]
+        say(f"[17] (h) dryrun_multichip({n}) rank {r} ({rec['device']}, "
+            f"{rec['backend']}): step ms {st['ms']:.1f}, launches "
+            f"{st['launches']}, K2 vs plain {st['k2_err']:.2e}, bytes "
+            f"{st['bytes']}; TP {rec.get('tp', {}).get('err', 'n/a')}, SP "
+            f"{rec['sp']['err']:.2e} (first rank alone "
+            f"{rec['sp']['alone']:.2e}), GPipe {rec['pp']['err']:.2e} "
+            f"({card})")
+        if min(st["launches"].values()) <= 0 or st["k2_err"] > K2_ATOL:
+            raise AssertionError(f"dryrun rank {r}: {st['launches']}, "
+                                 f"{st['k2_err']}")
+    say(f"[17] (h) dryrun_multichip({n}) in {wall:.1f} s of wall time")
+    return {"launches": {f"dryrun_rank{r}": rec["step"]["launches"]
+                         for r, rec in enumerate(recs)},
+            "k2_err": max(rec["step"]["k2_err"] for rec in recs)}
+
+
+def phase17(card: str, multi16: dict, tmp: str, tree: str) -> dict:
+    """The multi-card paths one rank a card over NCCL, (a)-(h), on an even
+    count of up to 4 cards (the TP grid's model axis is 2); each part
+    runs, and the phase fails after them if any failed. On one card, the
+    dry run over gloo ranks that share it."""
+    import traceback
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        say("[17] one card: the one-rank-a-card parts (a)-(g) need two or "
+            "more cards and did not run; dryrun_multichip(2) runs over "
+            "gloo ranks that share this card")
+        out = {"dryrun": phase17_dryrun(2, card)}
+        say(f"[17] phase 17 in {time.perf_counter() - t0:.1f} s")
+        return out
+    n = min(P17_MAX_WORLD, cards)
+    n -= n % TP_GRID_MODEL
+    devices = [torch.device("cuda", i) for i in range(n)]
+    say(f"[17] {n} ranks, one a card, over NCCL ({cards} cards visible)")
+    recs, inputs, wall = phase17_spawn(devices)
+    say(f"[17] (a, b, e, f, g) one spawn of {n} ranks in {wall:.1f} s of "
+        f"wall time, their start included")
+    parts = {
+        "steps": lambda: phase17_steps(recs["steps"], devices, card),
+        "trainer": lambda: phase17_trainer(n, tree, tmp, card),
+        "render": lambda: phase17_render(n, card, multi16["render"]),
+        "gpipe": lambda: phase17_gpipe(recs["gpipe"], inputs["gpipe"],
+                                       devices, card, multi16.get(
+                                           "gpipe", {}).get("ms")),
+        "tp": lambda: phase17_tp(recs["tp"], inputs["tp"], devices[0],
+                                 card),
+        "sp": lambda: phase17_sp(recs["sp"], inputs["sp"], devices[0], card),
+        "dryrun": lambda: phase17_dryrun(n, card)}
+    out, failed = {}, []
+    for name, part in parts.items():
+        try:
+            out[name] = part()
+        except Exception as e:     # the phase fails below, after every part
+            traceback.print_exc()
+            failed.append(f"{name}: {e!r}"[:2000])
+    say(f"[17] phase 17 in {time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise AssertionError("phase 17: " + "; ".join(failed))
     return out
 
 
@@ -3716,10 +4361,42 @@ def stop_processes() -> None:
     say("[done] no process started by this run is still running")
 
 
+def multi_card(card: str, dev: torch.device) -> None:
+    """``--multi-card``: phase 1, the part of phase 16 that phase 17 reads
+    (the one-card render) and phase 17, over phase 8's tree: the
+    multi-card paths alone, in about half the whole run's time. It prints
+    no result line."""
+    from animateportrait_tpu_torch.utils.smoke import write_umlvd_tree
+
+    t0 = time.perf_counter()
+    phase1()
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = write_umlvd_tree(os.path.join(tmp, "data"), n_photos=16,
+                                n_styles=16, clips=2, frames=8, size=512,
+                                seed=0, png_filter=4)
+        res, frames = render_cli(tmp, "out0", [])
+        multi = {"render": {"frames": frames,
+                            "render_s": res.stage_seconds["render"]}}
+        phase17(card, multi, tmp, tree)
+    stop_processes()
+    say(f"[done] --multi-card: phase 17 and what it reads passed in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
+    import argparse
+
+    p = argparse.ArgumentParser(description="Drive the port on the card.")
+    p.add_argument("--multi-card", action="store_true",
+                   help="run phase 17 (the multi-card paths) and only what "
+                        "it reads; no result line")
+    multi_only = p.parse_args().multi_card
     card = phase0()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    if multi_only:
+        multi_card(card, dev)
+        return
     t0 = time.perf_counter()
     phase1()
     rec = phase2(dev)
@@ -3748,12 +4425,14 @@ def main() -> None:
         os.makedirs(p15)
         tools = phase15(dev, main_run, p15, os.path.join(tmp, "data"))
         multi = phase16(dev, card, main_run, tmp, os.path.join(tmp, "data"))
+        cards = phase17(card, multi, tmp, os.path.join(tmp, "data"))
     rec["instance_norm"]["max_abs_err"] = max(
         rec["instance_norm"]["max_abs_err"],
         surface["test_cli"]["k2_path_err"],
         surface["p2c_full"]["k2_path_err"], zoo["gan"]["k2_path_err"],
         *(r["k2_path_err"] for r in tools["fakeb"].values()),
-        *(multi[k]["k2_err"] for k in ("dp", "render", "gpipe")))
+        *(multi[k]["k2_err"] for k in ("dp", "render", "gpipe")),
+        *(r["k2_err"] for r in cards.values() if "k2_err" in r))
     k2b = rec.setdefault("instance_norm_backward", {})
     k2b["max_abs_err"] = max(k2b.get("max_abs_err", 0.0),
                              zoo["gan"]["k2b_worst"]["k2b_abs"])
@@ -3838,7 +4517,9 @@ def main() -> None:
         "gan_convergence": tools["convergence"]["launches"],
         **multi["dp"]["launches"],
         "train_cli_multihost": multi["multihost"]["launches"],
-        **multi["render"]["launches"], **multi["gpipe"]["launches"]}
+        **multi["render"]["launches"], **multi["gpipe"]["launches"],
+        **{k: v for r in cards.values() for k, v in r.get(
+            "launches", {}).items()}}
     # "launches": K1's, K2's and K2-bf16's on the user's entry point (the
     # cartoon CLI runs of phases 5 and 9), K2b's and K2b-bf16's in the timed
     # training steps (phases 7 and 10); "launches_by_path" has every path's

@@ -11,8 +11,11 @@ face_of_art) on the card against the host and a float64 host run, and
 their convergence runs with no kernel launch; a few ``define_g`` /
 ``define_d`` nets (K2 and K2b on the card) and LPIPS card against host;
 ``postalign_video`` card against host; the data-parallel step of two
-ranks and a renderer of two replicas, both on one card. They skip without
-a CUDA device.
+ranks and a renderer of two replicas, both on one card; and, one rank a
+card over NCCL, the FSDP step against the data-parallel step, the
+tensor-parallel generator and the sequence-parallel pos branch against one
+card. They skip without a CUDA device, the last three with fewer than 2
+cards.
 
 This file imports neither JAX nor the JAX package, so it runs where JAX is
 not installed; the repo's conftest imports JAX, so on such a machine run
@@ -1109,3 +1112,179 @@ def test_render_dp_two_replicas_on_the_card(cuda_device):
     assert [d for _, _, d in r.replicas] == [
         torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     assert r.replicas[0][0] is r.g
+
+
+# --- the multi-card paths one rank a card (NCCL) ---------------------------
+
+
+def _cards(cuda_device, even: bool = False) -> list:
+    """The visible cards, up to 4 (an even count with ``even``); skips
+    with fewer than 2."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs 2 or more CUDA cards, one rank a card ({n} "
+                    f"visible)")
+    n = min(n, 4)
+    if even or 4 % n:
+        n -= n % 2
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def test_fsdp_step_one_rank_a_card_matches_dp(cuda_device, tmp_path):
+    """The FSDP-sharded step (``train/fsdp.py``) and the data-parallel step
+    at crop 64, ngf = ndf = 8 on a global batch of 4, one rank a card over
+    NCCL, 2 steps: the same losses (rtol 1e-4) and first-step gradients
+    within ``DP_LEAF_BAR`` of a leaf's scale (the card's default cuDNN
+    algorithms are not bit-repeatable, and kinks flip: 1.6e-3 on four
+    H100s), and rank 0's own slice of the batch alone (the fault the
+    gather and reduce-scatter prevent) beyond it; each rank's sharded
+    bytes 1/n of the unsharded ones, K2 and K2b launched and K2 against
+    its plain version on every rank."""
+    from animateportrait_tpu_torch.train import module2 as m2
+    from animateportrait_tpu_torch.utils import distributed as ddp
+    from animateportrait_tpu_torch.utils.smoke import (
+        dp_step_run, fsdp_steps, grad_parity, jobs_rank)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    devices = _cards(cuda_device)
+    n = len(devices)
+    cfg = m2.Module2Config(crop_size=64, ngf=8, ndf=8, pool_size=16,
+                           steps_per_epoch=2)
+    batch = {k: v.numpy() for k, v in m2.make_random_batch(
+        cfg, 4, torch.Generator().manual_seed(2), "cpu").items()}
+    ddp.spawn(jobs_rank, devices,
+              {"steps": (fsdp_steps, (cfg, batch, 2, 2 ** 10))},
+              str(tmp_path), timeout=600)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt")["steps"] for r in range(n)]
+    state = m2.init_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    alone = dp_step_run(cfg, {k: v[:4 // n] for k, v in batch.items()}, 1,
+                        cuda_device)
+    for net in ("g", "d"):
+        fault = grad_parity(alone["grads"][0][net],
+                            ranks[0]["dp"]["grads"][0][net], None,
+                            in_cancelled_biases(getattr(state, net)))
+        assert max(fault.values()) > DP_LEAF_BAR, (net, max(fault.values()))
+    for rec in ranks:
+        assert rec["backend"] == "nccl"
+        dp, fs = rec["dp"], rec["fsdp"]
+        for run in (dp, fs):
+            assert min(run["launches"].values()) > 0, run["launches"]
+            assert run["k2_err"] <= K2_ATOL
+        b = fs["fsdp_bytes"]
+        assert b["sharded"] * n == b["unsharded"] > 0
+        for s in range(2):
+            for k, v in dp["metrics"][s].items():
+                np.testing.assert_allclose(fs["metrics"][s][k], v,
+                                           rtol=1e-4, err_msg=k)
+        for net in ("g", "d"):
+            errs = grad_parity(fs["grads"][0][net], dp["grads"][0][net],
+                               None, in_cancelled_biases(getattr(state, net)))
+            assert max(errs.values()) <= DP_LEAF_BAR, (
+                net, max(errs.values()))
+
+
+def test_tp_generator_one_rank_a_card_matches_one_card(cuda_device,
+                                                       tmp_path):
+    """``tensor_parallel_generator`` of a trident generator (ngf 8, 3
+    blocks) on a (n/2, 2) grid of cards against the generator on one card,
+    4 frames at 64^2: within 1e-4, K2 launched on every rank on the channel
+    slices and held to its plain version."""
+    from animateportrait_tpu_torch.models.gan import TridentGeneratorFullIFW
+    from animateportrait_tpu_torch.multichip import tp_run
+    from animateportrait_tpu_torch.utils import distributed as ddp
+    from animateportrait_tpu_torch.utils.smoke import init_random_, jobs_rank
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    devices = _cards(cuda_device, even=True)
+    kw = dict(output_nc=1, ngf=8, n_blocks=3, div=3, disp=3)
+    g = init_random_(TridentGeneratorFullIFW(**kw),
+                     torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    h = 64
+    inputs = [rng.uniform(-1, 1, (4, c, h, h)).astype(np.float32)
+              for c in (3, 1, 1)]
+    inputs += [rng.uniform(-1, 1, (4, h, h, 2)).astype(np.float32),
+               rng.standard_normal((4, 2, h, h)).astype(np.float32),
+               np.ones((4, 1, h, h), np.float32)]
+    ddp.spawn(jobs_rank, devices, {"tp": (tp_run, (
+        (len(devices) // 2, 2), kw, g.state_dict(), inputs))},
+        str(tmp_path), timeout=600)
+    with torch.inference_mode():
+        want = g.to(cuda_device).eval()(
+            *(torch.as_tensor(a, device=cuda_device) for a in inputs)).cpu()
+    for r in range(len(devices)):
+        rec = torch.load(tmp_path / f"rank{r}.pt")["tp"]
+        assert rec["backend"] == "nccl" and rec["sliced"] > 0
+        assert rec["launches"]["instance_norm"] > 0
+        assert rec["k2_err"] <= K2_ATOL
+        assert maxdiff(rec["y"], want) <= 1e-4
+
+
+def test_sp_pos_one_rank_a_card_matches_one_card(cuda_device, tmp_path):
+    """``sequence_parallel_pos`` over the cards on a 64-frame segment
+    against ``Audio2landmarkPos`` on one card, the attention's output
+    projections scaled by ``multichip.ATTN_GAIN``: within 1e-4, and the
+    first rank's frames as a sequence of their own (the fault that
+    gathering keys and values across the cards prevents) beyond it."""
+    from animateportrait_tpu_torch.models.audio2landmark import (
+        Audio2landmarkPos)
+    from animateportrait_tpu_torch.multichip import (
+        SP_ATOL, first_rank_alone, gain_attention, pos_inputs, sp_run)
+    from animateportrait_tpu_torch.utils import distributed as ddp
+    from animateportrait_tpu_torch.utils.smoke import init_random_, jobs_rank
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    devices = _cards(cuda_device)
+    sd = gain_attention(init_random_(
+        Audio2landmarkPos(), torch.Generator().manual_seed(1)).state_dict())
+    inputs = pos_inputs(np.random.default_rng(1), 64)
+    ddp.spawn(jobs_rank, devices, {"sp": (sp_run, (sd, inputs))},
+              str(tmp_path), timeout=600)
+    pos = Audio2landmarkPos()
+    pos.load_state_dict(sd)
+    pos = pos.to(cuda_device).eval()
+    args = [torch.as_tensor(a, device=cuda_device) for a in inputs]
+    with torch.inference_mode():
+        want = pos(*args)[0].cpu()
+        alone = first_rank_alone(pos, args, len(devices)).cpu()
+    assert maxdiff(alone, want[:alone.shape[0]]) > SP_ATOL
+    for r in range(len(devices)):
+        rec = torch.load(tmp_path / f"rank{r}.pt")["sp"]
+        assert rec["backend"] == "nccl"
+        assert maxdiff(rec["y"], want) <= SP_ATOL
+
+
+def test_render_dp_one_replica_a_card_is_bit_equal(cuda_device):
+    """A renderer with a replica on each visible card (8 frames a replica)
+    against one replica on one card (frame batch 8), 20 frames, under
+    cuDNN's deterministic algorithms: the same frames bit for bit, K2
+    launched on each card with that card current."""
+    import copy
+
+    from animateportrait_tpu_torch.pipeline.render import Module2Renderer
+
+    devices = _cards(cuda_device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    nets = _small_renderer_nets()
+    rng = np.random.default_rng(0)
+    photo = rng.uniform(-1, 1, (256, 256, 3)).astype(np.float32)
+    a68 = rng.uniform(70, 190, (68, 2)).astype(np.float32)
+    tb68 = a68 + rng.uniform(-2, 2, (20, 68, 2)).astype(np.float32)
+    frames = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for devs in (None, devices):
+            r = Module2Renderer(*copy.deepcopy(nets),
+                                frame_batch=8 * (1 if devs is None
+                                                 else len(devs)),
+                                device=cuda_device, output_uint8=True,
+                                data_parallel=devs is not None, devices=devs)
+            with torch.inference_mode():
+                frames.append(r(photo, a68, tb68))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert [d for _, _, d in r.replicas] == devices
+    assert np.array_equal(frames[0], frames[1])

@@ -14,7 +14,10 @@ ngf = ndf = 8) over gloo:
 - ``data_parallel_world``: the JAX default of every visible card, and the
   error that names both numbers when more ranks are asked than there are;
 - the data-parallel step with ``compute_dtype="bfloat16"`` and ``remat``
-  against one process with both.
+  against one process with both;
+- ``utils/smoke.py:decomposed_grads`` (the ranks' step emulated in one
+  process, each slice alone) against 4 gloo ranks at a batch of 1 each,
+  for 2 steps.
 
 The data-parallel step against the JAX package's is in
 ``tests/test_torch_data_parallel.py``.
@@ -38,7 +41,9 @@ from animateportrait_tpu_torch.utils import distributed as ddp
 from animateportrait_tpu_torch.utils.options import (
     data_parallel_world, to_configs)
 from animateportrait_tpu_torch.utils.smoke import (
-    adam_update_parity, dp_step_rank, dp_step_run, write_umlvd_tree)
+    adam_update_parity, decomposed_grads, dp_step_rank, dp_step_run,
+    write_umlvd_tree)
+from torch_port_helpers import maxdiff
 
 LOSS_TOL = dict(rtol=1e-4, atol=1e-5)    # tests/test_torch_train.py's
 SPAWN_TIMEOUT = 180           # s, for the processes of one test
@@ -207,3 +212,41 @@ def test_dp_step_composes_with_bf16_and_remat(tmp_path):
         for k, v in ranks[0]["params"][-1][net].items():
             assert v.dtype == torch.float32, k       # fp32 masters
             assert torch.equal(v, ranks[1]["params"][-1][net][k]), k
+
+
+def test_decomposed_grads_match_the_ranks(tmp_path):
+    """The data-parallel step of 4 gloo ranks at a batch of 1 each, 2
+    steps, against ``decomposed_grads`` in one process on the same global
+    batch (``dp_step_run(decompose=4)``): the losses within 1e-6
+    (relative; the ranks and the one process run the same convs at batch
+    1, and only the order of the gradient mean differs), where the
+    one-process step at batch 4 sits ~1e-4 away at the second step (its
+    convs round otherwise, and Adam's first update turns that into steps
+    of lr); the pool after the first step bit-equal, after the second
+    within 1e-4; and a step that would fill the pool refused."""
+    cfg = m2.Module2Config(crop_size=64, output_nc=1, ngf=8, ndf=8,
+                           steps_per_epoch=2, pool_size=16)
+    batch = {k: v.numpy() for k, v in m2.make_random_batch(
+        cfg, 4, torch.Generator().manual_seed(2), "cpu").items()}
+    ddp.spawn(dp_step_rank, ["cpu"] * 4, cfg, batch, 2, str(tmp_path),
+              timeout=SPAWN_TIMEOUT)
+    ranks = torch.load(tmp_path / "rank0.pt")
+    cpu = torch.device("cpu")
+    # at the ranks' torch threads (``spawn`` gives each this process's
+    # divided by the ranks): the CPU's convs round by their thread count
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads // 4))
+    try:
+        got = dp_step_run(cfg, batch, 2, cpu, decompose=4)
+    finally:
+        torch.set_num_threads(threads)
+    for s in range(2):
+        for k, v in ranks["metrics"][s].items():
+            np.testing.assert_allclose(got["metrics"][s][k], v, rtol=1e-6,
+                                       atol=1e-8, err_msg=k)
+        # the first step's fakes bit-equal; the second's from a G whose
+        # update differs in the mean's rounding (5.0e-6 on the CPU)
+        assert maxdiff(got["pools"][s], ranks["pools"][s]) <= (0.0, 1e-4)[s]
+    assert got["pool_counts"] == ranks["pool_counts"] == [8, 16]
+    with pytest.raises(ValueError, match="would fill"):
+        dp_step_run(cfg, batch, 3, cpu, decompose=4)

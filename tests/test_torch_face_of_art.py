@@ -19,9 +19,11 @@ scipy on the same inputs:
   ``lr_step`` 2 (the decay inside the test), Adam with the ``reg`` term and
   SGD with momentum: losses within rtol 1e-4 at every step, the first
   step's gradients by ``grad_parity`` with the port's float64 step, the
-  parameters within 1e-4 of their scale after the three SGD steps and
-  after the first Adam step (where its float64 gradient is not rounding
-  noise);
+  parameters within 1e-4 of their scale after the first Adam step (where
+  its float64 gradient is not rounding noise), and after the three SGD
+  steps within 1e-4 of the port's float64 three-step run and, by
+  ``grad_parity``'s float64 rule at 1e-4, of JAX's (whose XLA CPU step is
+  not repeatable on a loaded machine);
 - ``evaluate_foa``, ``predict_artistic_landmarks`` with trained PDMs,
   ``train_foa`` with checkpoints, and the convergence runner's ``foa``
   row at 3 steps against the JAX tool's (rtol 1e-2);
@@ -526,7 +528,9 @@ def test_foa_train_steps_match_jax(opt):
     """Three steps at lr_step 2 (the rate decays before the third): losses
     within rtol 1e-4 at each, the first step's gradients by ``grad_parity``
     with the port's float64 step (Adam: from its first moment), and the
-    parameters after three steps within 1e-4 of their leaf's scale."""
+    parameters after three steps within 1e-4 of their leaf's scale (SGD:
+    of the port's float64 run, and of JAX's by ``grad_parity``'s float64
+    rule)."""
     size = 32
     kw = dict(lr=1e-3, lr_step=2, gamma=0.5)
     kw.update(dict(reg=1e-3) if opt == "adam_reg" else dict(adam=False))
@@ -555,8 +559,8 @@ def test_foa_train_steps_match_jax(opt):
         for k in ("l2_primary", "l2_fusion", "l2_upsample", "total"):
             assert abs(float(m[k]) - float(jl[k])) <= 1e-4 * abs(
                 float(jl[k])), (i, k)
+        tr64.step(*(a.double() for a in args))
         if i == 0:
-            tr64.step(*(a.double() for a in args))
             got = {k: p.grad for k, p in tr.model.named_parameters()}
             g64 = {k: p.grad for k, p in tr64.model.named_parameters()}
             if opt == "sgd":    # the momentum trace after one step is g
@@ -573,7 +577,17 @@ def test_foa_train_steps_match_jax(opt):
     assert tr.opt.param_groups[0]["lr"] == pytest.approx(
         1e-3 * 0.5 ** (3 // 2))
     if not cfg.adam:
-        _params_match(tr.model, state.params)
+        # JAX's XLA CPU step is not repeatable on a loaded machine (six
+        # pytest-xdist workers: conv_1.bias 1.35-1.37e-4 of its scale from
+        # float64 in 7 of 93 runs, where the port's was bit-equal in all):
+        # each package's parameters against the port's float64 run
+        want = from_jax.artistic_heatmap_state_dict({"params": state.params})
+        got = dict(tr.model.named_parameters())
+        p64 = dict(tr64.model.named_parameters())
+        errs = grad_parity(got, want, p64, set(), bar=1e-4)
+        assert max(errs.values()) <= 1e-4, max(errs, key=errs.get)
+        errs64 = grad_parity(got, p64, None, set())
+        assert max(errs64.values()) <= 1e-4, max(errs64, key=errs64.get)
 
 
 def _params_match(model, params, g64=None):

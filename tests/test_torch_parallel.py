@@ -27,7 +27,7 @@ from animateportrait_tpu_torch.models.gan import ResnetBlock
 from animateportrait_tpu_torch.parallel import (
     resnet_stage, seq_apply, stage_blocks)
 from animateportrait_tpu_torch.utils import distributed as ddp
-from animateportrait_tpu_torch.utils.smoke import gpipe_rank
+from animateportrait_tpu_torch.utils.smoke import gpipe_run, jobs_rank
 from torch_port_helpers import nchw, nhwc, psnr
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -56,7 +56,7 @@ def _port_blocks(params) -> list:
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """For P = 2 and 4: JAX's ``gpipe_apply`` output at each M of CASES on
-    a P-device mesh, and each port rank's record (``gpipe_rank``)."""
+    a P-device mesh, and each port rank's record (``gpipe_run``)."""
     from animateportrait_tpu.parallel import (
         gpipe_apply, resnet_stage_fn, stack_stage_params)
 
@@ -77,9 +77,10 @@ def runs(tmp_path_factory):
                 for m in ms}
         d = tmp_path_factory.mktemp(f"gpipe{p}")
         sds = [from_jax.resnet_block_state_dict(v) for v in params]
-        ddp.spawn(gpipe_rank, ["cpu"] * p, sds, nchw(x).numpy(), ms, str(d),
+        ddp.spawn(jobs_rank, ["cpu"] * p,
+                  {"gpipe": (gpipe_run, (sds, nchw(x).numpy(), ms))}, str(d),
                   timeout=SPAWN_TIMEOUT)
-        ranks = [torch.load(d / f"rank{r}.pt") for r in range(p)]
+        ranks = [torch.load(d / f"rank{r}.pt")["gpipe"] for r in range(p)]
         out[p] = dict(want=want, ranks=ranks, params=params, block=block,
                       stacked=stacked, x=x)
     return out
