@@ -985,3 +985,33 @@ def artistic_heatmap_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
         else:
             _conv2d(sd, scope, node.get("conv", node))
     return sd
+
+
+def discriminator_mlp_state_dict(variables: Tree
+                                 ) -> dict[str, torch.Tensor]:
+    """``DiscriminatorMLP`` variables -> the port's module (the JAX package
+    has no loader for the discriminators)."""
+    sd: dict = {}
+    _mlp3(sd, "fl_DL", variables["params"], "l")
+    return sd
+
+
+def transformer_dt_state_dict(variables: Tree, num_layers: int = 2
+                              ) -> dict[str, torch.Tensor]:
+    """``TransformerDT`` variables -> the port's module."""
+    p = variables["params"]
+    sd: dict = {}
+    _transformer_encoder(sd, "encoder", p["encoder"], num_layers)
+    _mlp3(sd, "out", p, "l")
+    return sd
+
+
+def discriminator_gru_state_dict(variables: Tree
+                                 ) -> dict[str, torch.Tensor]:
+    """``DiscriminatorGRU`` variables -> the port's module: the JAX GRU's
+    gates are in torch's order (r, z, n), as its LSTM's are."""
+    p = variables["params"]
+    sd: dict = {}
+    _lstm(sd, "fl_DT.", p["gru"], 3)
+    _mlp3(sd, "projection", p, "l")
+    return sd

@@ -253,3 +253,76 @@ class Audio2landmarkSpeakerAware(nn.Module):
             if face_id.shape[0] == 1 else face_id
         fl_pred = self.fls_out(torch.cat([e_out, face_id_t], dim=1))
         return fl_pred, self.pos_out(e_out), face_id[0:1, :], spk
+
+
+def _head(cin: int) -> nn.Sequential:
+    """The discriminators' Linear(cin, 512) - LeakyReLU(0.02) - Linear(512,
+    256) - LeakyReLU(0.02) - Linear(256, 1)."""
+    return nn.Sequential(
+        nn.Linear(cin, 512), nn.LeakyReLU(0.02), nn.Linear(512, 256),
+        nn.LeakyReLU(0.02), nn.Linear(256, 1))
+
+
+def _windows(feat: torch.Tensor, win_size: int, win_step: int
+             ) -> torch.Tensor:
+    """The reference's training windows of a sequence (T, F), as one gather
+    -> (n_win, w, F): w = T - 1 when T <= win_size, else win_size; the
+    windows start at 0 .. T - w - 1 and take every ``win_step``-th frame
+    of their w."""
+    T = feat.shape[0]
+    w = T - 1 if T <= win_size else win_size
+    idx = (torch.arange(T - w, device=feat.device)[:, None]
+           + torch.arange(0, w, win_step, device=feat.device)[None, :])
+    return feat[idx]
+
+
+class DiscriminatorMLP(nn.Module):
+    """Frame-wise landmark discriminator (TalkingToon_spk2res_lstmgan_DL,
+    model_audio2landmark.py:409-424): feat (N, 204) -> (N, 1)."""
+
+    def __init__(self):
+        super().__init__()
+        self.fl_DL = _head(FACE_ID_FEAT_SIZE)
+
+    def forward(self, feat: torch.Tensor) -> torch.Tensor:
+        return self.fl_DL(feat)
+
+
+class TransformerDT(nn.Module):
+    """Windowed transformer discriminator over a landmark sequence
+    (Transformer_DT, :427-450): forward(fls (T, 204), spk_emb (T, 128))
+    -> (n_win, 1). Each window (``_windows``) is one sequence of the
+    ``Encoder``, max-pooled over its frames."""
+
+    def __init__(self, transformer_d_model: int = 32, N: int = 2,
+                 heads: int = 2, spk_emb_enc_size: int = 128):
+        super().__init__()
+        d_model = transformer_d_model * heads
+        self.encoder = Encoder(FACE_ID_FEAT_SIZE + spk_emb_enc_size, d_model,
+                               N, heads)
+        self.out = _head(d_model)
+
+    def forward(self, fls: torch.Tensor, spk_emb: torch.Tensor,
+                win_size: int = 64, win_step: int = 1) -> torch.Tensor:
+        d_in = _windows(torch.cat([fls, spk_emb], dim=1), win_size, win_step)
+        return self.out(self.encoder(d_in).amax(dim=1))
+
+
+class DiscriminatorGRU(nn.Module):
+    """GRU temporal discriminator (TalkingToon_spk2res_lstmgan_DT,
+    :453-490): forward(comb_encode (T, comb_emb_size), fls (T, 204)) ->
+    (n_win, 1). A max-pool over 4 frames (stride 1), the windows of the
+    T - 3 pooled frames (``_windows``), a 3-layer GRU, its last output."""
+
+    def __init__(self, comb_emb_size: int = 256, hidden: int = 256):
+        super().__init__()
+        self.fl_DT = nn.GRU(comb_emb_size + FACE_ID_FEAT_SIZE, hidden, 3,
+                            batch_first=True)
+        self.projection = _head(hidden)
+
+    def forward(self, comb_encode: torch.Tensor, fls: torch.Tensor,
+                win_size: int = 32, win_step: int = 1) -> torch.Tensor:
+        feat = torch.cat([comb_encode, fls], dim=1)
+        pooled = F.max_pool1d(feat.T[None], 4, 1)[0].T
+        out, _ = self.fl_DT(_windows(pooled, win_size, win_step))
+        return self.projection(out[:, -1, :])

@@ -1,13 +1,15 @@
-"""Savitzky-Golay smoothing on tensors. Port of
-``animateportrait_tpu/ops/filters.py:savgol_filter``: a (T, window) gather
-contracted with the least-squares coefficients, plus scipy's ``interp``
-edge fit, so the landmark post chain stays on the device."""
+"""Smoothing filters on tensors. Port of
+``animateportrait_tpu/ops/filters.py``: ``savgol_filter``, a (T, window)
+gather contracted with the least-squares coefficients, plus scipy's
+``interp`` edge fit, so the landmark post chain stays on the device; and
+``hann_smooth``, the reference's Hanning-window smoothing."""
 from __future__ import annotations
 
 import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 @functools.lru_cache(maxsize=None)
@@ -49,3 +51,18 @@ def savgol_filter(x: torch.Tensor, window_length: int, polyorder: int
     y[:half] = torch.from_numpy(left_m).to(dev) @ xf[:window_length]
     y[T - half:] = torch.from_numpy(right_m).to(dev) @ xf[T - window_length:]
     return y.reshape(x.shape)
+
+
+def hann_smooth(x: torch.Tensor, window_len: int = 11) -> torch.Tensor:
+    """Hanning-window smoothing of a 1-D series (n,), as
+    Module1/util/utils.py:213-265 ``smooth(window='hanning')``: reflect-
+    extend by window_len - 1 on both sides and convolve with the
+    normalized fp32 Hann window. Like the reference it returns the whole
+    'valid' convolution, of length n + window_len - 1; callers slice."""
+    w = torch.from_numpy(np.hanning(window_len).astype(np.float32)).to(
+        device=x.device, dtype=x.dtype)
+    w = w / w.sum()
+    ext = torch.cat([x[1:window_len].flip(0), x,
+                     x[-window_len:-1].flip(0)])
+    # a convolution flips its kernel, conv1d (a correlation) does not
+    return F.conv1d(ext[None, None], w.flip(0)[None, None])[0, 0]

@@ -1,9 +1,10 @@
-"""68-point face-landmark geometry. Port of the parts of
-``animateportrait_tpu/ops/geometry.py`` that the slice runs:
-``norm_input_face`` and ``add_naive_eye`` on the host (numpy, as there),
-``area_of_signed_polygon``, ``best_fit_transform`` and ``icp`` on tensors.
+"""68-point face-landmark geometry. Port of
+``animateportrait_tpu/ops/geometry.py``: ``norm_input_face``,
+``close_input_face_mouth`` and ``add_naive_eye`` on the host (numpy, as
+there); ``area_of_signed_polygon``, ``best_fit_transform`` and ``icp`` on
+tensors.
 
-Reference: Module1/util/utils.py:348-393, Module1/util/geo_math.py:34 and
+Reference: Module1/util/utils.py:329-393, Module1/util/geo_math.py:34 and
 Module1/util/icp.py.
 """
 from __future__ import annotations
@@ -25,6 +26,25 @@ def norm_input_face(shape_3d: np.ndarray, std_face: np.ndarray
     shape_3d[:, -1] = std_face[:, -1] * 0.1
     shape_3d[:, 0:2] = -shape_3d[:, 0:2]
     return shape_3d, scale, shift
+
+
+def close_input_face_mouth(shape_3d: np.ndarray, p1: float = 0.7,
+                           p2: float = 0.5) -> np.ndarray:
+    """Pull the outer and inner lip landmarks of a 68x3 face toward their
+    closed-mouth midline (Module1/util/utils.py:329-346)."""
+    s = np.array(shape_3d, dtype=np.float64).reshape(1, 68, 3)
+    outer_low = [58, 57, 56]
+    inner_low = [67, 66, 65]
+    mean_in = 0.5 * (s[:, 61:64] + s[:, inner_low])
+    s[:, 50:53] -= (s[:, 61:64] - mean_in) * p1
+    s[:, outer_low] -= (s[:, inner_low] - mean_in) * p1
+    s[:, 49] -= (s[:, 61] - mean_in[:, 0]) * p2
+    s[:, 53] -= (s[:, 63] - mean_in[:, -1]) * p2
+    s[:, 59] -= (s[:, 67] - mean_in[:, 0]) * p2
+    s[:, 55] -= (s[:, 65] - mean_in[:, -1]) * p2
+    s[:, 61:64] -= (s[:, 61:64] - mean_in) * p1
+    s[:, inner_low] -= (s[:, inner_low] - mean_in) * p1
+    return s.reshape(68, 3)
 
 
 def blink_timestamps(length: int, rng: np.random.Generator,

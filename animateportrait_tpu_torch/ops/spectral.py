@@ -7,7 +7,8 @@ reference that kernel K1 (``ops/stft.py``) is held against.
 Semantics (reference file:line, as in the JAX module):
 - framing/window/magnitudes: pySTFT (extract_f0_func.py:14-26): reflect
   pad n_fft//2, periodic Hann, |rfft|;
-- mel: librosa slaney mel (fmin 90, fmax 7600, 80 bins);
+- mel: librosa slaney mel (fmin 90, fmax 7600, 80 bins); ``mel_spectrogram``
+  takes its magnitudes from K1's wrapper, so a CUDA signal runs K1;
 - f0 normalization / one-hot: Module1/src/autovc/utils.py:95-146.
 """
 from __future__ import annotations
@@ -97,6 +98,44 @@ def stft_magnitude(x: torch.Tensor, n_fft: int = 1024,
     re = frames @ cos_m
     im = frames @ sin_m
     return torch.sqrt(re * re + im * im)
+
+
+@functools.lru_cache(maxsize=None)
+def mel_basis(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float,
+              device: torch.device) -> torch.Tensor:
+    """``mel_filterbank(...).T`` (n_fft//2+1, n_mels) as a tensor, built
+    once per device."""
+    return torch.from_numpy(np.ascontiguousarray(
+        mel_filterbank(sr, n_fft, n_mels, fmin, fmax).T)).to(device)
+
+
+def mel_scale(mags: torch.Tensor, sr: int = 16000, n_fft: int = 1024,
+              n_mels: int = 80, fmin: float = 90.0, fmax: float = 7600.0
+              ) -> torch.Tensor:
+    """|STFT| magnitudes (..., n_frames, n_fft//2+1) -> the reference's
+    scaled log-mel: S = (20 log10(max(min_level, mag @ mel)) - 16 + 100)
+    / 100, min_level = 1e-5."""
+    d_mel = mags @ mel_basis(sr, n_fft, n_mels, fmin, fmax, mags.device)
+    min_level = float(np.exp(-100.0 / 20.0 * np.log(10.0)))
+    d_db = 20.0 * torch.log10(torch.clamp(d_mel, min=min_level)) - 16.0
+    return (d_db + 100.0) / 100.0
+
+
+def mel_spectrogram(x: torch.Tensor, sr: int = 16000, n_fft: int = 1024,
+                    hop: int = 256, n_mels: int = 80, fmin: float = 90.0,
+                    fmax: float = 7600.0) -> torch.Tensor:
+    """Reference-scaled log-mel of fp32 signal(s) (..., n) -> (...,
+    n//hop + 1, n_mels). The magnitudes come from ``ops/stft.py:
+    stft_magnitude``, one row of the leading dims at a time: kernel K1 on
+    a CUDA signal (which takes only n_fft 1024, hop 256 and raises for
+    any other), the plain version on a CPU one."""
+    from animateportrait_tpu_torch.ops.stft import stft_magnitude  # K1
+
+    rows = x.reshape(-1, x.shape[-1])
+    mags = torch.stack([stft_magnitude(r.contiguous(), n_fft, hop)
+                        for r in rows])
+    mags = mags.reshape(*x.shape[:-1], *mags.shape[1:])
+    return mel_scale(mags, sr, n_fft, n_mels, fmin, fmax)
 
 
 def speaker_normalize_f0(logf0: torch.Tensor,

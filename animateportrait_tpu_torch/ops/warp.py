@@ -3,13 +3,15 @@
 The JAX ``grid_sample`` reproduces ``F.grid_sample`` (both corner
 conventions, zeros or border padding), so the port calls that operator
 directly; the TPU gather workarounds (``_aug4``, ``_gather_chunk``) have no
-counterpart. What stays is the reference's flow-warp quirk, and the
-pixel-coordinate samplers of the training step: ``sample_bilinear``
-(``dense_image_warp``, the face crops) and ``sample_bicubic`` (the
-MobileFaceNet crop). They index in pixels, as the JAX functions do, so no
-round trip through normalized coordinates moves a sample; they are plain
-gathers that autograd differentiates (with respect to the image and the
-coordinates).
+counterpart. ``F.grid_sample``'s nearest mode is the JAX ``grid_sample``'s
+too: both round half to even and, under zeros padding, zero a sample whose
+rounded index lies outside the image. What stays is the reference's
+flow-warp quirk, and the pixel-coordinate samplers: ``sample_bilinear``
+(``dense_image_warp``, the face crops), ``sample_bicubic`` (the
+MobileFaceNet crop) and ``sample_nearest``. They index in pixels, as the
+JAX functions do, so no round trip through normalized coordinates moves a
+sample; they are plain gathers that autograd differentiates (with respect
+to the image, and for the first two the coordinates).
 """
 from __future__ import annotations
 
@@ -80,6 +82,25 @@ def sample_bicubic(img: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor
         for jx in range(4):
             c = (gx + jx - 1).clamp(0, w - 1)
             out = out + wy[jy] * wx[jx] * _gather(img, r, c)
+    return out
+
+
+def sample_nearest(img: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
+                   padding_mode: str = "zeros") -> torch.Tensor:
+    """Nearest samples of ``img`` (N, C, H, W) at float pixel coordinates
+    (N, *S) -> (N, C, *S), as the JAX function: each coordinate rounded
+    half to even, the index clamped to the image; under ``"zeros"``
+    padding a sample whose rounded index lies outside the image is 0,
+    under ``"border"`` it is the clamped pixel."""
+    if padding_mode not in ("zeros", "border"):
+        raise ValueError(f"unsupported padding_mode: {padding_mode}")
+    _, _, h, w = img.shape
+    yn = torch.round(iy).long()
+    xn = torch.round(ix).long()
+    out = _gather(img, yn.clamp(0, h - 1), xn.clamp(0, w - 1))
+    if padding_mode == "zeros":
+        inb = (yn >= 0) & (yn <= h - 1) & (xn >= 0) & (xn <= w - 1)
+        out = out * inb.unsqueeze(1).to(out.dtype)
     return out
 
 

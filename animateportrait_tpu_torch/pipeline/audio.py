@@ -19,8 +19,7 @@ from animateportrait_tpu_torch.models.speaker_encoder import (
     VoiceEncoder, get_spk_emb)
 from animateportrait_tpu_torch.ops.f0 import track_f0
 from animateportrait_tpu_torch.ops.spectral import (
-    mel_filterbank, quantize_f0_onehot, speaker_normalize_f0)
-from animateportrait_tpu_torch.ops.stft import stft_magnitude
+    mel_spectrogram, quantize_f0_onehot, speaker_normalize_f0)
 from animateportrait_tpu_torch.utils import assets
 from animateportrait_tpu_torch.utils.device import (
     DEFAULT_DEVICE, resolve_device)
@@ -81,12 +80,7 @@ def normalize_dbfs(x: np.ndarray, target_dbfs: float = -20.0) -> np.ndarray:
 def frontend(w: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """Filtered, dithered fp32 signal -> packed (T, 80 + 1 + 257): mel-S,
     normalized f0, f0 one-hot."""
-    mag = stft_magnitude(w, N_FFT, HOP)
-    fb = torch.from_numpy(np.ascontiguousarray(
-        mel_filterbank(SR, N_FFT, 80, 90.0, 7600.0).T)).to(w.device)
-    min_level = float(np.exp(-100 / 20 * np.log(10)))
-    d_db = 20.0 * torch.log10(torch.clamp(mag @ fb, min=min_level)) - 16.0
-    s = (d_db + 100.0) / 100.0
+    s = mel_spectrogram(w, SR, N_FFT, HOP)
     logf0, voiced = track_f0(w, lo, hi)
     f0_norm = speaker_normalize_f0(logf0, voiced)
     T = min(s.shape[0], f0_norm.shape[0])
@@ -119,6 +113,14 @@ def extract_frontend(wav: np.ndarray, gender: str = "F", seed: int = 0,
                         dtype=torch.float32).to(resolve_device(device))
     packed = frontend(w, lo, hi).cpu().numpy()
     return packed[:, :80], packed[:, 80].copy(), packed[:, 81:]
+
+
+def extract_mel_and_f0(wav: np.ndarray, gender: str = "F", seed: int = 0,
+                       device: torch.device | str = DEFAULT_DEVICE
+                       ) -> tuple[np.ndarray, np.ndarray]:
+    """(S, f0_norm) view of :func:`extract_frontend`."""
+    s, f0_norm, _ = extract_frontend(wav, gender, seed, device)
+    return s, f0_norm
 
 
 @dataclasses.dataclass
@@ -180,3 +182,23 @@ def normalize_audio_features(au: np.ndarray) -> np.ndarray:
     """Normalize by the vendored mean/std (audio2landmark_dataset.py:47-53)."""
     mean, std = assets.autovc_mel_au_mean_std()
     return ((au - mean) / std).astype(np.float32)
+
+
+def extract_stft_features(wav: np.ndarray, fps: int = 25) -> np.ndarray:
+    """STFT-only 161-d features of the no-AutoVC path
+    (convert_single_wav_to_input, AutoVC...py:146-196), on the host as in
+    the JAX package: the log power of a scipy stft (nperseg 320 at 25 fps,
+    356 at 30) of the int16-scale signal, divided by its max, with the
+    last 2 video frames' columns dropped for A/V alignment -> (T, 161)."""
+    from scipy.signal import stft as scipy_stft
+
+    win = {25: 320, 30: 356}[fps]
+    step = {25: 4, 30: 3}[fps]
+    # the reference feeds raw int16-scale samples (scipy wav.read without
+    # normalization), which the log-power max normalizer depends on
+    x = normalize_dbfs(np.asarray(wav, np.float64)) * 32768.0
+    _, _, zxx = scipy_stft(x, fs=SR, nperseg=win)
+    feats = np.log(np.abs(zxx) ** 2 + 1e-10)
+    feats /= np.max(feats)
+    fl_length = feats.shape[1] // step
+    return feats[:, : (fl_length - 2) * step].T.astype(np.float32)

@@ -90,6 +90,16 @@ def landmark_dot_images(lm68: torch.Tensor, size: int) -> torch.Tensor:
     return hit[:, None].float() * 2.0 - 1.0
 
 
+def test_window(load_size: int = 256, rx: float = 0.15, ry: float = 0.2,
+                rs: float = 0.7) -> np.ndarray:
+    """Face window [x1, x2, y1, y2] of the no-crop test transform
+    (umlvdfw_test_dataset.py:12-31 with crop_pos=(0,0), flip=False)."""
+    x1 = int(round(rx * load_size))
+    y1 = int(round(ry * load_size))
+    s = int(round(rs * load_size))
+    return np.array([x1, x1 + s, y1, y1 + s], np.int32)
+
+
 def _indexed(device: torch.device) -> torch.device:
     """``cuda`` as the card it means now (``cuda:<current>``)."""
     if device.type == "cuda" and device.index is None:

@@ -20,6 +20,11 @@ sharded state (``Module2TrainStep.grads`` / ``step``):
   an all-reduce, then the rank's slice) and all-reduces the rest;
 - frees the gathered leaves, and Adam updates the slices.
 
+The step's config does not touch the sharding, as in the JAX package:
+under ``compute_dtype="bfloat16"`` the step casts the gathered fp32
+leaves, and under ``remat`` it recomputes G's forwards while they are
+still gathered, so both run sharded as they run unsharded.
+
 Adam's state is keyed by the slices (``FSDPShards.masters``), which live
 as long as the state; a replicated leaf's master is the net's own
 parameter. ``gather_state`` returns the whole state on every rank (the

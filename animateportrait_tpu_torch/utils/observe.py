@@ -1,20 +1,26 @@
-"""Observability of the trainer: the loss log, the visual gallery, the
-landmark overlays and the step timer. Port of
-``animateportrait_tpu/utils/observe.py`` (reference: the Visualizer of
-Module2/util/visualizer.py without its visdom server): losses go to stdout,
-``loss_log.txt`` in the reference's format (:91-94, 176+) and
-``metrics.jsonl``; snapshots go to a static HTML gallery
-(``<dir>/web/index.html``, util/html.py), written with the port's PNG
-writer. The JAX package's compile cache and profiler helpers belong to JAX
-and are not carried over.
+"""Observability of the trainers: the loss log, the visual gallery, the
+landmark overlays, the step timer, the loss tracker, gradient norms and a
+profiler trace. Port of ``animateportrait_tpu/utils/observe.py``
+(reference: the Visualizer of Module2/util/visualizer.py without its
+visdom server): losses go to stdout, ``loss_log.txt`` in the reference's
+format (:91-94, 176+) and ``metrics.jsonl``; snapshots go to a static HTML
+gallery (``<dir>/web/index.html``, util/html.py), written with the port's
+PNG writer. ``profile_trace`` writes a ``torch.profiler`` Chrome trace
+where the JAX one writes an XProf trace. The JAX package's compile cache
+(``enable_compile_cache``) configures XLA and has no counterpart: the port
+builds its kernels once into its build directory.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import tempfile
 import time
 
 import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
 
 from animateportrait_tpu_torch.utils.image import write_png
 
@@ -179,3 +185,71 @@ class StepTimer:
     def data_share(self) -> float:
         total = self.data_total + self.comp_total
         return self.data_total / total if total > 0 else 0.0
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str | None = None):
+    """A ``torch.profiler`` trace of the block: CPU activity, and CUDA
+    activity (the kernels by name, their device time) when a card is
+    present. On exit it writes a Chrome trace (``chrome://tracing``,
+    Perfetto) to ``<log_dir>/trace.json``, whose path the context yields;
+    without ``log_dir`` a new temporary directory takes it."""
+    log_dir = log_dir or tempfile.mkdtemp(prefix="ap_trace_")
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, "trace.json")
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield path
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+
+
+def grad_norms(grads) -> dict:
+    """Gradient-norm measurement (the reference's CalcGradNorm context
+    manager, intrinsic_flow_models/modules.py:180, and diagnose_network's
+    mean |grad|, Module2/util/util.py:32-48) of a dict of gradient tensors,
+    or of a module's ``.grad``s: {'global_norm', 'mean_abs'}, 0-d fp32
+    tensors."""
+    leaves = ([p.grad for p in grads.parameters() if p.grad is not None]
+              if isinstance(grads, torch.nn.Module) else list(grads.values()))
+    sq = sum(torch.sum(torch.square(g.float())) for g in leaves)
+    total = sum(torch.sum(torch.abs(g.float())) for g in leaves)
+    count = sum(g.numel() for g in leaves)
+    return {"global_norm": torch.sqrt(torch.as_tensor(sq)),
+            "mean_abs": torch.as_tensor(total) / max(count, 1)}
+
+
+class Record:
+    """Loss tracker (Module1/util/utils.py:31-64) with the reference's exact
+    semantics, ``add`` accumulating the same value into every tracked key
+    included."""
+
+    def __init__(self, type_list):
+        self.data = {t: 0.0 for t in type_list}
+        self.count = {t: 0.0 for t in type_list}
+        self.type_list = type_list
+        self.max_min_data = None
+
+    def add(self, new_data, c: float = 1.0):
+        for t in self.type_list:
+            self.data[t] += new_data
+            self.count[t] += c
+
+    def per(self, t):
+        return self.data[t] / (self.count[t] + 1e-32)
+
+    def clean(self, t):
+        self.data[t], self.count[t] = 0.0, 0.0
+
+    def is_better(self, t, greater: bool) -> bool:
+        if self.max_min_data is None:
+            self.max_min_data = self.data[t]
+            return True
+        if (self.data[t] > self.max_min_data if greater
+                else self.data[t] < self.max_min_data):
+            self.max_min_data = self.data[t]
+            return True
+        return False

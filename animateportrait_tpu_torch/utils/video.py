@@ -1,8 +1,9 @@
 """Video/audio output without ffmpeg or OpenCV: frames + speech -> one AVI.
 Port of ``animateportrait_tpu/utils/video.py``.
 
-The JAX package JPEG-encodes each frame through OpenCV; the port writes
-the frames uncompressed, which every reader decodes to the exact frames:
+The JAX package JPEG-encodes each frame through OpenCV; the port's
+``mux_avi`` writes the frames uncompressed, which every reader decodes to
+the exact frames:
 ``00db`` chunks of 24-bit BGR rows (a DIB, ``BI_RGB``), each row padded
 to 4 bytes, stored top-down (a negative ``biHeight``):
 OpenCV 5.0's FFmpeg reader decodes bottom-up raw frames but corrupts its
@@ -11,7 +12,8 @@ RIFF ``AVI `` with ``hdrl`` (video and audio stream headers), ``movi``
 (each frame's chunk followed by its share of 16-bit PCM in ``01wb``,
 round(sr / fps) samples) and an ``idx1`` index. A RIFF size is 32 bits,
 so about 5.8 minutes of 256x256 frames at 62.5 fps is the limit; a longer
-clip raises before anything is written.
+clip raises before anything is written. ``write_video`` writes a silent
+Motion-JPEG AVI (``00dc`` chunks of quality-95 JPEGs), as the JAX one does.
 
 ``read_first_frame`` and ``read_pcm_track`` read the CLI's ``--video``
 without FFmpeg: the first frame of a raw or Motion-JPEG AVI, and its
@@ -22,6 +24,7 @@ refused by name.
 """
 from __future__ import annotations
 
+import os
 import struct
 import wave
 
@@ -66,58 +69,64 @@ def _dib(frame: np.ndarray, stride: int) -> bytes:
     return rows.tobytes()
 
 
-def mux_avi(path: str, frames: np.ndarray, wav: np.ndarray,
-            fps: float = 62.5, sr: int = 16000) -> str:
-    """Interleave uncompressed RGB frames (T, H, W, 3) uint8 and 16-bit PCM
-    audio into one AVI file, streamed to disk."""
-    frames = np.asarray(frames)
-    if frames.dtype != np.uint8 or frames.ndim != 4 or frames.shape[3] != 3:
-        raise ValueError(f"mux_avi takes (T, H, W, 3) uint8 frames, got "
-                         f"{frames.shape} {frames.dtype}")
-    n, h, w = frames.shape[:3]
-    stride = (w * 3 + 3) & ~3
-    frame_bytes = stride * h
-    pcm = _pcm16(wav)
-    bytes_per_frame = int(round(sr / fps)) * 2
-    audio = [pcm[i * bytes_per_frame: (i + 1) * bytes_per_frame]
-             for i in range(n)]
-
+def _write_avi(path: str, w: int, h: int, fps: float, payloads,
+               sizes: list[int], codec: bytes | None = None,
+               wav: np.ndarray | None = None, sr: int = 16000) -> str:
+    """A RIFF AVI of one video stream and, when ``wav`` is given, a 16-bit
+    mono PCM stream, streamed to disk. ``payloads`` yields each frame's
+    chunk (``sizes`` are their lengths): top-down 24-bit DIB rows in
+    ``00db`` chunks when ``codec`` is None, else ``codec`` (b"MJPG")
+    frames in ``00dc`` chunks."""
+    n = len(sizes)
+    buf = max(sizes, default=0)
     usec_per_frame = int(round(1e6 / fps))
-    avih = _chunk(b"avih", struct.pack(
-        "<14I", usec_per_frame, 0, 0, 0x10, n, 0, 2, frame_bytes, w, h,
-        0, 0, 0, 0))
-    strh_v = _chunk(b"strh", b"vids" + b"DIB " + struct.pack(
+    if codec is None:
+        tag_v, handler, height, comp, image = b"00db", b"DIB ", -h, 0, buf
+    else:
+        tag_v, handler, height = b"00dc", codec, h
+        comp, image = int.from_bytes(codec, "little"), w * h * 3
+    strh_v = _chunk(b"strh", b"vids" + handler + struct.pack(
         "<IHHIIIIIIII4H", 0, 0, 0, 0, usec_per_frame, 1000000, 0, n,
-        frame_bytes, 0, 0, 0, 0, w, h))
+        buf, 0, 0, 0, 0, w, h))
     strf_v = _chunk(b"strf", struct.pack(
-        "<IiiHHIIiiII", 40, w, -h, 1, 24, 0, frame_bytes, 0, 0, 0, 0))
-    strh_a = _chunk(b"strh", b"auds" + b"\x00" * 4 + struct.pack(
-        "<IHHIIIIIIII4H", 0, 0, 0, 0, 1, sr, 0, len(pcm) // 2,
-        bytes_per_frame, 0, 2, 0, 0, 0, 0))
-    strf_a = _chunk(b"strf", struct.pack("<HHIIHH", 1, 1, sr, sr * 2, 2, 16))
-    hdrl = _chunk(b"LIST", b"hdrl" + avih
-                  + _chunk(b"LIST", b"strl" + strh_v + strf_v)
-                  + _chunk(b"LIST", b"strl" + strh_a + strf_a))
+        "<IiiHHIIiiII", 40, w, height, 1, 24, comp, image, 0, 0, 0, 0))
+    strls = _chunk(b"LIST", b"strl" + strh_v + strf_v)
+    audio = [b""] * n
+    if wav is not None:
+        pcm = _pcm16(wav)
+        bytes_per_frame = int(round(sr / fps)) * 2
+        audio = [pcm[i * bytes_per_frame: (i + 1) * bytes_per_frame]
+                 for i in range(n)]
+        strh_a = _chunk(b"strh", b"auds" + b"\x00" * 4 + struct.pack(
+            "<IHHIIIIIIII4H", 0, 0, 0, 0, 1, sr, 0, len(pcm) // 2,
+            bytes_per_frame, 0, 2, 0, 0, 0, 0))
+        strf_a = _chunk(b"strf", struct.pack("<HHIIHH", 1, 1, sr, sr * 2, 2,
+                                             16))
+        strls += _chunk(b"LIST", b"strl" + strh_a + strf_a)
+    avih = _chunk(b"avih", struct.pack(
+        "<14I", usec_per_frame, 0, 0, 0x10, n, 0, 1 if wav is None else 2,
+        buf, w, h, 0, 0, 0, 0))
+    hdrl = _chunk(b"LIST", b"hdrl" + avih + strls)
 
     def padded(k):
         return k + k % 2
 
-    movi_size = 4 + n * (8 + padded(frame_bytes)) + sum(
+    movi_size = 4 + sum(8 + padded(k) for k in sizes) + sum(
         8 + padded(len(a)) for a in audio if a)
     n_chunks = n + sum(1 for a in audio if a)
     riff_size = 4 + len(hdrl) + 8 + movi_size + 8 + 16 * n_chunks
     if riff_size > _RIFF_MAX:
         raise ValueError(
-            f"mux_avi: {n} frames of {w}x{h} need a RIFF of {riff_size} "
-            f"bytes, over the AVI limit of {_RIFF_MAX}; write a shorter clip")
+            f"{n} frames of {w}x{h} need a RIFF of {riff_size} bytes, over "
+            f"the AVI limit of {_RIFF_MAX}; write a shorter clip")
 
     idx = []
     offset = 4                      # from the 'movi' tag
     with open(path, "wb") as f:
         f.write(b"RIFF" + struct.pack("<I", riff_size) + b"AVI " + hdrl)
         f.write(b"LIST" + struct.pack("<I", movi_size) + b"movi")
-        for frame, a in zip(frames, audio):
-            for tag, payload in ((b"00db", _dib(frame, stride)), (b"01wb", a)):
+        for frame, a in zip(payloads, audio):
+            for tag, payload in ((tag_v, frame), (b"01wb", a)):
                 if not payload:
                     continue
                 chunk = _chunk(tag, payload)
@@ -129,14 +138,54 @@ def mux_avi(path: str, frames: np.ndarray, wav: np.ndarray,
     return path
 
 
-def write_video_with_audio(path: str, frames: np.ndarray, wav: np.ndarray,
-                           fps: float = 62.5, sr: int = 16000) -> str:
-    """Frames ([-1, 1] float or uint8, gray or RGB) + audio -> one AVI."""
+def mux_avi(path: str, frames: np.ndarray, wav: np.ndarray,
+            fps: float = 62.5, sr: int = 16000) -> str:
+    """Interleave uncompressed RGB frames (T, H, W, 3) uint8 and 16-bit PCM
+    audio into one AVI file, streamed to disk."""
+    frames = np.asarray(frames)
+    if frames.dtype != np.uint8 or frames.ndim != 4 or frames.shape[3] != 3:
+        raise ValueError(f"mux_avi takes (T, H, W, 3) uint8 frames, got "
+                         f"{frames.shape} {frames.dtype}")
+    n, h, w = frames.shape[:3]
+    stride = (w * 3 + 3) & ~3
+    return _write_avi(path, w, h, fps, (_dib(f, stride) for f in frames),
+                      [stride * h] * n, wav=wav, sr=sr)
+
+
+def _rgb_uint8(frames: np.ndarray) -> np.ndarray:
+    """[-1, 1] float or uint8 frames, gray or RGB -> (T, H, W, 3) uint8."""
     if frames.dtype != np.uint8:
         frames = frames_to_uint8(frames)
     if frames.shape[-1] == 1:
         frames = np.repeat(frames, 3, axis=-1)
-    return mux_avi(path, frames, wav, fps=fps, sr=sr)
+    return frames
+
+
+def write_video(path: str, frames: np.ndarray, fps: float = 62.5) -> str:
+    """Frames ([-1, 1] float or uint8, RGB or gray; (T, H, W, C)) -> a
+    silent Motion-JPEG AVI, each frame JPEG-encoded at quality 95
+    (``utils/jpeg.py:encode_jpeg``, ``cv2.imencode``'s file). The JAX
+    function writes through ``cv2.VideoWriter``: MJPG for an ``.avi`` path,
+    MP4 for another when OpenCV has that codec, else the ``.avi``
+    fallback. The port writes the ``.avi`` for every path (a ``.mp4``
+    becomes ``.avi``) and returns the path it wrote."""
+    from animateportrait_tpu_torch.utils.jpeg import encode_jpeg
+
+    root, ext = os.path.splitext(path)
+    if ext != ".avi":
+        path = root + ".avi"
+    frames = _rgb_uint8(np.asarray(frames))
+    h, w = frames.shape[1:3]
+    jpegs = [encode_jpeg(np.ascontiguousarray(f[:, :, ::-1]))
+             for f in frames]
+    return _write_avi(path, w, h, fps, jpegs, [len(j) for j in jpegs],
+                      codec=b"MJPG")
+
+
+def write_video_with_audio(path: str, frames: np.ndarray, wav: np.ndarray,
+                           fps: float = 62.5, sr: int = 16000) -> str:
+    """Frames ([-1, 1] float or uint8, gray or RGB) + audio -> one AVI."""
+    return mux_avi(path, _rgb_uint8(frames), wav, fps=fps, sr=sr)
 
 
 # the containers a first frame cannot be read from without FFmpeg, by

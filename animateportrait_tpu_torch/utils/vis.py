@@ -100,14 +100,16 @@ def landmark_sequence_video(path: str, fls: np.ndarray,
                             wav: np.ndarray | None = None,
                             size: int = 512, fps: float = 62.5) -> str:
     """A landmark sequence (T, 68, 2+) as a preview AVI of ``vis_landmark``
-    frames, with the audio track when ``wav`` is given
-    (Module1/util/vis.py's role)."""
-    from animateportrait_tpu_torch.utils.video import mux_avi
+    frames (Module1/util/vis.py's role): uncompressed with the audio track
+    when ``wav`` is given, else a silent Motion-JPEG AVI (``write_video``),
+    as the JAX function."""
+    from animateportrait_tpu_torch.utils.video import mux_avi, write_video
 
     frames = np.stack([vis_landmark(size, size, f[:, :2])[:, :, ::-1]
                        for f in np.asarray(fls)])            # BGR -> RGB
-    return mux_avi(path, frames, np.zeros(0) if wav is None else wav,
-                   fps=fps)
+    if wav is None:
+        return write_video(path, frames, fps=fps)
+    return mux_avi(path, frames, wav, fps=fps)
 
 
 def show_bboxes(img_bgr: np.ndarray, boxes: np.ndarray,

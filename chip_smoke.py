@@ -219,6 +219,18 @@ Phases, each printing its own lines:
      if any failed. On one card it runs ``dryrun_multichip(2)`` over gloo
      ranks that share the card, and says that (a)-(g) need two or more
      cards.
+ 18. the last functions of the JAX package: (a) ``entry()`` (the trident
+     generator at full width, 256^2) on the card against the host (PSNR
+     >= 40 dB), K2's launches a forward, K2 against its plain version on
+     the forward's InstanceNorm inputs, ms a forward; (b) Module1's three
+     discriminators at the reference's widths, forward and backward, card
+     against host (outputs within 1e-4 of their scale, gradients by
+     ``grad_parity`` with a float64 host run); (c) ``mel_spectrogram`` on
+     phase 3's 6 s WAV through K1, against its plain version on the card
+     and against the host; (d) a ``write_video`` round trip of phase 3's
+     first frames; (e) ``profile_trace`` around one renderer batch: the
+     trace names K2's kernel, an event a launch. Every part runs; the
+     phase fails after them if any failed.
 Then the loader's forkserver and multiprocessing's resource tracker are
 stopped, and no process the run started may still be running.
 
@@ -4331,6 +4343,244 @@ def phase17(card: str, multi16: dict, tmp: str, tree: str) -> dict:
     return out
 
 
+# --- phase 18: the last functions of the JAX package ----------------------
+
+# phase 18 (c): mel_spectrogram through K1 against its plain version on the
+# card and against the host, as phase 4 holds the front end's mel
+MEL_ATOL = 2e-3
+# phase 18 (d): the frames of phase 3 that go through write_video
+VIDEO_FRAMES = 16
+
+
+def phase18_entry(dev: torch.device) -> dict:
+    """(a) ``entry()`` at full width on the card against the same forward
+    on the host (PSNR >= 40 dB), K2's launches in one card forward, K2
+    against its plain version on the forward's InstanceNorm inputs, and
+    ms a forward (CUDA events over 10 forwards after a warm one)."""
+    from animateportrait_tpu_torch.entry import entry
+
+    fn, args = entry(dev)
+    kept, hooks = keep_instance_norm_inputs({"entry": fn})
+    with torch.inference_mode():
+        fn(*args)
+        for h in hooks:
+            h.remove()
+        zero_counters()
+        y = fn(*args)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        for _ in range(10):
+            fn(*args)
+        t1.record()
+        torch.cuda.synchronize()
+        ms = t0.elapsed_time(t1) / 10
+        hfn, hargs = entry("cpu")
+        want = hfn(*hargs).numpy()
+    got = y.cpu().numpy()
+    p = psnr(got, want, peak=2.0)
+    say(f"[18] (a) entry() on the card: TridentGeneratorFullIFW ngf 64 at "
+        f"256^2, {ms:.3f} ms a forward (10 after a warm one), K2 launches "
+        f"{launches['instance_norm']} a forward; card vs host PSNR "
+        f"{p:.2f} dB (>= 40)")
+    if launches["instance_norm"] <= 0:
+        raise AssertionError(f"entry() launched no K2: {launches}")
+    if not p >= 40.0:
+        raise AssertionError(f"entry(): card vs host PSNR {p:.2f} dB < 40")
+    return {"launches": launches, "ms": ms, "psnr": p,
+            "k2_err": k2_on_path(kept, "18", by_shape_lines=False)}
+
+
+def phase18_discriminators(dev: torch.device) -> dict:
+    """(b) Module1's three discriminators at the reference's widths
+    (``TransformerDT`` d_model 64 over 36 windows of 64 frames,
+    ``DiscriminatorGRU`` hidden 256 x 3 over 65 windows of 32 pooled
+    frames, ``DiscriminatorMLP`` on 100 frames), forward and backward on
+    the card against the host, from the same weights and inputs: the
+    outputs within 1e-4 of their scale, every parameter's and input's
+    gradient by ``grad_parity`` (1e-3) with a float64 host run."""
+    from animateportrait_tpu_torch.models import audio2landmark as a2l
+    from animateportrait_tpu_torch.utils.smoke import (
+        cancelled_biases, grad_parity, init_random_)
+
+    T = 100
+    nets = {"mlp": (a2l.DiscriminatorMLP, (204,)),
+            "transformer_dt": (a2l.TransformerDT, (204, 128)),
+            "gru": (a2l.DiscriminatorGRU, (256, 204))}
+    out = {}
+    for name, (cls, widths) in nets.items():
+        rng = np.random.default_rng(len(name))
+        xs = [rng.standard_normal((T, w)) for w in widths]
+        runs = []
+        for where, dt in ((dev, torch.float32), ("cpu", torch.float32),
+                          ("cpu", torch.float64)):
+            net = init_random_(cls(), torch.Generator().manual_seed(0))
+            net = net.to(device=where, dtype=dt)
+            inp = [torch.tensor(x, dtype=dt, device=where,
+                                requires_grad=True) for x in xs]
+            y = net(*inp)
+            names = [k for k, _ in net.named_parameters()]
+            grads = torch.autograd.grad(
+                y.square().sum(), [p for _, p in net.named_parameters()]
+                + inp)
+            runs.append((
+                y.detach().double().cpu(),
+                {k: g.detach().cpu() for k, g in zip(
+                    names + [f"input{i}" for i in range(len(inp))], grads)}))
+        (yc, gc), (yh, gh), (_, g64) = runs
+        out_err = float((yc - yh).abs().max() / yh.abs().max())
+        errs = grad_parity(gc, gh, g64, cancelled_biases(cls()))
+        worst = max(errs, key=errs.get)
+        say(f"[18] (b) {name}: output {tuple(yc.shape)}, card vs host "
+            f"{out_err:.2e} of its scale (<= 1e-4); gradients of "
+            f"{len(errs)} leaves by grad_parity, worst {errs[worst]:.2e} "
+            f"at {worst} (<= 1e-3)")
+        if not out_err <= 1e-4 or errs[worst] > 1e-3:
+            raise AssertionError(f"[18] {name}: card vs host output "
+                                 f"{out_err}, gradient {worst} "
+                                 f"{errs[worst]}")
+        out[name] = {"out_err": out_err, "grad_err": errs[worst]}
+    return out
+
+
+def phase18_mel(dev: torch.device) -> dict:
+    """(c) ``ops/spectral.py:mel_spectrogram`` on phase 3's 6 s WAV (the
+    front end's conditioned signal): through K1 on the card (one launch),
+    against its plain version on the card (the plain |STFT| and the same
+    mel scaling) and against the host, each within ``MEL_ATOL``."""
+    from animateportrait_tpu_torch.ops.spectral import (
+        mel_scale, mel_spectrogram, stft_magnitude)
+    from animateportrait_tpu_torch.pipeline.audio import (
+        condition_signal, normalize_dbfs)
+    from animateportrait_tpu_torch.utils.smoke import make_wav
+
+    x = torch.as_tensor(condition_signal(normalize_dbfs(make_wav(
+        6.0, seed=2))), dtype=torch.float32)
+    xc = x.to(dev)
+    with torch.inference_mode():
+        zero_counters()
+        got = mel_spectrogram(xc)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        plain = mel_scale(stft_magnitude(xc))
+        host = mel_spectrogram(x)
+    e_plain = float((got - plain).abs().max())
+    e_host = float((got.cpu() - host).abs().max())
+    say(f"[18] (c) mel_spectrogram of the 6 s WAV {tuple(got.shape)}: K1 "
+        f"launches {launches['stft_magnitude']}; max|K1 path - plain on the "
+        f"card| {e_plain:.3e}, max|card - host| {e_host:.3e} (atol "
+        f"{MEL_ATOL})")
+    if launches["stft_magnitude"] != 1:
+        raise AssertionError(f"mel_spectrogram: K1 launches {launches}")
+    if not max(e_plain, e_host) <= MEL_ATOL:
+        raise AssertionError(f"mel_spectrogram: plain {e_plain}, host "
+                             f"{e_host}")
+    return {"launches": launches, "err": max(e_plain, e_host)}
+
+
+def phase18_video(frames: np.ndarray, tmp: str) -> dict:
+    """(d) ``utils/video.py:write_video`` of the first ``VIDEO_FRAMES`` of
+    phase 3's frames (gray uint8) and ``read_video_frames`` back: the
+    frame count and rate, each frame the decode of its quality-95 JPEG
+    (the container loses nothing), and the PSNR against the frames."""
+    from animateportrait_tpu_torch.utils.jpeg import (
+        decode_mjpeg_frame, encode_jpeg)
+    from animateportrait_tpu_torch.utils.video import (
+        read_video_frames, write_video)
+
+    clip = frames[:VIDEO_FRAMES]
+    t0 = time.perf_counter()
+    path = write_video(os.path.join(tmp, "p18.mp4"), clip, fps=62.5)
+    t_write = time.perf_counter() - t0
+    got, fps = read_video_frames(path)
+    rgb = np.repeat(clip, 3, axis=-1)
+    if (not path.endswith(".avi") or fps != 62.5
+            or got.shape != (len(clip), *rgb.shape[1:])):
+        raise AssertionError(f"write_video: {path}, {fps} fps, "
+                             f"{got.shape}")
+    for g, f in zip(got, rgb):
+        if not np.array_equal(g, decode_mjpeg_frame(encode_jpeg(
+                np.ascontiguousarray(f[:, :, ::-1])))):
+            raise AssertionError("write_video: a frame read back is not "
+                                 "its JPEG's decode")
+    p = min(psnr(g[:, :, ::-1].astype(np.float64), f.astype(np.float64),
+                 peak=255.0) for g, f in zip(got, rgb))
+    say(f"[18] (d) write_video: {len(clip)} frames to "
+        f"{os.path.basename(path)} in {t_write:.2f} s ({os.path.getsize(path)}"
+        f" bytes), read back exact to their JPEGs; min PSNR against the "
+        f"frames {p:.2f} dB")
+    return {"psnr": p}
+
+
+def phase18_trace(dev: torch.device, landmarks: np.ndarray, tmp: str
+                  ) -> dict:
+    """(e) ``utils/observe.py:profile_trace`` around one 8-frame batch of a
+    full-width drawing renderer (seeded weights) on phase 3's landmarks:
+    the Chrome trace exists, names K2's kernel, and its K2 events number
+    K2's launches in the batch."""
+    from animateportrait_tpu_torch.entry import entry
+    from animateportrait_tpu_torch.models.flowunet import FlowUnet
+    from animateportrait_tpu_torch.models.gan import ResnetStyle2Generator
+    from animateportrait_tpu_torch.models.modnet import MODNet
+    from animateportrait_tpu_torch.pipeline.render import Module2Renderer
+    from animateportrait_tpu_torch.utils.observe import profile_trace
+    from animateportrait_tpu_torch.utils.smoke import init_random_
+
+    gen = torch.Generator().manual_seed(1)
+    renderer = Module2Renderer(
+        entry(dev)[0], init_random_(FlowUnet(), gen),
+        init_random_(MODNet(), gen),
+        init_random_(ResnetStyle2Generator(), gen), frame_batch=8,
+        device=dev)
+    photo = np.random.default_rng(1).uniform(-1, 1, (256, 256, 3)).astype(
+        np.float32)
+    tb68 = (landmarks[:8, :, :2] * 0.5).astype(np.float32)
+    with torch.inference_mode():
+        renderer(photo, tb68.mean(0), tb68)           # warm
+        zero_counters()
+        with profile_trace(os.path.join(tmp, "p18_trace")) as path:
+            renderer(photo, tb68.mean(0), tb68)
+        launches = read_counters()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    k2 = [e for e in events if e.get("cat") == "kernel"
+          and "instance_norm" in e.get("name", "")]
+    say(f"[18] (e) profile_trace around one renderer batch: "
+        f"{os.path.getsize(path)} bytes, {len(events)} events, {len(k2)} "
+        f"K2 kernel events ({k2[0]['name'][:60] if k2 else None}), K2 "
+        f"launches {launches['instance_norm']}")
+    if not k2 or len(k2) != launches["instance_norm"]:
+        raise AssertionError(f"profile_trace: {len(k2)} K2 events against "
+                             f"{launches['instance_norm']} launches")
+    return {"launches": launches}
+
+
+def phase18(dev: torch.device, main_run: dict, tmp: str) -> dict:
+    """The last functions of the JAX package, (a)-(e); each part runs, and
+    the phase fails after them if any failed."""
+    import traceback
+
+    t0 = time.perf_counter()
+    parts = {"entry": lambda: phase18_entry(dev),
+             "discriminators": lambda: phase18_discriminators(dev),
+             "mel": lambda: phase18_mel(dev),
+             "video": lambda: phase18_video(main_run["frames"], tmp),
+             "trace": lambda: phase18_trace(dev, main_run["landmarks"],
+                                            tmp)}
+    out, failed = {}, []
+    for name, part in parts.items():
+        try:
+            out[name] = part()
+        except Exception as e:     # the phase fails below, after every part
+            traceback.print_exc()
+            failed.append(f"{name}: {e!r}"[:2000])
+    say(f"[18] phase 18 in {time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise AssertionError("phase 18: " + "; ".join(failed))
+    return out
+
+
 def child_processes() -> list[str]:
     """The processes whose parent is this one, as "pid command"."""
     out = []
@@ -4426,7 +4676,9 @@ def main() -> None:
         tools = phase15(dev, main_run, p15, os.path.join(tmp, "data"))
         multi = phase16(dev, card, main_run, tmp, os.path.join(tmp, "data"))
         cards = phase17(card, multi, tmp, os.path.join(tmp, "data"))
+        last = phase18(dev, main_run, tmp)
     rec["instance_norm"]["max_abs_err"] = max(
+        last["entry"]["k2_err"],
         rec["instance_norm"]["max_abs_err"],
         surface["test_cli"]["k2_path_err"],
         surface["p2c_full"]["k2_path_err"], zoo["gan"]["k2_path_err"],
@@ -4519,7 +4771,10 @@ def main() -> None:
         "train_cli_multihost": multi["multihost"]["launches"],
         **multi["render"]["launches"], **multi["gpipe"]["launches"],
         **{k: v for r in cards.values() for k, v in r.get(
-            "launches", {}).items()}}
+            "launches", {}).items()},
+        "entry": last["entry"]["launches"],
+        "mel_spectrogram": last["mel"]["launches"],
+        "profile_trace_render": last["trace"]["launches"]}
     # "launches": K1's, K2's and K2-bf16's on the user's entry point (the
     # cartoon CLI runs of phases 5 and 9), K2b's and K2b-bf16's in the timed
     # training steps (phases 7 and 10); "launches_by_path" has every path's

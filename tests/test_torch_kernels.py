@@ -262,7 +262,7 @@ for m in ("train.module1", "train.flow_regression", "train.image_translation",
           "data.av2flau", "utils.puppet", "utils.get_data",
           "data.fakeb_static", "train.gan_convergence",
           "train.standin_frozen", "io.to_flax", "parallel",
-          "utils.distributed", "train.fsdp", "multichip"):
+          "utils.distributed", "train.fsdp", "multichip", "entry"):
     assert "animateportrait_tpu_torch." + m in mods, m
 from animateportrait_tpu_torch.utils.smoke import trainer_smoke
 from animateportrait_tpu_torch.train.convergence import run_all
