@@ -29,7 +29,7 @@ from animateportrait_tpu_torch.pipeline.audio import (
 from animateportrait_tpu_torch.pipeline.landmark import (
     LandmarkPredictor, sliding_windows)
 from animateportrait_tpu_torch.pipeline.render import Module2Renderer
-from animateportrait_tpu_torch.utils import assets
+from animateportrait_tpu_torch.utils import assets, observe
 from animateportrait_tpu_torch.utils.image import resize_bicubic
 
 FPS = 62.5  # 16000 Hz / 256-sample hop
@@ -85,7 +85,9 @@ class TalkingPortraitPipeline:
 
     landmark_fn: the aligned BGR 512 photo -> its (68, 3) landmarks (the
     CLI's FAN3D hook, ``models/fan3d.py:make_fan_landmark_fn``); without
-    one, the 5-point canonical-face fit."""
+    one, the 5-point canonical-face fit. Each call is a clip: the span
+    ``clip`` (``utils/observe.py``), whose request id counts the clips of
+    this pipeline from 0."""
 
     def __init__(self, detector, landmark_predictor: LandmarkPredictor,
                  audio_pipeline: AudioPipeline, renderer: Module2Renderer,
@@ -95,6 +97,7 @@ class TalkingPortraitPipeline:
         self.audio = audio_pipeline
         self.renderer = renderer
         self.landmark_fn = landmark_fn
+        self.clips = 0
 
     def __call__(self, img_bgr: np.ndarray, wav: np.ndarray | str,
                  gender: str = "F",
@@ -109,6 +112,14 @@ class TalkingPortraitPipeline:
         ``pred_fls_<audio_name>_audio_embed.txt``, the normalized predicted
         landmarks (train_audio2landmark.py:340-342). dump_dir: also write
         the stage dumps (``write_stage_dumps``)."""
+        observe.request(self.clips)
+        self.clips += 1
+        with observe.span("clip"):
+            return self._clip(img_bgr, wav, gender, rng, spk_emb_override,
+                              output_folder, dump_dir, audio_name)
+
+    def _clip(self, img_bgr, wav, gender, rng, spk_emb_override,
+              output_folder, dump_dir, audio_name) -> PipelineOutputs:
         times: dict[str, float] = {}
         t = time.perf_counter()
 
@@ -124,13 +135,13 @@ class TalkingPortraitPipeline:
             wav = load_wav(wav)
         boxes, lms = detect(img_bgr, self.detector)
         mark("detect")
-        aligned, five = align_detections(img_bgr, boxes, lms)
-        if self.landmark_fn is None:
-            raw_shape, norm_shape, scale, shift = face_shape(
-                estimate_landmarks_from_5pt(five))
-            mark("align")
-        else:
-            mark("align")
+        with observe.span("clip.align"):
+            aligned, five = align_detections(img_bgr, boxes, lms)
+            if self.landmark_fn is None:
+                raw_shape, norm_shape, scale, shift = face_shape(
+                    estimate_landmarks_from_5pt(five))
+        mark("align")
+        if self.landmark_fn is not None:
             raw_shape, norm_shape, scale, shift = face_shape(
                 self.landmark_fn(aligned))
             mark("fan")
@@ -151,29 +162,30 @@ class TalkingPortraitPipeline:
                 np.asarray(fl).reshape(-1, 204), fmt="%.6f")
         mark("landmarks")
 
-        # un-normalize back to aligned-512 pixel space (:265-266)
-        fl = fl.reshape(-1, 68, 3).astype(np.float64)
-        fl[:, :, 0:2] = -fl[:, :, 0:2]
-        fl[:, :, 0:2] = fl[:, :, 0:2] / scale - shift
-        fl = geometry.add_naive_eye(fl, rng or np.random.default_rng(0))
-        flat = fl.reshape(-1, 204)
-        T = flat.shape[0]
-        w_face = min(15, (T - 1) // 2 * 2 + 1)
-        w_lip = min(5, (T - 1) // 2 * 2 + 1)
-        if w_face >= 5:
-            from scipy.signal import savgol_filter
+        with observe.span("clip.post"):
+            # un-normalize back to aligned-512 pixel space (:265-266)
+            fl = fl.reshape(-1, 68, 3).astype(np.float64)
+            fl[:, :, 0:2] = -fl[:, :, 0:2]
+            fl[:, :, 0:2] = fl[:, :, 0:2] / scale - shift
+            fl = geometry.add_naive_eye(fl, rng or np.random.default_rng(0))
+            flat = fl.reshape(-1, 204)
+            T = flat.shape[0]
+            w_face = min(15, (T - 1) // 2 * 2 + 1)
+            w_lip = min(5, (T - 1) // 2 * 2 + 1)
+            if w_face >= 5:
+                from scipy.signal import savgol_filter
 
-            flat[:, : 48 * 3] = savgol_filter(flat[:, : 48 * 3], w_face, 3,
-                                              axis=0)
-            flat[:, 48 * 3:] = savgol_filter(flat[:, 48 * 3:], w_lip, 3,
-                                             axis=0)
-        fl = flat.reshape(-1, 68, 3)
+                flat[:, : 48 * 3] = savgol_filter(flat[:, : 48 * 3], w_face,
+                                                  3, axis=0)
+                flat[:, 48 * 3:] = savgol_filter(flat[:, 48 * 3:], w_lip, 3,
+                                                 axis=0)
+            fl = flat.reshape(-1, 68, 3)
 
-        # render at 256: photo and landmarks scale by 256/512
-        photo256 = resize_bicubic(aligned, (256, 256))
-        photo_rgb = photo256[:, :, ::-1].astype(np.float32) / 127.5 - 1.0
-        a68 = (raw_shape[:, :2] * (256.0 / 512.0)).astype(np.float32)
-        tb68 = (fl[:, :, :2] * (256.0 / 512.0)).astype(np.float32)
+            # render at 256: photo and landmarks scale by 256/512
+            photo256 = resize_bicubic(aligned, (256, 256))
+            photo_rgb = photo256[:, :, ::-1].astype(np.float32) / 127.5 - 1.0
+            a68 = (raw_shape[:, :2] * (256.0 / 512.0)).astype(np.float32)
+            tb68 = (fl[:, :, :2] * (256.0 / 512.0)).astype(np.float32)
         frames = self.renderer(photo_rgb, a68, tb68)
         mark("render")
         return PipelineOutputs(frames=frames, landmarks=fl,

@@ -62,6 +62,7 @@ from animateportrait_tpu_torch.models.photo2cartoon import (
 from animateportrait_tpu_torch.nn import cast_parameters
 from animateportrait_tpu_torch.ops.tps import (
     linear_motion_grid, motion_grid_from_landmarks, triangulate_frames)
+from animateportrait_tpu_torch.utils import observe
 from animateportrait_tpu_torch.utils.device import (
     DEFAULT_DEVICE, resolve_device)
 
@@ -290,22 +291,24 @@ class Module2Renderer:
         if motions is not None:
             mo_p = np.concatenate([motions, np.repeat(motions[-1:], pad, 0)])
         elif self.motion_mode == "linear":
-            tris_p = triangulate_frames(tb68_p, cs)
+            with observe.span("render.triangulate"):
+                tris_p = triangulate_frames(tb68_p, cs)
 
         def batches():
             for j in range(0, tb68_p.shape[0], fb):
                 outs = []
-                for r, (_, _, d) in enumerate(self.replicas):
-                    a, b = j + r * part, j + (r + 1) * part
-                    lm = torch.as_tensor(tb68_p[a:b], dtype=torch.float32,
-                                         device=d)
-                    mo = None if mo_p is None else torch.as_tensor(
-                        mo_p[a:b], dtype=torch.float32, device=d)
-                    tri = None if tris_p is None else torch.as_tensor(
-                        tris_p[a:b], device=d)
-                    outs.append(self.frames(*per_photo[r], lm, mo, tri,
-                                            return_all=return_all,
-                                            replica=r))
+                with observe.span("render.launch"):
+                    for r, (_, _, d) in enumerate(self.replicas):
+                        a, b = j + r * part, j + (r + 1) * part
+                        lm = torch.as_tensor(tb68_p[a:b], dtype=torch.float32,
+                                             device=d)
+                        mo = None if mo_p is None else torch.as_tensor(
+                            mo_p[a:b], dtype=torch.float32, device=d)
+                        tri = None if tris_p is None else torch.as_tensor(
+                            tris_p[a:b], device=d)
+                        outs.append(self.frames(*per_photo[r], lm, mo, tri,
+                                                return_all=return_all,
+                                                replica=r))
                 yield outs
 
         return photo_fore, mask, batches()
@@ -320,8 +323,11 @@ class Module2Renderer:
         motions: optional (T, cs, cs, 2) grids that replace the
         renderer's own (the reference's griddata grids)."""
         _, _, batches = self._photo_batches(photo, a_lm68, tb_lm68s, motions)
-        outs = [out.permute(0, 2, 3, 1).cpu().numpy()
-                for parts in batches for out in parts]
+        outs = []
+        for parts in batches:
+            with observe.span("render.fetch"):
+                outs += [out.permute(0, 2, 3, 1).cpu().numpy()
+                         for out in parts]
         return np.concatenate(outs, axis=0)[:tb_lm68s.shape[0]]
 
     def render_visuals(self, photo: np.ndarray, a_lm68: np.ndarray,

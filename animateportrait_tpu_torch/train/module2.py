@@ -63,6 +63,7 @@ from animateportrait_tpu_torch.ops.tps import (
     linear_motion_grid, motion_grid_from_landmarks, sparse_image_warp)
 from animateportrait_tpu_torch.ops.warp import sample_bicubic
 from animateportrait_tpu_torch.utils import distributed as ddp
+from animateportrait_tpu_torch.utils import observe
 from animateportrait_tpu_torch.utils.assets import face_lmark_lookup
 from animateportrait_tpu_torch.utils.device import (
     DEFAULT_DEVICE, resolve_device)
@@ -304,7 +305,8 @@ def pool_swap(pool: torch.Tensor, count: int, imgs: torch.Tensor,
     images of a batch are written in order, so a later one wins a slot
     that two share, as in the JAX package. ``pool`` is not modified."""
     b, psize = imgs.shape[0], pool.shape[0]
-    u, slots = u.cpu(), slots.cpu()
+    with observe.span("m2.pool_fetch"):
+        u, slots = u.cpu(), slots.cpu()
     new_pool = pool.clone()
     out = []
     for i in range(b):
@@ -801,30 +803,37 @@ class Module2TrainStep:
 
     def _grads(self, state: TrainState, batch: dict, frozen: FrozenNets,
                gen: torch.Generator, group) -> Grads:
-        shared = self.forward_shared(batch, frozen)
+        with observe.span("m2.forward_shared"):
+            shared = self.forward_shared(batch, frozen)
         g_names, g_params = zip(*state.g.named_parameters())
-        g_loss, fake_B, fake_B2, g_losses = self.g_loss(
-            state.g, state.d, batch, shared, frozen)
-        g_grads = torch.autograd.grad(g_loss, g_params)
+        with observe.span("m2.g_loss"):
+            g_loss, fake_B, fake_B2, g_losses = self.g_loss(
+                state.g, state.d, batch, shared, frozen)
+        with observe.span("m2.g_grad"):
+            g_grads = torch.autograd.grad(g_loss, g_params)
         fake_B, fake_B2 = fake_B.detach(), fake_B2.detach()
         if group is None:
             queried = fake_B, fake_B2
         else:
             queried = (ddp.all_gather_batch(fake_B, group),
                        ddp.all_gather_batch(fake_B2, group))
-        pool, count, pooled_B = pool_query(state.pool, state.pool_count,
-                                           queried[0], gen)
-        pool, count, pooled_B2 = pool_query(pool, count, queried[1], gen)
+        with observe.span("m2.pool"):
+            pool, count, pooled_B = pool_query(state.pool, state.pool_count,
+                                               queried[0], gen)
+            pool, count, pooled_B2 = pool_query(pool, count, queried[1], gen)
         if group is not None:
             rank, n = dist.get_rank(group), fake_B.shape[0]
             pooled_B = pooled_B[rank * n:(rank + 1) * n]
             pooled_B2 = pooled_B2[rank * n:(rank + 1) * n]
-        d_loss, d_losses = self.d_loss(state.d, batch, fake_B, fake_B2,
-                                       pooled_B, pooled_B2)
+        with observe.span("m2.d_loss"):
+            d_loss, d_losses = self.d_loss(state.d, batch, fake_B, fake_B2,
+                                           pooled_B, pooled_B2)
         d_names, d_params = zip(*state.d.named_parameters())
-        d_grads = torch.autograd.grad(d_loss, d_params, allow_unused=True)
-        d_grads = [torch.zeros_like(p) if gr is None else gr
-                   for p, gr in zip(d_params, d_grads)]
+        with observe.span("m2.d_grad"):
+            d_grads = torch.autograd.grad(d_loss, d_params,
+                                          allow_unused=True)
+            d_grads = [torch.zeros_like(p) if gr is None else gr
+                       for p, gr in zip(d_params, d_grads)]
         metrics = {k: v.detach() for k, v in {**g_losses, **d_losses}.items()}
         g_grads, d_grads = (dict(zip(g_names, g_grads)),
                             dict(zip(d_names, d_grads)))
@@ -873,9 +882,13 @@ class Module2TrainStep:
         """One training step, in place: both gradients from the old state,
         then both Adam updates at ``lr_at(cfg, state.step)``. Returns the
         losses. With a process ``group``, the data-parallel step of
-        ``grads``; every rank then takes the same Adam update."""
-        grads = self.grads(state, batch, frozen, gen, group)
-        self.apply_grads(state, grads)
+        ``grads``; every rank then takes the same Adam update. The span
+        ``m2.step`` (``utils/observe.py``) carries ``state.step`` as its
+        request id."""
+        observe.request(state.step)
+        with observe.span("m2.step"):
+            grads = self.grads(state, batch, frozen, gen, group)
+            self.apply_grads(state, grads)
         return grads.metrics
 
     def apply_grads(self, state: TrainState, grads: Grads) -> None:
@@ -883,16 +896,17 @@ class Module2TrainStep:
         pool after the step's queries and the step count, in place (on
         this rank's slices of a sharded state)."""
         lr = lr_at(self.cfg, state.step)
-        for key, opt, gr in (("g", state.g_opt, grads.g),
-                             ("d", state.d_opt, grads.d)):
-            params = (dict(getattr(state, key).named_parameters())
-                      if state.fsdp is None else state.fsdp.masters[key])
-            for name, p in params.items():
-                p.grad = gr[name]
-            for group in opt.param_groups:
-                group["lr"] = lr
-            opt.step()
-            opt.zero_grad(set_to_none=True)
+        with observe.span("m2.adam"):
+            for key, opt, gr in (("g", state.g_opt, grads.g),
+                                 ("d", state.d_opt, grads.d)):
+                params = (dict(getattr(state, key).named_parameters())
+                          if state.fsdp is None else state.fsdp.masters[key])
+                for name, p in params.items():
+                    p.grad = gr[name]
+                for group in opt.param_groups:
+                    group["lr"] = lr
+                opt.step()
+                opt.zero_grad(set_to_none=True)
         state.pool, state.pool_count = grads.pool, grads.pool_count
         state.step += 1
 

@@ -9,6 +9,25 @@ PNG writer. ``profile_trace`` writes a ``torch.profiler`` Chrome trace
 where the JAX one writes an XProf trace. The JAX package's compile cache
 (``enable_compile_cache``) configures XLA and has no counterpart: the port
 builds its kernels once into its build directory.
+
+Spans: ``span(name)`` marks a phase of the program on the host (a
+context manager), ``count(name, n)`` adds ``n`` to a named counter, and
+``request(rid)`` sets the request id (a clip, a step) that the spans this
+thread opens after it carry. ``span`` and ``count`` cost one flag read
+unless a ``torch.profiler`` session is recording. While one is, a span
+opens a ``record_function`` of its name, so it shows in the profiler's
+trace and labels the device's idle gaps under it, and appends ``(name,
+rid, parent, start_ns, end_ns)`` to an in-memory record: ``parent`` is
+the index of the enclosing span of the same thread, and the times are
+read with ``time.perf_counter_ns`` and exported on the profiler's clock,
+Unix-epoch nanoseconds (kineto's ``start_ns()``; a Chrome trace's
+``baseTimeNanoseconds`` + ``ts`` x 1000), through one offset. The first
+span or count that finds a session recording after one that found none
+starts a new record (two sessions with no span or count between them
+share one; ``profile_trace`` starts its own). ``spans()``, ``counters()``
+and ``self_ns(name)`` read it. To see the spans of a block outside the
+benchmark, run it under ``profile_trace``: beside ``trace.json`` it writes
+``spans.jsonl``, one span a line and the counters last.
 """
 from __future__ import annotations
 
@@ -16,11 +35,13 @@ import contextlib
 import json
 import os
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.autograd import profiler as _autograd_profiler
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from animateportrait_tpu_torch.utils.image import write_png
 
@@ -187,13 +208,176 @@ class StepTimer:
         return self.data_total / total if total > 0 else 0.0
 
 
+# --- spans and counters ------------------------------------------------------
+
+# the spans one record keeps; those past it are counted under DROPPED
+MAX_SPANS = 1_000_000
+DROPPED = "observe.dropped_spans"
+
+
+class _Thread(threading.local):
+    def __init__(self):
+        self.stack = []     # (record, index) of each open span, or None
+        self.rid = None
+
+
+_thread = _Thread()
+_lock = threading.Lock()
+_spans: list = []       # [name, rid, parent, start, end], perf_counter ns
+_counters: dict = {}
+_offset = 0             # epoch ns - perf_counter ns
+_stale = True           # a span or count found no session since the reset
+_NULL = contextlib.nullcontext()
+
+
+def _clock_offset() -> int:
+    """Unix-epoch ns minus ``perf_counter_ns``, from the closest of a few
+    paired readings."""
+    best = None
+    for _ in range(5):
+        a = time.perf_counter_ns()
+        t = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, t - (a + b) // 2)
+    return best[1]
+
+
+def _reset() -> None:
+    """Starts a new record."""
+    global _spans, _counters, _offset, _stale
+    _spans, _counters, _stale = [], {}, False
+    _offset = _clock_offset()
+
+
+def _recording() -> bool:
+    """A ``torch.profiler`` session records; the first call that finds one
+    after a call that found none starts a new record."""
+    global _stale
+    if not _autograd_profiler._is_profiler_enabled:
+        _stale = True
+        return False
+    if _stale:
+        _reset()
+    return True
+
+
+class _Span:
+    __slots__ = ("name", "fn", "entry")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.fn = record_function(self.name)
+        self.fn.__enter__()
+        stack = _thread.stack
+        with _lock:
+            rec = _spans
+            top = stack[-1] if stack else None
+            parent = top[1] if top is not None and top[0] is rec else None
+            if len(rec) < MAX_SPANS:
+                self.entry = [self.name, _thread.rid, parent, 0, None]
+                stack.append((rec, len(rec)))
+                rec.append(self.entry)
+            else:
+                self.entry = None
+                stack.append(None)
+                _counters[DROPPED] = _counters.get(DROPPED, 0) + 1
+        if self.entry is not None:
+            self.entry[3] = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        if self.entry is not None:
+            self.entry[4] = end
+        _thread.stack.pop()
+        self.fn.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context manager that records the block as the span ``name`` while
+    a profiler session records, and does nothing otherwise."""
+    if not _recording():
+        return _NULL
+    return _Span(name)
+
+
+def count(name: str, n: int) -> None:
+    """Adds ``n`` to the counter ``name`` while a session records."""
+    if not _recording():
+        return
+    with _lock:
+        _counters[name] = _counters.get(name, 0) + n
+
+
+def timed(fn, counter: str):
+    """``fn``, whose calls add their nanoseconds to ``counter`` while a
+    session records; ``fn`` itself when none does."""
+    if not _recording():
+        return fn
+
+    def call(*args, **kwargs):
+        t = time.perf_counter_ns()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            count(counter, time.perf_counter_ns() - t)
+
+    return call
+
+
+def request(rid) -> None:
+    """Sets the request id that the spans this thread opens from now on
+    carry, until the next call."""
+    _thread.rid = rid
+
+
+def spans() -> list[tuple]:
+    """The record: ``(name, rid, parent, start_ns, end_ns)`` a span in the
+    order they opened; ``parent`` is the index of the enclosing span in
+    this list (None at a thread's top level), the times are Unix-epoch ns
+    (``end_ns`` None while the span is open)."""
+    off = _offset
+    return [(n, r, p, s + off, None if e is None else e + off)
+            for n, r, p, s, e in list(_spans)]
+
+
+def counters() -> dict:
+    """The record's counters, ``DROPPED`` among them once a span was."""
+    return dict(_counters)
+
+
+def self_ns(name: str) -> int:
+    """The spans ``name``'s time less what their child spans cover."""
+    rec = spans()
+    child = [0] * len(rec)
+    for _, _, p, s, e in rec:
+        if p is not None and e is not None:
+            child[p] += e - s
+    return sum(e - s - child[i] for i, (n, _, _, s, e) in enumerate(rec)
+               if n == name and e is not None)
+
+
+def _write_spans(path: str) -> None:
+    with open(path, "w") as f:
+        for n, r, p, s, e in spans():
+            f.write(json.dumps({"name": n, "rid": r, "parent": p,
+                                "start_ns": s, "end_ns": e}) + "\n")
+        f.write(json.dumps({"counters": counters()}) + "\n")
+
+
 @contextlib.contextmanager
 def profile_trace(log_dir: str | None = None):
     """A ``torch.profiler`` trace of the block: CPU activity, and CUDA
     activity (the kernels by name, their device time) when a card is
-    present. On exit it writes a Chrome trace (``chrome://tracing``,
-    Perfetto) to ``<log_dir>/trace.json``, whose path the context yields;
-    without ``log_dir`` a new temporary directory takes it."""
+    present. It starts a new span record. On exit it writes a Chrome trace
+    (``chrome://tracing``, Perfetto) to ``<log_dir>/trace.json``, whose
+    path the context yields, and the block's spans and counters to
+    ``<log_dir>/spans.jsonl``; without ``log_dir`` a new temporary
+    directory takes them."""
     log_dir = log_dir or tempfile.mkdtemp(prefix="ap_trace_")
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir, "trace.json")
@@ -201,10 +385,12 @@ def profile_trace(log_dir: str | None = None):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
+        _reset()
         yield path
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(path)
+    _write_spans(os.path.join(log_dir, "spans.jsonl"))
 
 
 def grad_norms(grads) -> dict:
