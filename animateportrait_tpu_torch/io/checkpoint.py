@@ -68,10 +68,25 @@ def train_state_dict(state) -> dict:
 
         state = gather_state(state)
     return {"step": int(state.step), "g": state.g.state_dict(),
-            "d": state.d.state_dict(), "g_opt": state.g_opt.state_dict(),
-            "d_opt": state.d_opt.state_dict(), "pool": state.pool,
+            "d": state.d.state_dict(),
+            "g_opt": _eager_optimizer_state(state.g_opt),
+            "d_opt": _eager_optimizer_state(state.d_opt), "pool": state.pool,
             "pool_count": int(state.pool_count),
             "compute_dtype": state.compute_dtype}
+
+
+def _eager_optimizer_state(opt) -> dict:
+    """``opt.state_dict()`` as an eager step leaves it: no group
+    ``capturable`` and each ``step`` a host tensor. The single-card step's
+    CUDA graph (``train/module2.py:_StepGraph``) makes both live on the
+    card, where a graph of the restored state makes them again, but the
+    host's Adam refuses them: so a checkpoint resumes on any device."""
+    sd = opt.state_dict()
+    sd["param_groups"] = [{**g, "capturable": False} if "capturable" in g
+                          else g for g in sd["param_groups"]]
+    sd["state"] = {k: {**v, "step": v["step"].cpu()} if "step" in v else v
+                   for k, v in sd["state"].items()}
+    return sd
 
 
 def load_train_state(state, obj: dict):

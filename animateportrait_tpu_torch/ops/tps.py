@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from animateportrait_tpu_torch.ops.warp import dense_image_warp
+from animateportrait_tpu_torch.utils.device import device_constant
 
 _EPS = 1e-10
 
@@ -64,8 +65,10 @@ def linear_motion_grid(lm_src: torch.Tensor, lm_dst: torch.Tensor,
     """
     b = lm_src.shape[0]
     dev = lm_src.device
-    anchors = torch.as_tensor(ref_edge_anchors_yx(size), dtype=torch.float32,
-                              device=dev).expand(b, 8, 2)
+    anchors = device_constant(
+        f"ref_edge_anchors_yx_{size}",
+        lambda: ref_edge_anchors_yx(size).astype(np.float32),
+        dev).expand(b, 8, 2)
     src = torch.cat([lm_src.flip(-1).float(), anchors], dim=1)  # (b,76,2)
     dst = torch.cat([lm_dst.flip(-1).float(), anchors], dim=1)
     tri = simplices.long()
@@ -155,7 +158,9 @@ def solve_spline(train_points: torch.Tensor, train_values: torch.Tensor,
     right = torch.cat([matrix_b, c.new_zeros((b, d + 1, d + 1))], dim=1)
     lhs = torch.cat([left, right], dim=2)
     rhs = torch.cat([f, f.new_zeros((b, d + 1, k))], dim=1)
-    sol = torch.linalg.solve(lhs, rhs)
+    # the LU solve of ``torch.linalg.solve`` without its check of the
+    # result, which reads it on the host: the step's CUDA graph takes it
+    sol = torch.linalg.solve_ex(lhs, rhs).result
     return sol[:, :n], sol[:, n:]
 
 
@@ -222,7 +227,8 @@ def motion_grid_from_landmarks(lm_src: torch.Tensor, lm_dst: torch.Tensor,
     correspondence; lm_src, lm_dst (b, 68, 2) in (x, y) pixels."""
     b = lm_src.shape[0]
     dev = lm_src.device
-    anchors = torch.as_tensor(tps_edge_anchors(size), device=dev).expand(
+    anchors = device_constant(f"tps_edge_anchors_{size}",
+                              lambda: tps_edge_anchors(size), dev).expand(
         b, 8, 2)
     dest = torch.cat([lm_dst.flip(-1).float(), anchors], dim=1)
     source = torch.cat([lm_src.flip(-1).float(), anchors], dim=1)

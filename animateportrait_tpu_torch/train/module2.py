@@ -15,6 +15,8 @@ backward on the card (``ops/instnorm.py``).
 ``grads(state, batch, frozen, gen)`` (the JAX ``train_step.grads_fn``),
 ``step(state, batch, frozen, gen)``, which applies the updates in place,
 and ``visuals(state, batch, frozen)`` (the JAX ``visuals_fn``).
+On one card ``step`` replays the whole step as one CUDA graph
+(``_StepGraph``); everywhere else it runs eagerly.
 ``cfg.remat`` recomputes each generator forward in the backward
 (``torch.utils.checkpoint``, as ``jax.checkpoint`` in JAX); K2 runs again
 in the recompute and K2b takes the statistics of that run.
@@ -44,6 +46,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
+import warnings
 
 import numpy as np
 import torch
@@ -66,7 +69,7 @@ from animateportrait_tpu_torch.utils import distributed as ddp
 from animateportrait_tpu_torch.utils import observe
 from animateportrait_tpu_torch.utils.assets import face_lmark_lookup
 from animateportrait_tpu_torch.utils.device import (
-    DEFAULT_DEVICE, resolve_device)
+    DEFAULT_DEVICE, device_constant, resolve_device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -256,7 +259,8 @@ def lipline_mask(lm68: torch.Tensor, edges: np.ndarray, size: int = 256,
 
 def _with_edges(lm68: torch.Tensor) -> torch.Tensor:
     """Append the 8 fixed border anchors (geomgm_ifw_fore_model.py:379-381)."""
-    e = torch.as_tensor(EDGE_ANCHORS_256, device=lm68.device)
+    e = device_constant("edge_anchors_256", lambda: EDGE_ANCHORS_256,
+                        lm68.device)
     return torch.cat([lm68, e.expand(lm68.shape[0], 8, 2)], dim=1)
 
 
@@ -294,32 +298,55 @@ def pool_draw(batch: int, pool_size: int, gen: torch.Generator
     return u, slots
 
 
+def pool_plan(count: int, pool_size: int, u: torch.Tensor,
+              slots: torch.Tensor) -> tuple[list[int], int]:
+    """One pool query planned on the host from its draws (``pool_draw``'s;
+    draws on the card are read back, which waits on the card): returns
+    (rows, new count). ``rows`` indexes the old pool with the
+    query's ``b`` images after it (``pool_apply``): its first ``b``
+    entries give the images out, the other ``pool_size`` the new pool.
+    Slots fill in order until the pool is full; after that, with
+    probability 0.5 (u > 0.5), an image swaps with the one in its drawn
+    slot, and the query returns the old one. History is only returned once
+    the pool was full before the query. A later image wins a slot that two
+    share, as in the JAX package."""
+    u, slots = u.tolist(), slots.tolist()
+    b = len(u)
+    rows = [pool_size + i for i in range(b)] + list(range(pool_size))
+    for i in range(b):
+        if count + i < pool_size:                 # filling
+            rows[b + count + i] = pool_size + i
+        elif count >= pool_size and u[i] > 0.5:
+            rows[i] = slots[i]
+            rows[b + slots[i]] = pool_size + i
+    return rows, min(count + b, pool_size)
+
+
+def pool_apply(pool: torch.Tensor, imgs: torch.Tensor, rows: torch.Tensor,
+               out: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A planned query on the device, branch-free: gathers the images out
+    and the new pool from the old pool and the images by ``rows``
+    (``pool_plan``'s, a long tensor on the pool's device), the images out
+    first, then the pool. Returns (new pool, images out); with ``out``
+    (the pool itself, say) the new pool is written there."""
+    b = imgs.shape[0]
+    both = torch.cat([pool, imgs.to(pool.dtype)])
+    taken = both.index_select(0, rows[:b])
+    return torch.index_select(both, 0, rows[b:], out=out), taken
+
+
 def pool_swap(pool: torch.Tensor, count: int, imgs: torch.Tensor,
               u: torch.Tensor, slots: torch.Tensor
               ) -> tuple[torch.Tensor, int, torch.Tensor]:
     """The image pool (util/image_pool.py:23-54) given the draws: returns
-    (new pool, new count, images out). Slots fill in order until the pool
-    is full; after that, with probability 0.5 (u > 0.5), an image swaps
-    with the one in its drawn slot, and the query returns the old one.
-    History is only returned once the pool was full before the query. The
-    images of a batch are written in order, so a later one wins a slot
-    that two share, as in the JAX package. ``pool`` is not modified."""
-    b, psize = imgs.shape[0], pool.shape[0]
+    (new pool, new count, images out), ``pool_plan`` then ``pool_apply``
+    (see there). ``pool`` is not modified."""
     with observe.span("m2.pool_fetch"):
-        u, slots = u.cpu(), slots.cpu()
-    new_pool = pool.clone()
-    out = []
-    for i in range(b):
-        if count + i < psize:                     # filling
-            new_pool[count + i] = imgs[i]
-            out.append(imgs[i])
-        elif count >= psize and float(u[i]) > 0.5:
-            s = int(slots[i])
-            out.append(pool[s])
-            new_pool[s] = imgs[i]
-        else:
-            out.append(imgs[i])
-    return new_pool, min(count + b, psize), torch.stack(out)
+        rows, new_count = pool_plan(count, pool.shape[0], u, slots)
+    rows = torch.tensor(rows, dtype=torch.long).to(pool.device)
+    new_pool, out = pool_apply(pool, imgs, rows)
+    return new_pool, new_count, out
 
 
 def pool_query(pool: torch.Tensor, count: int, imgs: torch.Tensor,
@@ -519,6 +546,8 @@ class Module2TrainStep:
         self.cdt = COMPUTE_DTYPES[cfg.compute_dtype]
         self.lip_edges = face_lmark_lookup()[:20]
         self._frozen = None    # (FrozenNets, their compute-dtype copies)
+        # (_StepGraph.owner(...), {batch layout: _StepGraph})
+        self._graphs = None
 
     def crit(self, pred: torch.Tensor, real: bool) -> torch.Tensor:
         return gan_loss(pred, real, self.cfg.gan_mode)
@@ -698,8 +727,10 @@ class Module2TrainStep:
         loss = loss + l_geom
 
         if cfg.lambda_geom_lipline > 0:
-            m1 = lipline_mask(tb, self.lip_edges, cfg.crop_size)
-            m2 = lipline_mask(tb2, self.lip_edges, cfg.crop_size)
+            edges = device_constant("lip_edges", lambda: self.lip_edges,
+                                    tb.device)
+            m1 = lipline_mask(tb, edges, cfg.crop_size)
+            m2 = lipline_mask(tb2, edges, cfg.crop_size)
             losses["geom_B_lipline"] = l_lip = (
                 torch.mean((fake_B + 1.0) * m1)
                 + torch.mean((fake_B2 + 1.0) * m2)) * cfg.lambda_geom_lipline
@@ -794,15 +825,44 @@ class Module2TrainStep:
         group: its nets are gathered for the pass, and ``Grads`` holds
         this rank's slice of the mean of each sharded leaf's gradient."""
         fsdp = state.fsdp
+        if fsdp is not None:
+            if group is not None and group is not fsdp.group:
+                raise ValueError("a sharded state steps over its own group")
+            group = fsdp.group
+        ranks = 1 if group is None else ddp.world(group)[1]
+        rows, count = self._plan_pool(state, batch["real_A"].shape[0] * ranks,
+                                      gen)
+        rows = rows.to(state.pool.device, non_blocking=True)
         if fsdp is None:
-            return self._grads(state, batch, frozen, gen, group)
-        if group is not None and group is not fsdp.group:
-            raise ValueError("a sharded state steps over its own group")
+            return self._grads(state, batch, frozen, rows, count, group)
         with fsdp.whole():
-            return self._grads(state, batch, frozen, gen, fsdp.group)
+            return self._grads(state, batch, frozen, rows, count, group)
+
+    def _plan_pool(self, state: TrainState, b: int, gen: torch.Generator
+                   ) -> tuple[torch.Tensor, int]:
+        """Both pool queries of a step, ``b`` images each, drawn on ``gen``
+        and planned on the host (``pool_plan``; span ``m2.pool_fetch``):
+        their rows, a (2, b + pool size) long tensor on the host, pinned
+        where the pool is on a card so that its copy need not wait, and the
+        pool's count after both. The draws depend on nothing the step
+        computes, so a step plans them before its forward."""
+        psize, count = state.pool.shape[0], state.pool_count
+        with observe.span("m2.pool_fetch"):
+            rows = []
+            for _ in range(2):
+                r, count = pool_plan(count, psize, *pool_draw(b, psize, gen))
+                rows.append(r)
+            rows = torch.tensor(rows, dtype=torch.long,
+                                pin_memory=state.pool.device.type == "cuda")
+        return rows, count
 
     def _grads(self, state: TrainState, batch: dict, frozen: FrozenNets,
-               gen: torch.Generator, group) -> Grads:
+               pool_rows: torch.Tensor, pool_count: int | None, group,
+               pool_out: torch.Tensor | None = None) -> Grads:
+        """``grads`` with the pool's two queries planned (``_plan_pool``'s
+        rows on the pool's device and the count after them); with
+        ``pool_out`` (the CUDA graph's step: the pool itself) the new pool
+        is written there."""
         with observe.span("m2.forward_shared"):
             shared = self.forward_shared(batch, frozen)
         g_names, g_params = zip(*state.g.named_parameters())
@@ -818,9 +878,10 @@ class Module2TrainStep:
             queried = (ddp.all_gather_batch(fake_B, group),
                        ddp.all_gather_batch(fake_B2, group))
         with observe.span("m2.pool"):
-            pool, count, pooled_B = pool_query(state.pool, state.pool_count,
-                                               queried[0], gen)
-            pool, count, pooled_B2 = pool_query(pool, count, queried[1], gen)
+            pool, pooled_B = pool_apply(state.pool, queried[0], pool_rows[0],
+                                        out=pool_out)
+            pool, pooled_B2 = pool_apply(pool, queried[1], pool_rows[1],
+                                         out=pool_out)
         if group is not None:
             rank, n = dist.get_rank(group), fake_B.shape[0]
             pooled_B = pooled_B[rank * n:(rank + 1) * n]
@@ -850,7 +911,7 @@ class Module2TrainStep:
             stacked = [torch.stack([metrics[k].float() for k in names])]
             ddp.all_reduce_mean_(stacked, group)
             metrics = dict(zip(names, stacked[0].unbind()))
-        return Grads(g=g_grads, d=d_grads, pool=pool, pool_count=count,
+        return Grads(g=g_grads, d=d_grads, pool=pool, pool_count=pool_count,
                      metrics=metrics)
 
     @torch.no_grad()
@@ -884,9 +945,18 @@ class Module2TrainStep:
         losses. With a process ``group``, the data-parallel step of
         ``grads``; every rank then takes the same Adam update. The span
         ``m2.step`` (``utils/observe.py``) carries ``state.step`` as its
-        request id."""
+        request id.
+
+        On one card (no group, an unsharded fp32 state, no ``remat``) the
+        step is replayed as a CUDA graph (``_StepGraph``), one for each
+        layout of the batch up to ``MAX_GRAPHS``: the same kernels, issued
+        by one launch. The pool is then updated in place, and Adam takes
+        its ``capturable`` form."""
         observe.request(state.step)
         with observe.span("m2.step"):
+            graph = self._graph_for(state, batch, frozen, group)
+            if graph is not None:
+                return graph.step(state, batch, gen)
             grads = self.grads(state, batch, frozen, gen, group)
             self.apply_grads(state, grads)
         return grads.metrics
@@ -895,7 +965,13 @@ class Module2TrainStep:
         """Both Adam updates of ``grads`` at ``lr_at(cfg, state.step)``, the
         pool after the step's queries and the step count, in place (on
         this rank's slices of a sharded state)."""
-        lr = lr_at(self.cfg, state.step)
+        self._adam(state, grads, lr_at(self.cfg, state.step))
+        state.pool, state.pool_count = grads.pool, grads.pool_count
+        state.step += 1
+
+    def _adam(self, state: TrainState, grads: Grads, lr) -> None:
+        """Both Adam updates at ``lr``, a float or a 0-d tensor on the
+        card."""
         with observe.span("m2.adam"):
             for key, opt, gr in (("g", state.g_opt, grads.g),
                                  ("d", state.d_opt, grads.d)):
@@ -907,8 +983,126 @@ class Module2TrainStep:
                     group["lr"] = lr
                 opt.step()
                 opt.zero_grad(set_to_none=True)
-        state.pool, state.pool_count = grads.pool, grads.pool_count
+
+    def _graph_for(self, state: TrainState, batch: dict, frozen: FrozenNets,
+                   group) -> _StepGraph | None:
+        """The step's CUDA graph for this state, frozen nets and batch
+        layout, made on the first call with them; None where the step runs
+        eagerly: on the CPU, over a group, on a sharded, bf16 or ``remat``
+        step, or past ``MAX_GRAPHS`` layouts. Graphs of another state or
+        other frozen nets are dropped."""
+        dev = state.pool.device
+        if (dev.type != "cuda" or group is not None
+                or state.fsdp is not None or self.cfg.remat
+                or self.cdt != torch.float32
+                or not all(isinstance(v, torch.Tensor) and v.device == dev
+                           for v in batch.values())):
+            return None
+        owner = _StepGraph.owner(state, frozen)
+        graphs = self._graphs
+        if graphs is None or any(a is not b for a, b in zip(graphs[0],
+                                                            owner)):
+            graphs = self._graphs = (owner, {})
+        key = tuple((k, v.shape, v.dtype) for k, v in batch.items())
+        graph = graphs[1].get(key)
+        if graph is None and len(graphs[1]) < MAX_GRAPHS:
+            graph = graphs[1][key] = _StepGraph(self, state, frozen, batch)
+        return graph
+
+
+# batch layouts a train step captures, each its own CUDA graph; the step
+# runs eagerly on others
+MAX_GRAPHS = 2
+
+
+class _StepGraph:
+    """``Module2TrainStep.step`` as one CUDA graph, for one state, frozen
+    nets and batch layout. Its first call is the warm-up: the step that is
+    captured, run eagerly on a side stream, a real update. The second call
+    captures it and replays it, and every later call replays it. Each call
+    draws the pool's queries and plans them on the host (``pool_plan``,
+    span ``m2.pool_fetch``), sends the plan through pinned memory, copies
+    the batch and the learning rate into the graph's inputs and returns a
+    copy of the losses. Counters ``m2.graph_capture`` and
+    ``m2.graph_replay`` (``utils/observe.py``)."""
+
+    @staticmethod
+    def owner(state: TrainState, frozen: FrozenNets) -> tuple:
+        """What a graph holds fixed: the state, its nets and optimizers
+        and the optimizers' state and groups (``load_state_dict``
+        replaces them), the frozen nets."""
+        return (state, state.g, state.d, state.g_opt, state.d_opt,
+                state.g_opt.state, state.d_opt.state,
+                state.g_opt.param_groups, state.d_opt.param_groups, frozen)
+
+    def __init__(self, owner: Module2TrainStep, state: TrainState,
+                 frozen: FrozenNets, batch: dict):
+        dev = state.pool.device
+        self.train_step, self.frozen = owner, frozen
+        self.batch = {k: v.clone() for k, v in batch.items()}
+        self.pool = torch.empty_like(state.pool)
+        self.rows = torch.zeros(
+            (2, batch["real_A"].shape[0] + state.pool.shape[0]),
+            dtype=torch.long, device=dev)
+        self.lr = torch.zeros((), device=dev)
+        self.graph = self.losses = self.names = None
+        for opt in (state.g_opt, state.d_opt):
+            for group in opt.param_groups:
+                group["capturable"] = True
+            for p, st in opt.state.items():
+                if "step" in st:
+                    st["step"] = st["step"].to(p.device)
+
+    def _body(self, state: TrainState) -> torch.Tensor:
+        """The step on the graph's inputs: both gradients, the pool in
+        place and both Adam updates; the losses stacked."""
+        step = self.train_step
+        grads = step._grads(state, self.batch, self.frozen, self.rows, None,
+                            None, pool_out=state.pool)
+        step._adam(state, grads, self.lr)
+        self.names = list(grads.metrics)
+        return torch.stack([grads.metrics[k].float() for k in self.names])
+
+    def step(self, state: TrainState, batch: dict,
+             gen: torch.Generator) -> dict[str, torch.Tensor]:
+        # a new pinned buffer each step: the host runs steps ahead of the
+        # card, and the caching host allocator holds a buffer until its copy
+        # has run
+        rows, count = self.train_step._plan_pool(
+            state, self.batch["real_A"].shape[0], gen)
+        if state.pool is not self.pool:
+            self.pool.copy_(state.pool)
+            state.pool = self.pool
+        lr = lr_at(self.train_step.cfg, state.step)
+        self.rows.copy_(rows, non_blocking=True)
+        self.lr.fill_(lr)
+        torch._foreach_copy_(list(self.batch.values()),
+                             [batch[k] for k in self.batch])
+        if self.losses is None:
+            side = torch.cuda.Stream(state.pool.device)
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side), warnings.catch_warnings():
+                # Adam warns of a capturable step run outside a capture
+                warnings.filterwarnings("ignore", ".*capturable=True")
+                self.losses = self._body(state)
+            torch.cuda.current_stream().wait_stream(side)
+        elif self.graph is None:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self.losses = self._body(state)
+            self.graph = graph
+            observe.count("m2.graph_capture", 1)
+        if self.graph is not None:
+            self.graph.replay()
+            observe.count("m2.graph_replay", 1)
+        # the groups hold a float, as an eager step leaves them (a
+        # checkpoint saves them), not the graph's input
+        for opt in (state.g_opt, state.d_opt):
+            for group in opt.param_groups:
+                group["lr"] = lr
+        state.pool_count = count
         state.step += 1
+        return dict(zip(self.names, self.losses.clone().unbind()))
 
 
 def build_train_step(cfg: Module2Config) -> Module2TrainStep:

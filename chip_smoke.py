@@ -47,17 +47,20 @@ Phases, each printing its own lines:
      against autograd through the plain version and through float64 on
      those, and K2b against its plain version on the same statistics. Then
      K2's and K2b's device times at each shape of the step, the launch
-     counters zeroed before timed steps and read after them (steps/s, a
-     smoke figure, and the step's peak memory), K2's and K2b's device time
-     in a profiled step, and card against host ``grads`` at the JAX tests'
-     small configuration;
+     counters read over the eager warm step, timed steps (steps/s, a smoke
+     figure, and the step's peak memory), K2's and K2b's device time and
+     kernel count in a profiled step (the timed and profiled steps replay
+     the step's CUDA graph, in which no wrapper runs, so the trace counts
+     them), and card against host ``grads`` at the JAX tests' small
+     configuration;
   8. the trainer as users run it: ``train_cli.main`` with the readme's
      drawing command (crop 256, load 286, ngf = ndf = 64, batch 4,
      ``--num_threads 8`` worker processes, 8 steps) over a seeded synthetic
      UMLVD-IFW tree of 16 photos and 16 drawings at 512^2 and two 8-frame
      clips, every PNG row Paeth-filtered (the costliest to decode). Steps/s
      over steps 3-8 with the data loading, the data-wait share, peak
-     memory, K2's and K2b's launches (counters zeroed just before), and the
+     memory, K2's and K2b's launches (counters zeroed just before; a
+     replay of the step's CUDA graph counts none), and the
      host decode and resize times per image on this machine's CPU. Then
      ``--continue_train`` for 2 steps: it must resume at step 8, and the
      state restored from the step-8 checkpoint must equal the saved one
@@ -1023,8 +1026,11 @@ def time_training_shapes(dev: torch.device, counts: dict, tag: str = "7",
 
 def profiled_ms(fn, top: int = 8) -> dict:
     """Device time of K2, K2b and all kernels in one call of ``fn``, from a
-    ``torch.profiler`` trace (0 where CUPTI gives no device time), and the
-    ``top`` kernels by device time."""
+    ``torch.profiler`` trace (0 where CUPTI gives no device time), the
+    number of K2 and K2b kernels the trace holds (a CUDA graph's replay
+    included, which no launch counter sees), and the ``top`` kernels by
+    device time. The port's spans also show on the device's timeline, as
+    annotations: they are not kernels and are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1032,10 +1038,11 @@ def profiled_ms(fn, top: int = 8) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    out = {"k2": 0.0, "k2b": 0.0, "all": 0.0}
+    out = {"k2": 0.0, "k2b": 0.0, "all": 0.0, "k2_calls": 0, "k2b_calls": 0}
     kernels = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         ms = float(getattr(e, "self_device_time_total",
                            getattr(e, "self_cuda_time_total", 0.0))) / 1e3
@@ -1043,8 +1050,10 @@ def profiled_ms(fn, top: int = 8) -> dict:
         kernels.append((ms, e.count, e.key))
         if "instance_norm_bwd" in e.key:
             out["k2b"] += ms
+            out["k2b_calls"] += e.count
         elif "instance_norm" in e.key:
             out["k2"] += ms
+            out["k2_calls"] += e.count
     out["top"] = [dict(ms=ms, calls=n, name=name[:90])
                   for ms, n, name in sorted(kernels, reverse=True)[:top]]
     return out
@@ -1089,11 +1098,19 @@ def phase7(dev: torch.device) -> dict:
                                             by_shape=True)
     counts, count_hooks = count_instance_norms(
         [state.g, state.d, frozen.modnet])
+    instance_norm.launches = 0
+    instance_norm_backward.launches = 0
     t0 = time.perf_counter()
     step.step(state, batch, frozen, pool_gen)
     torch.cuda.synchronize()
     say(f"[7] warm step {time.perf_counter() - t0:.3f} s (keeps the "
         f"InstanceNorm inputs)")
+    # the warm step runs eagerly, and its wrappers count each launch; the
+    # timed and the profiled steps replay the step's CUDA graph (the first
+    # timed step captures it), in which no wrapper runs: their kernels are
+    # counted in the profiled step's trace
+    warm = {"instance_norm": instance_norm.launches,
+            "instance_norm_backward": instance_norm_backward.launches}
     for h in hooks + count_hooks:
         h.remove()
     worst = k2_gradient_on_path(kept)
@@ -1103,24 +1120,22 @@ def phase7(dev: torch.device) -> dict:
     g0 = next(state.g.parameters()).detach().clone()
     d0 = next(state.d.parameters()).detach().clone()
     torch.cuda.reset_peak_memory_stats(dev)
-    instance_norm.launches = 0
-    instance_norm_backward.launches = 0
     t0 = time.perf_counter()
     for _ in range(TRAIN_STEPS):
         metrics = step.step(state, batch, frozen, pool_gen)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"instance_norm": instance_norm.launches,
-                "instance_norm_backward": instance_norm_backward.launches}
     peak = torch.cuda.max_memory_allocated(dev)
     prof = profiled_ms(lambda: step.step(state, batch, frozen, pool_gen))
     losses = {k: float(v) for k, v in metrics.items()}
-    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    launches = per_step = {"instance_norm": prof["k2_calls"],
+                           "instance_norm_backward": prof["k2b_calls"]}
     say(f"[7] timed: {TRAIN_STEPS} steps in {dt:.3f} s = "
         f"{TRAIN_STEPS / dt:.3f} steps/s (batch {TRAIN_BATCH}, smoke "
-        f"figure, not a benchmark); peak memory {peak / 2 ** 30:.2f} GiB")
-    say(f"[7] kernel launches in the timed steps: {launches} "
-        f"({per_step} per step)")
+        f"figure, not a benchmark; one CUDA graph, captured in the first "
+        f"timed step); peak memory {peak / 2 ** 30:.2f} GiB")
+    say(f"[7] kernel launches: {warm} counted in the eager warm step, "
+        f"{launches} in the trace of a replayed step")
     say(f"[7] profiled step: device time {prof['all']:.3f} ms "
         f"({100 * prof['all'] / (1e3 * dt / TRAIN_STEPS):.1f}% of a timed "
         f"step's wall time), K2 {prof['k2']:.3f} ms, K2b {prof['k2b']:.3f} "
@@ -1131,8 +1146,10 @@ def phase7(dev: torch.device) -> dict:
         + ", ".join(f"{k} {v:.4f}" for k, v in losses.items()))
     n_fwd = sum(counts.values())
     n_bwd = sum(n for (_, _, grad), n in counts.items() if grad)
-    if per_step != {"instance_norm": n_fwd, "instance_norm_backward": n_bwd}:
-        raise AssertionError(f"launches per step {per_step}, InstanceNorm "
+    want = {"instance_norm": n_fwd, "instance_norm_backward": n_bwd}
+    if warm != want or per_step != want:
+        raise AssertionError(f"launches in the warm step {warm}, in a "
+                             f"replayed step {per_step}, InstanceNorm "
                              f"calls {n_fwd}, of them recorded {n_bwd}")
     if not all(np.isfinite(v) for v in losses.values()):
         raise AssertionError(f"non-finite losses {losses}")
@@ -4776,8 +4793,10 @@ def main() -> None:
         "mel_spectrogram": last["mel"]["launches"],
         "profile_trace_render": last["trace"]["launches"]}
     # "launches": K1's, K2's and K2-bf16's on the user's entry point (the
-    # cartoon CLI runs of phases 5 and 9), K2b's and K2b-bf16's in the timed
-    # training steps (phases 7 and 10); "launches_by_path" has every path's
+    # cartoon CLI runs of phases 5 and 9), K2b's in one replayed step of the
+    # training step's CUDA graph, counted in its trace (phase 7), and
+    # K2b-bf16's in the timed bf16 steps (phase 10); "launches_by_path" has
+    # every path's count
     main_path = {"stft_magnitude": "cartoon_cli",
                  "instance_norm": "cartoon_cli",
                  "instance_norm_backward": "train_step",

@@ -174,6 +174,34 @@ def test_next_step_from_a_restored_state_is_bitwise(tmp_path, stepped):
     _assert_states_equal(live, restored)
 
 
+def test_a_state_with_capturable_adam_resumes_on_the_host(tmp_path, stepped):
+    """The single-card step's CUDA graph leaves both Adams ``capturable``,
+    which the host's Adam refuses. A checkpoint of such a state is written
+    as an eager step leaves it (the live state keeps its groups), so it
+    resumes on the CPU, and the next step there equals the next step of
+    the state as it was before, bitwise."""
+    state, frozen, batch, step = stepped
+    graphed = copy.deepcopy(state)
+    for opt in (graphed.g_opt, graphed.d_opt):
+        for group in opt.param_groups:
+            group["capturable"] = True
+    mgr = tckpt.CheckpointManager(str(tmp_path / "ck"))
+    mgr.save(graphed.step, graphed)
+    assert all(g["capturable"] for opt in (graphed.g_opt, graphed.d_opt)
+               for g in opt.param_groups)
+    restored = mgr.restore(None, m2.init_state(
+        _cfg(), torch.Generator().manual_seed(8), "cpu"))
+    assert not any(g["capturable"]
+                   for opt in (restored.g_opt, restored.d_opt)
+                   for g in opt.param_groups)
+    live = copy.deepcopy(state)
+    out = [step.step(s, batch, frozen, torch.Generator().manual_seed(1))
+           for s in (live, restored)]
+    for k, v in out[0].items():
+        assert torch.equal(v, out[1][k]), k
+    _assert_states_equal(live, restored)
+
+
 def _jax_variables(role, key):
     """A JAX net of ``role`` with numerically tame random weights
     (``utils/smoke.py:random_variables``) and running variances in

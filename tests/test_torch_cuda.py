@@ -435,6 +435,236 @@ def test_small_training_grads_card_match_host(cuda_device):
     assert c.pool_count == h.pool_count == 2
 
 
+# The graphed Module2 step against the eager step from the same state, with
+# cuDNN deterministic and TF32 off (the forward is then the same bit for
+# bit): each leaf's gap over the larger of its scale and the median leaf's,
+# for both Adam moments and each parameter's update. What is left apart is
+# the backward's atomic adds (reflection padding, grid sampling), which
+# the eager step also shows against itself: on an H100, over the 30 steps
+# below, up to 2.8e-4 eager against eager and 1.9e-4 to 6.7e-4 graphed
+# against eager in five runs (a parameter's update), a heavy tail. A fault
+# (a stale input, another learning rate, a moment updated twice) reads
+# O(1); a stale batch or pool plan also breaks the bit-for-bit checks.
+GRAPH_LEAF_RTOL = 1e-2
+
+
+@pytest.fixture()
+def deterministic_fp32():
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def _graph_setup(device, batch_sizes=(1,)):
+    from animateportrait_tpu_torch.train import module2 as m2
+
+    # two queries of one image a step fill the 50 slots at step 25
+    cfg = m2.Module2Config(crop_size=64, ngf=8, ndf=8)
+    state = m2.init_state(cfg, torch.Generator().manual_seed(0), device)
+    frozen = m2.init_frozen_random(torch.Generator().manual_seed(1), device)
+    batches = [m2.make_random_batch(cfg, n, torch.Generator(
+        device=device).manual_seed(2 + i), device)
+        for i, n in enumerate(batch_sizes)]
+    return m2, cfg, state, frozen, batches
+
+
+def _scaled_gaps(got: dict, want: dict) -> dict:
+    """Each leaf's largest gap over max(its largest value, the median
+    leaf's)."""
+    scale = {k: float(v.abs().max()) for k, v in want.items()}
+    median = float(np.median(list(scale.values())))
+    return {k: float((got[k] - v).abs().max()) / max(scale[k], median, 1e-30)
+            for k, v in want.items()}
+
+
+def _check_step_against_eager(m2, cfg, before, after, batch, frozen,
+                              draws, losses):
+    """One eager step (``grads`` then ``apply_grads``) from ``before`` (a
+    copy of the state the graphed step started from), on the graphed
+    step's batch and pool draws, against the graphed step's ``losses``
+    and the state it left, ``after``: the losses, the pool, its count and
+    the step counts bit for bit; returns the worst scaled gap of each
+    net's moments and updates. The biases an InstanceNorm follows carry
+    no gradient in exact arithmetic, and Adam turns their rounding noise
+    into steps of up to lr either way: their updates are left out."""
+    gen = torch.Generator()
+    gen.set_state(draws)
+    start = {(key, k): p.detach().clone() for key in ("g", "d")
+             for k, p in getattr(before, key).named_parameters()}
+    eager = m2.build_train_step(cfg)
+    grads = eager.grads(before, batch, frozen, gen)
+    eager.apply_grads(before, grads)
+    for k, v in grads.metrics.items():
+        assert torch.equal(v, losses[k]), (k, float(v), float(losses[k]))
+    assert torch.equal(before.pool, after.pool)
+    assert (before.pool_count, before.step) == (after.pool_count,
+                                                after.step)
+    gaps = {}
+    for key in ("g", "d"):
+        net_e, net_g = getattr(before, key), getattr(after, key)
+        opt_e, opt_g = (getattr(before, f"{key}_opt"),
+                        getattr(after, f"{key}_opt"))
+        params_g = dict(net_g.named_parameters())
+        for m in ("exp_avg", "exp_avg_sq"):
+            got, want = {}, {}
+            for name, p in net_e.named_parameters():
+                st_e, st_g = opt_e.state[p], opt_g.state[params_g[name]]
+                assert float(st_e["step"]) == float(st_g["step"]) \
+                    == after.step
+                got[name], want[name] = st_g[m], st_e[m]
+            gaps[f"{key}.{m}"] = max(_scaled_gaps(got, want).values())
+        noise = in_cancelled_biases(net_e)
+        upd_e = {n: p.detach() - start[(key, n)]
+                 for n, p in net_e.named_parameters() if n not in noise}
+        upd_g = {n: params_g[n].detach() - start[(key, n)] for n in upd_e}
+        gaps[f"{key}.update"] = max(_scaled_gaps(upd_g, upd_e).values())
+    return gaps
+
+
+def test_graphed_module2_step_matches_the_eager_step(cuda_device,
+                                                     deterministic_fp32):
+    """30 single-card steps replayed from one CUDA graph with no
+    synchronize between them, across the pool's fill at step 25. Each is
+    held against the eager step from a copy of the state it started from,
+    on its batch and pool draws: the losses, the pool, its count and the
+    step count bit for bit (with cuDNN deterministic the forward is the
+    same), both Adams' moments and each parameter's update within
+    GRAPH_LEAF_RTOL. The eager step's backward is not repeatable bit for
+    bit on the card, and 30 steps of Adam make that tens of percent of a
+    leaf between two eager runs, so the comparison is made step by step.
+    The first step is the graph's eager warm-up, held against the step as
+    it was before (Adam not yet capturable)."""
+    import copy
+
+    m2, cfg, state, frozen, batches = _graph_setup(
+        cuda_device, batch_sizes=(1, 1, 1))
+    step = m2.build_train_step(cfg)
+    gen = torch.Generator().manual_seed(3)
+    before, draws, losses = [], [], []
+    for k in range(30):
+        before.append(copy.deepcopy(state))
+        draws.append(gen.get_state())
+        losses.append(step.step(state, batches[k % 3], frozen, gen))
+    after = before[1:] + [state]
+    assert state.pool_count == cfg.pool_size == 50 and state.step == 30
+    assert before[25].pool_count == 50 and before[24].pool_count == 48
+    worst = {}
+    for k in range(30):
+        gaps = _check_step_against_eager(m2, cfg, before[k], after[k],
+                                         batches[k % 3], frozen, draws[k],
+                                         losses[k])
+        worst = {n: max(g, worst.get(n, 0.0)) for n, g in gaps.items()}
+    print("graphed against eager, worst scaled gaps:", worst)
+    assert max(worst.values()) <= GRAPH_LEAF_RTOL, worst
+
+
+def test_graphed_module2_step_takes_a_graph_per_batch_layout(
+        cuda_device, deterministic_fp32):
+    """A second batch shape captures its own graph, which replays the step
+    (its losses and pool bit for bit those of the eager step from the
+    same state); a third, past ``MAX_GRAPHS``, steps eagerly."""
+    import copy
+
+    from animateportrait_tpu_torch.utils import observe
+
+    m2, cfg, state, frozen, (b1, b2, b3) = _graph_setup(
+        cuda_device, batch_sizes=(1, 2, 3))
+    assert m2.MAX_GRAPHS == 2
+    step = m2.build_train_step(cfg)
+    gen = torch.Generator().manual_seed(3)
+    with observe.profile_trace():
+        for b in (b1, b1, b1, b2, b2):
+            step.step(state, b, frozen, gen)
+        copied, draws = copy.deepcopy(state), gen.get_state()
+        losses = step.step(state, b2, frozen, gen)
+        stepped = copy.deepcopy(state)
+        for b in (b1, b3, b3):
+            step.step(state, b, frozen, gen)
+        counts = observe.counters()
+    assert counts["m2.graph_capture"] == 2
+    assert counts["m2.graph_replay"] == 2 + 2 + 1
+    assert state.step == 9
+    assert state.pool_count == 2 * (4 * 1 + 3 * 2 + 2 * 3)
+    gaps = _check_step_against_eager(m2, cfg, copied, stepped, b2, frozen,
+                                     draws, losses)
+    assert max(gaps.values()) <= GRAPH_LEAF_RTOL, gaps
+
+
+def test_graphed_module2_step_counts_under_profile_trace(cuda_device,
+                                                         tmp_path):
+    """Inside ``profile_trace``: one capture and a replay for every later
+    step, a ``m2.step`` and a ``m2.pool_fetch`` span a step, and the
+    replays' kernels in the trace, K2 and K2b among them."""
+    import json
+
+    from animateportrait_tpu_torch.utils import observe
+
+    m2, cfg, state, frozen, (b1,) = _graph_setup(cuda_device)
+    step = m2.build_train_step(cfg)
+    gen = torch.Generator().manual_seed(3)
+    with observe.profile_trace(str(tmp_path)) as path:
+        for _ in range(6):
+            metrics = step.step(state, b1, frozen, gen)
+        counts = observe.counters()
+        names = [s[0] for s in observe.spans()]
+    assert counts == {"m2.graph_capture": 1, "m2.graph_replay": 5}
+    assert names.count("m2.step") == names.count("m2.pool_fetch") == 6
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    with open(path) as f:
+        kernels = [e["name"] for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"]
+    assert any("instance_norm_bwd" in k for k in kernels)
+    assert sum("instance_norm" in k and "bwd" not in k
+               for k in kernels) >= 6 * (2 * 38 + 16)
+
+
+def test_checkpoint_of_a_graphed_state_resumes_anywhere(
+        cuda_device, deterministic_fp32, tmp_path):
+    """A checkpoint written after graphed steps (Adam ``capturable``, its
+    ``step`` counts on the card) resumes on the host, where Adam refuses
+    a capturable group, and on the card, where the restored state takes a
+    graph of its own: its next step's losses are the live state's, bit for
+    bit."""
+    from animateportrait_tpu_torch.io.checkpoint import CheckpointManager
+
+    m2, cfg, state, frozen, (b1,) = _graph_setup(cuda_device)
+    step = m2.build_train_step(cfg)
+    gen = torch.Generator().manual_seed(3)
+    for _ in range(3):
+        step.step(state, b1, frozen, gen)
+    assert all(g["capturable"] for g in state.g_opt.param_groups)
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    assert mgr.save(state.step, state, force=True)
+    host = mgr.restore(None, m2.init_state(
+        cfg, torch.Generator().manual_seed(9), "cpu"))
+    assert host.step == 3 and not any(
+        g["capturable"] for opt in (host.g_opt, host.d_opt)
+        for g in opt.param_groups)
+    host_frozen = m2.init_frozen_random(torch.Generator().manual_seed(1),
+                                        "cpu")
+    draws = gen.get_state()
+    metrics = m2.build_train_step(cfg).step(
+        host, {k: v.cpu() for k, v in b1.items()}, host_frozen,
+        torch.Generator().manual_seed(4))
+    assert host.step == 4
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    card = mgr.restore(None, m2.init_state(
+        cfg, torch.Generator().manual_seed(9), cuda_device))
+    outs = []
+    for s in (state, card):
+        gen.set_state(draws)
+        outs.append(step.step(s, b1, frozen, gen))
+    for k, v in outs[0].items():
+        assert torch.equal(v, outs[1][k]), k
+    assert card.step == state.step == 4
+
+
 def test_train_cli_one_step_on_the_card(cuda_device, tmp_path):
     """``train_cli.main`` on ``cuda`` for one step over a small synthetic
     UMLVD-IFW tree, with two loader worker processes: K2 and K2b launch,

@@ -491,6 +491,59 @@ def test_pool_query_draws_from_its_generator():
     assert torch.equal(again[2], outs[3])
 
 
+def _pool_loop(pool, count, imgs, u, slots):
+    """The pool query as one image at a time (the form before the host plan
+    and the device apply): the reference of the plan."""
+    new_pool, out = pool.clone(), []
+    for i in range(imgs.shape[0]):
+        if count + i < pool.shape[0]:
+            new_pool[count + i] = imgs[i]
+            out.append(imgs[i])
+        elif count >= pool.shape[0] and float(u[i]) > 0.5:
+            s = int(slots[i])
+            out.append(pool[s])
+            new_pool[s] = imgs[i]
+        else:
+            out.append(imgs[i])
+    return new_pool, min(count + imgs.shape[0], pool.shape[0]), \
+        torch.stack(out)
+
+
+@pytest.mark.parametrize("count, u, slots", [
+    (0, [0.9, 0.1, 0.7], [1, 2, 3]),              # filling
+    (5, [0.9, 0.2, 0.8], [4, 0, 2]),              # full: swaps and passes
+    (5, [0.5, np.nextafter(np.float32(0.5), np.float32(1)), 0.4999999],
+     [3, 1, 0]),                                  # u around 0.5
+    (5, [0.75, 0.6], [2, 2]),                     # two images, one slot
+    (3, [0.9, 0.9, 0.9], [0, 1, 2]),              # crossing the size
+], ids=["filling", "full", "u_near_half", "same_slot", "crossing"])
+def test_pool_plan_and_apply_match_the_loop(count, u, slots):
+    """``pool_plan`` on the host and ``pool_apply`` (a new pool, and in
+    place as the step's CUDA graph takes it) give the one-image-at-a-time
+    loop's pool, count and images, bit for bit."""
+    psize = 5
+    pool = torch.rand((psize, 1, 3, 3), generator=torch.Generator()
+                      .manual_seed(count))
+    imgs = 10 + torch.rand((len(u), 1, 3, 3),
+                           generator=torch.Generator().manual_seed(7))
+    u = torch.tensor(u, dtype=torch.float32)
+    slots = torch.tensor(slots)
+    want_pool, want_count, want_out = _pool_loop(pool, count, imgs, u, slots)
+    got_pool, got_count, got_out = m2.pool_swap(pool, count, imgs, u, slots)
+    assert got_count == want_count
+    assert torch.equal(got_pool, want_pool) and torch.equal(got_out, want_out)
+    rows, plan_count = m2.pool_plan(count, psize, u, slots)
+    in_place = pool.clone()
+    kept, out = m2.pool_apply(in_place, imgs, torch.tensor(rows),
+                              out=in_place)
+    assert kept is in_place and plan_count == want_count
+    assert torch.equal(in_place, want_pool) and torch.equal(out, want_out)
+    if count == psize:
+        # a swap returns the old image of its slot, and a later image wins
+        # a slot that two share
+        assert (out < 10).any() and not torch.equal(got_pool, pool)
+
+
 @pytest.mark.parametrize("policy", ["linear", "step", "plateau", "cosine"])
 def test_lr_schedule_and_adam_match_optax(policy):
     from animateportrait_tpu.train import module2 as j2
