@@ -19,6 +19,8 @@ downsample modules with the pose encoder (networks.py:327 registers
 state dict and hold one tensor. BatchNorms are the port's
 (``nn.BatchNorm2d``: flax's statistics in training mode); dropout is off,
 as in the JAX package. NCHW; flows (N, 2, H, W) in pixels, (dx, dy).
+DualUnetGenerator adds each skip warp to the counter ``pt.feature_warps``
+(``utils/observe.py``) while a profiler records.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 
 from animateportrait_tpu_torch.nn import BatchNorm2d
 from animateportrait_tpu_torch.ops.warp import warp_acc_flow
+from animateportrait_tpu_torch.utils import observe
 
 
 def _act(slope: float = 0.0) -> nn.Module:
@@ -237,6 +240,7 @@ class DualUnetGenerator(nn.Module):
                     hidden_a.append(x_a)
                     continue
                 x_w = warp_acc_flow(x_a, flow_l)
+                observe.count("pt.feature_warps", 1)
                 if self.vis_mode == "hard_gate":
                     x_w = x_w * (vis_l < 2).to(x_w.dtype)
                 elif self.vis_mode in ("soft_gate", "residual"):

@@ -14,6 +14,14 @@ pair in training mode (its statistics update from it) and the detached
 fake on the running statistics it had before. Adam is torch's with L2
 weight decay in the gradient (the JAX ``_torch_adam``). NCHW; keypoints
 (N, K, 2) in (x, y) pixels.
+
+Spans (``utils/observe.py``, recorded only under a profiler): ``pt.step``
+(request id: the trainer's step count) holds ``pt.flow`` (keypoint maps,
+the frozen flow net, visibility, the image warp), ``pt.g_forward``,
+``pt.g_loss`` (L1, VGG, GAN), ``pt.g_grad``, ``pt.d_loss``, ``pt.d_grad``
+and ``pt.adam``; the counter ``pt.feature_warps`` counts the
+``warp_acc_flow`` calls (the image warp here, the skip warps in
+``DualUnetGenerator``).
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from animateportrait_tpu_torch.models.image_translation import Vgg19Features
 from animateportrait_tpu_torch.nn import BatchNorm2d
 from animateportrait_tpu_torch.ops.warp import warp_acc_flow
 from animateportrait_tpu_torch.train.optim import adam
+from animateportrait_tpu_torch.utils import observe
 from animateportrait_tpu_torch.utils.device import (
     DEFAULT_DEVICE, resolve_device)
 from animateportrait_tpu_torch.utils.metrics import psnr_ref, ssim_ref
@@ -173,9 +182,20 @@ class PoseTransferConfig:
         return self.loss_weight_gan > 0
 
 
+def _check_size(cfg: PoseTransferConfig) -> None:
+    """The generators halve the side ``G_n_scale`` times and double it
+    back, so 2^G_n_scale must divide ``size`` (the options' 224 is not a
+    multiple of 2^7; 256 is)."""
+    if cfg.size % 2 ** cfg.G_n_scale:
+        raise ValueError(
+            f"size {cfg.size} is not a multiple of 2^G_n_scale = "
+            f"{2 ** cfg.G_n_scale} (G_n_scale {cfg.G_n_scale})")
+
+
 def build_g(cfg: PoseTransferConfig) -> nn.Module:
     """The generation module (:26-38): DualUnet over (pose, appearance),
     or the Unet over their channel concatenation."""
+    _check_size(cfg)
     if cfg.which_model_G == "dual_unet":
         return DualUnetGenerator(
             pose_nc=cfg.joint_nc, appearance_nc=3, output_nc=3,
@@ -212,6 +232,7 @@ class PoseTransferTrainer:
                  netf: FlowUnet, vgg: Vgg19Features,
                  d: nn.Module | None = None, pw: nn.Module | None = None,
                  device: torch.device | str = DEFAULT_DEVICE):
+        _check_size(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
         self.g = g.to(dev)
@@ -235,63 +256,69 @@ class PoseTransferTrainer:
         """pose_transfer_model.forward (:176-237)."""
         cfg = self.cfg
         size = (cfg.size, cfg.size)
-        j1 = kp_to_map_binary(size, batch["kp_1"])
-        j2 = kp_to_map_binary(size, batch["kp_2"])
-        if cfg.flow_on_the_fly:
-            with torch.no_grad():
-                flow_raw, vis_logits, _, _ = self.netf(
-                    torch.cat([j1, j2], dim=1))
-                vis = torch.argmax(vis_logits, dim=1, keepdim=True).float()
-                mask = (vis < 2).float()
-                flow = flow_raw * cfg.flow_scale * mask
-        else:
-            flow, vis = batch["flow_2to1"], batch["vis_2"]
-            mask = (vis < 2).float()
-        out = {"flow_out": flow, "vis_out": vis, "mask_out": mask, "j2": j2,
-               # invalid regions take -1 (modules.warp_acc_flow mask_value)
-               "img_warp": warp_acc_flow(batch["img_1"], flow, mask=mask)}
-        self.g.train(train and not cfg.G_pix_warp)
-        with torch.set_grad_enabled(torch.is_grad_enabled()
-                                    and not cfg.G_pix_warp):
-            if cfg.which_model_G == "dual_unet":
-                fw = (flow, vis) if cfg.G_feat_warp else (None, None)
-                raw = self.g(j2, batch["img_1"], *fw)
+        with observe.span("pt.flow"):
+            j1 = kp_to_map_binary(size, batch["kp_1"])
+            j2 = kp_to_map_binary(size, batch["kp_2"])
+            if cfg.flow_on_the_fly:
+                with torch.no_grad():
+                    flow_raw, vis_logits, _, _ = self.netf(
+                        torch.cat([j1, j2], dim=1))
+                    vis = torch.argmax(vis_logits, dim=1,
+                                       keepdim=True).float()
+                    mask = (vis < 2).float()
+                    flow = flow_raw * cfg.flow_scale * mask
             else:
-                raw = self.g(torch.cat([batch["img_1"], j2], dim=1))
-        if not cfg.G_pix_warp:
-            out["img_out"] = torch.tanh(raw)
+                flow, vis = batch["flow_2to1"], batch["vis_2"]
+                mask = (vis < 2).float()
+            # invalid regions take -1 (modules.warp_acc_flow mask_value)
+            img_warp = warp_acc_flow(batch["img_1"], flow, mask=mask)
+            observe.count("pt.feature_warps", 1)
+        out = {"flow_out": flow, "vis_out": vis, "mask_out": mask, "j2": j2,
+               "img_warp": img_warp}
+        with observe.span("pt.g_forward"):
+            self.g.train(train and not cfg.G_pix_warp)
+            with torch.set_grad_enabled(torch.is_grad_enabled()
+                                        and not cfg.G_pix_warp):
+                if cfg.which_model_G == "dual_unet":
+                    fw = (flow, vis) if cfg.G_feat_warp else (None, None)
+                    raw = self.g(j2, batch["img_1"], *fw)
+                else:
+                    raw = self.g(torch.cat([batch["img_1"], j2], dim=1))
+            if not cfg.G_pix_warp:
+                out["img_out"] = torch.tanh(raw)
+                return out
+            # the pixel-warper stage over the frozen G (:220-229)
+            out["img_out_G"] = torch.tanh(raw).detach()
+            self.pw.train(train)
+            heads = self.pw(torch.cat([out["img_out_G"], out["img_warp"],
+                                       vis, flow], dim=1))
+            pmask = torch.sigmoid(heads[0])
+            out["pix_mask"] = pmask
+            out["img_out"] = out["img_warp"] * pmask \
+                + out["img_out_G"] * (1.0 - pmask)
             return out
-        # the pixel-warper stage over the frozen G (:220-229)
-        out["img_out_G"] = torch.tanh(raw).detach()
-        self.pw.train(train)
-        heads = self.pw(torch.cat([out["img_out_G"], out["img_warp"], vis,
-                                   flow], dim=1))
-        pmask = torch.sigmoid(heads[0])
-        out["pix_mask"] = pmask
-        out["img_out"] = out["img_warp"] * pmask \
-            + out["img_out_G"] * (1.0 - pmask)
-        return out
 
     def g_losses(self, batch: dict) -> tuple[dict, dict]:
         cfg = self.cfg
         out = self.forward(batch, train=True)
         img_out, img_tar = out["img_out"], batch["img_2"]
-        m = {"loss_l1": torch.mean(torch.abs(img_out - img_tar)),
-             "loss_content": pt_vgg_loss(self.vgg, img_out, img_tar,
-                                         "content")}
-        loss = m["loss_l1"] * cfg.loss_weight_l1 \
-            + m["loss_content"] * cfg.loss_weight_content
-        if cfg.loss_weight_style > 0:
-            m["loss_style"] = pt_vgg_loss(self.vgg, img_out, img_tar,
-                                          "style", cfg.shifted_style_loss)
-            loss = loss + m["loss_style"] * cfg.loss_weight_style
-        if cfg.use_gan:
-            self.d.eval()
-            m["loss_G"] = gan_loss(self.d(torch.cat(
-                [batch["img_1"], img_out, out["j2"]], dim=1)), True,
-                cfg.gan_type)
-            loss = loss + m["loss_G"] * cfg.loss_weight_gan
-        m["loss"] = loss
+        with observe.span("pt.g_loss"):
+            m = {"loss_l1": torch.mean(torch.abs(img_out - img_tar)),
+                 "loss_content": pt_vgg_loss(self.vgg, img_out, img_tar,
+                                             "content")}
+            loss = m["loss_l1"] * cfg.loss_weight_l1 \
+                + m["loss_content"] * cfg.loss_weight_content
+            if cfg.loss_weight_style > 0:
+                m["loss_style"] = pt_vgg_loss(self.vgg, img_out, img_tar,
+                                              "style", cfg.shifted_style_loss)
+                loss = loss + m["loss_style"] * cfg.loss_weight_style
+            if cfg.use_gan:
+                self.d.eval()
+                m["loss_G"] = gan_loss(self.d(torch.cat(
+                    [batch["img_1"], img_out, out["j2"]], dim=1)), True,
+                    cfg.gan_type)
+                loss = loss + m["loss_G"] * cfg.loss_weight_gan
+            m["loss"] = loss
         return out, m
 
     def d_loss(self, batch: dict, out: dict) -> torch.Tensor:
@@ -309,27 +336,34 @@ class PoseTransferTrainer:
 
     def step(self, batch: dict) -> dict[str, torch.Tensor]:
         """One optimize_parameters cycle; the gradients stay in the
-        parameters' ``.grad``."""
+        parameters' ``.grad``. Span ``pt.step`` carries the step count as
+        its request id."""
         cfg = self.cfg
-        out, m = self.g_losses(batch)
-        trained = [p for p in self.trained.parameters()]
-        grads = torch.autograd.grad(m["loss"], trained)
-        if cfg.use_gan:
-            loss_d = self.d_loss(batch, out)
-            d_params = list(self.d.parameters())
-            d_grads = torch.autograd.grad(loss_d * cfg.loss_weight_gan,
-                                          d_params)
-            for p, g in zip(d_params, d_grads):
+        observe.request(self.steps)
+        with observe.span("pt.step"):
+            out, m = self.g_losses(batch)
+            trained = [p for p in self.trained.parameters()]
+            with observe.span("pt.g_grad"):
+                grads = torch.autograd.grad(m["loss"], trained)
+            if cfg.use_gan:
+                with observe.span("pt.d_loss"):
+                    loss_d = self.d_loss(batch, out)
+                d_params = list(self.d.parameters())
+                with observe.span("pt.d_grad"):
+                    d_grads = torch.autograd.grad(
+                        loss_d * cfg.loss_weight_gan, d_params)
+                for p, g in zip(d_params, d_grads):
+                    p.grad = g
+                m["loss_D"] = loss_d
+            for p, g in zip(trained, grads):
                 p.grad = g
-            m["loss_D"] = loss_d
-        for p, g in zip(trained, grads):
-            p.grad = g
-        self.opt_g.step()
-        if cfg.use_gan:
-            self.opt_d.step()
-        with torch.no_grad():
-            m["PSNR"] = psnr_ref(out["img_out"], batch["img_2"])
-        self.steps += 1
+            with observe.span("pt.adam"):
+                self.opt_g.step()
+                if cfg.use_gan:
+                    self.opt_d.step()
+            with torch.no_grad():
+                m["PSNR"] = psnr_ref(out["img_out"], batch["img_2"])
+            self.steps += 1
         return {k: v.detach() for k, v in m.items()}
 
     @torch.no_grad()

@@ -6,6 +6,7 @@ the GAN and VGG losses (the JAX package's torch-oracle bars), SSIM and
 PSNR, and one train step (G or netPW, and D) and one test step. Bounds
 are stated per test."""
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -370,3 +371,21 @@ def test_convergence_runner_matches_the_jax_tool(monkeypatch):
     got = convergence.run_pose_transfer(3, "cpu", weights)
     for g, r, tol in zip(got, ref, (1e-4, 1e-2, 1e-4, 1e-2)):
         np.testing.assert_allclose(g, r, rtol=tol)
+
+
+@pytest.mark.parametrize("which", ["dual_unet", "unet"])
+def test_a_size_the_scales_do_not_divide_is_refused_at_construction(which):
+    """The options' size 224 is no multiple of 2^7: build_g and the
+    trainer refuse it by name, before any forward (the decoder's skips
+    would not line up)."""
+    cfg = tpt.PoseTransferConfig(which_model_G=which)
+    assert cfg.size == 224 and cfg.G_n_scale == 7
+    with pytest.raises(ValueError, match=r"size 224 .* 2\^G_n_scale = 128"):
+        tpt.build_g(cfg)
+    small = _small_cfg(tpt, which_model_G=which)
+    g = tpt.build_g(small)
+    bad = dataclasses.replace(small, size=36)
+    with pytest.raises(ValueError, match=r"size 36 .* = 8 \(G_n_scale 3\)"):
+        tpt.PoseTransferTrainer(bad, g, FlowUnet(input_nc=12),
+                                Vgg19Features(), d=tpt.build_d(small),
+                                device="cpu")
