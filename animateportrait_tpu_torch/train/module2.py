@@ -43,6 +43,7 @@ windows (N, 4) [x1, x2, y1, y2]; FlowUnet flows (N, 2, H, W).
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import math
@@ -951,12 +952,19 @@ class Module2TrainStep:
         step is replayed as a CUDA graph (``_StepGraph``), one for each
         layout of the batch up to ``MAX_GRAPHS``: the same kernels, issued
         by one launch. The pool is then updated in place, and Adam takes
-        its ``capturable`` form."""
+        its ``capturable`` form.
+
+        Its convolutions take the cuDNN algorithms measured fastest for
+        their shapes (``measured_conv_choice``); a capture or a replay
+        reuses what the eager step or warm-up before it measured. Counter
+        ``m2.conv_autotune``: a step body so run (an eager step, a warm-up,
+        a capture; a replay runs none)."""
         observe.request(state.step)
-        with observe.span("m2.step"):
+        with observe.span("m2.step"), measured_conv_choice():
             graph = self._graph_for(state, batch, frozen, group)
             if graph is not None:
                 return graph.step(state, batch, gen)
+            observe.count("m2.conv_autotune", 1)
             grads = self.grads(state, batch, frozen, gen, group)
             self.apply_grads(state, grads)
         return grads.metrics
@@ -1015,6 +1023,38 @@ class Module2TrainStep:
 MAX_GRAPHS = 2
 
 
+# candidates of cuDNN's heuristic ranking that the measured choice times
+# for each shape: at batch 1 the FFT input gradient of G's 3x3 convs ranks
+# first and the direct kernel second; timing ten (torch's default) took
+# ~2.5 s more of the first step on an H100 for ~2% of a step after
+MEASURED_CANDIDATES = 2
+
+
+@contextlib.contextmanager
+def measured_conv_choice():
+    """cuDNN picks each convolution's algorithm inside the block by timing
+    the first ``MEASURED_CANDIDATES`` of its heuristics' ranking
+    (``torch.backends.cudnn.benchmark`` and ``benchmark_limit``) in place
+    of taking the first. At batch 1 the first is an FFT convolution, one
+    complex matrix-vector product a frequency, for the input gradient of
+    G's 3x3 residual-block convolutions (256 channels at 64x64), on an H100
+    ~7x slower than the direct kernel that measures fastest. torch keeps
+    one plan a shape for the process, however it was chosen: a shape is
+    timed the first time the process meets it, a shape met first outside
+    the block keeps the heuristics' plan, and calls outside after it reuse
+    the measured one. The caller's settings are back after the block, an
+    exception included. ``enabled``, ``deterministic`` and ``allow_tf32``
+    stay as the caller set them: ``torch.backends.cudnn.flags`` would reset
+    them to its defaults."""
+    cudnn = torch.backends.cudnn
+    was = cudnn.benchmark, cudnn.benchmark_limit
+    cudnn.benchmark, cudnn.benchmark_limit = True, MEASURED_CANDIDATES
+    try:
+        yield
+    finally:
+        cudnn.benchmark, cudnn.benchmark_limit = was
+
+
 class _StepGraph:
     """``Module2TrainStep.step`` as one CUDA graph, for one state, frozen
     nets and batch layout. Its first call is the warm-up: the step that is
@@ -1023,8 +1063,11 @@ class _StepGraph:
     draws the pool's queries and plans them on the host (``pool_plan``,
     span ``m2.pool_fetch``), sends the plan through pinned memory, copies
     the batch and the learning rate into the graph's inputs and returns a
-    copy of the losses. Counters ``m2.graph_capture`` and
-    ``m2.graph_replay`` (``utils/observe.py``)."""
+    copy of the losses. The warm-up measures the step's convolutions
+    (``measured_conv_choice``), so the capture finds each shape chosen and
+    times nothing. Counters ``m2.graph_capture``, ``m2.graph_replay`` and,
+    for the warm-up and the capture, ``m2.conv_autotune``
+    (``utils/observe.py``)."""
 
     @staticmethod
     def owner(state: TrainState, frozen: FrozenNets) -> tuple:
@@ -1057,6 +1100,7 @@ class _StepGraph:
         """The step on the graph's inputs: both gradients, the pool in
         place and both Adam updates; the losses stacked."""
         step = self.train_step
+        observe.count("m2.conv_autotune", 1)
         grads = step._grads(state, self.batch, self.frozen, self.rows, None,
                             None, pool_out=state.pool)
         step._adam(state, grads, self.lr)

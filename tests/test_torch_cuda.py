@@ -406,7 +406,19 @@ def test_full_width_training_step_on_the_card(cuda_device):
     assert instnorm.instance_norm.launches - k2 == 2 * 38 + 30 + 16
 
 
-def test_small_training_grads_card_match_host(cuda_device):
+@pytest.fixture()
+def tf32_off():
+    """cuDNN's and matmul's TF32 off for the test, the caller's after."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def test_small_training_grads_card_match_host(cuda_device, tf32_off):
     from animateportrait_tpu_torch.train import module2 as m2
 
     cfg = m2.Module2Config(crop_size=64, ngf=8, ndf=8, steps_per_epoch=2,
@@ -589,6 +601,8 @@ def test_graphed_module2_step_takes_a_graph_per_batch_layout(
         counts = observe.counters()
     assert counts["m2.graph_capture"] == 2
     assert counts["m2.graph_replay"] == 2 + 2 + 1
+    # each layout's warm-up and capture, and the two eager steps
+    assert counts["m2.conv_autotune"] == 2 + 2 + 2
     assert state.step == 9
     assert state.pool_count == 2 * (4 * 1 + 3 * 2 + 2 * 3)
     gaps = _check_step_against_eager(m2, cfg, copied, stepped, b2, frozen,
@@ -599,7 +613,8 @@ def test_graphed_module2_step_takes_a_graph_per_batch_layout(
 def test_graphed_module2_step_counts_under_profile_trace(cuda_device,
                                                          tmp_path):
     """Inside ``profile_trace``: one capture and a replay for every later
-    step, a ``m2.step`` and a ``m2.pool_fetch`` span a step, and the
+    step, the convolutions measured in the warm-up and the capture and in
+    no replay, a ``m2.step`` and a ``m2.pool_fetch`` span a step, and the
     replays' kernels in the trace, K2 and K2b among them."""
     import json
 
@@ -613,7 +628,8 @@ def test_graphed_module2_step_counts_under_profile_trace(cuda_device,
             metrics = step.step(state, b1, frozen, gen)
         counts = observe.counters()
         names = [s[0] for s in observe.spans()]
-    assert counts == {"m2.graph_capture": 1, "m2.graph_replay": 5}
+    assert counts == {"m2.graph_capture": 1, "m2.graph_replay": 5,
+                      "m2.conv_autotune": 2}
     assert names.count("m2.step") == names.count("m2.pool_fetch") == 6
     assert all(np.isfinite(float(v)) for v in metrics.values())
     with open(path) as f:

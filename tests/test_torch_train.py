@@ -283,3 +283,63 @@ def test_batch_d_passes_is_a_scheduling_change(step_pair):
             w = getattr(got, net)[k]
             assert float((w - v).abs().max()) <= 1e-4 * float(
                 v.abs().max()), k
+
+
+def _cudnn_flags():
+    c = torch.backends.cudnn
+    return dict(enabled=c.enabled, benchmark=c.benchmark,
+                benchmark_limit=c.benchmark_limit,
+                deterministic=c.deterministic, allow_tf32=c.allow_tf32)
+
+
+@pytest.mark.parametrize("deterministic", [False, True])
+@pytest.mark.parametrize("allow_tf32", [False, True])
+def test_step_measures_its_conv_algorithms_and_restores_the_flags(
+        tmp_path, allow_tf32, deterministic):
+    """Inside ``step`` cuDNN chooses by measurement (``benchmark`` on, its
+    first ``MEASURED_CANDIDATES`` timed) while ``enabled``,
+    ``deterministic`` and ``allow_tf32`` stay as the caller set them;
+    after a step, and after a step that raises, every flag is the
+    caller's again; ``m2.conv_autotune`` counts each eager step."""
+    from animateportrait_tpu_torch.utils import observe
+
+    c = torch.backends.cudnn
+    saved = _cudnn_flags()
+    try:
+        c.benchmark, c.allow_tf32, c.deterministic = (False, allow_tf32,
+                                                       deterministic)
+        caller = _cudnn_flags()
+        cfg = _small_cfg()
+        state = m2.init_state(cfg, torch.Generator().manual_seed(0), "cpu")
+        frozen = m2.init_frozen_random(torch.Generator().manual_seed(1),
+                                       "cpu")
+        batch = m2.make_random_batch(cfg, 1, torch.Generator().manual_seed(2),
+                                     "cpu")
+        conv = next(m for m in state.g.modules()
+                    if isinstance(m, torch.nn.Conv2d))
+        seen, fail = [], [False]
+
+        def hook(module, args, out):
+            seen.append(_cudnn_flags())
+            if fail[0]:
+                raise RuntimeError("planted")
+
+        conv.register_forward_hook(hook)
+        step = m2.build_train_step(cfg)
+        gen = torch.Generator().manual_seed(3)
+        with observe.profile_trace(str(tmp_path)):
+            for _ in range(2):
+                step.step(state, batch, frozen, gen)
+            counts = observe.counters()
+        assert counts["m2.conv_autotune"] == 2 and state.step == 2
+        assert _cudnn_flags() == caller
+        inside = dict(caller, benchmark=True,
+                      benchmark_limit=m2.MEASURED_CANDIDATES)
+        assert seen and all(f == inside for f in seen)
+        fail[0] = True
+        with pytest.raises(RuntimeError, match="planted"):
+            step.step(state, batch, frozen, gen)
+        assert _cudnn_flags() == caller and state.step == 2
+    finally:
+        for k, v in saved.items():
+            setattr(c, k, v)
