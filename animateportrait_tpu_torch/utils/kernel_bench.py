@@ -1,6 +1,6 @@
-"""Device times and bounds of the port's kernels on the card.
+"""Device times and bounds of the port's kernels on the card: the one tool
+that compares the kernel times of two checkouts.
 
-Helpers, used by ``chip_smoke.py``:
 - :func:`device_ms`: one CUDA-event pair around N back-to-back calls
   (N >= 50, enough to fill >= 1 ms), after a warm-up, divided by N. A
   ``torch.cuda._sleep`` queued first holds the device until the host has
@@ -11,10 +11,9 @@ Helpers, used by ``chip_smoke.py``:
   67 TFLOP/s (H100 SXM data sheet), and which of the two bounds it. The
   bf16 kernels compute in fp32 too; only their bytes halve.
 - the main path's kernel shapes (``K1_LENGTHS``, ``K2_SHAPES``, and
-  ``K2_BATCH_MIX``, K2's launches in one 8-frame batch; the bf16 paths'
-  ``K2_BF16_RENDER_SHAPES`` and ``TRAIN_IN_SHAPES``), the work each call
-  does (K2b's too), and the one PyTorch call that computes the same
-  function (``library_ms``; the port never calls it).
+  ``K2_BATCH_MIX``, K2's launches in one 8-frame batch; the bf16 render's
+  ``K2_BF16_RENDER_SHAPES``), the work each call does (K2b's too), and
+  the inputs and the gradient-path errors the card tests hold.
 
 As a script it times K1 and K2 of a checkout at those shapes, and K2's 29
 launches of one batch back to back, and prints one JSON line; ``--root``
@@ -67,20 +66,6 @@ K2_BF16_RENDER_SHAPES = list(K2_BATCH_MIX) + [
     (1, 32, 256, 256), (1, 64, 256, 256), (1, 64, 128, 128),
     (1, 128, 128, 128), (1, 128, 64, 64), (1, 8, 256, 256),
     (1, 16, 128, 128), (1, 16, 64, 64)]
-# every InstanceNorm shape of the Module2 training step at the bench
-# configuration (batch 4, ngf = ndf = 64), in fp32 and in bf16: the
-# generator's planes, and the discriminators' of 4 (coherence D in the G
-# pass), 8 (two stacked inputs) and 12 (three) images, 31 x 31 with
-# hw % 4 != 0 (scalar loads)
-TRAIN_IN_SHAPES = [
-    (4, 32, 256, 256), (4, 64, 256, 256), (4, 8, 256, 256),
-    (4, 128, 128, 128), (4, 64, 128, 128), (4, 16, 128, 128),
-    (4, 256, 64, 64), (4, 128, 64, 64), (4, 16, 64, 64),
-    (8, 128, 64, 64), (12, 128, 64, 64), (4, 256, 32, 32),
-    (8, 256, 32, 32), (12, 256, 32, 32), (4, 512, 31, 31),
-    (8, 512, 31, 31), (12, 512, 31, 31)]
-
-
 def device_ms(fn, min_launches: int = 50, min_ms: float = 1.0,
               reps: int = 3, max_launches: int = 2000) -> float:
     """Device time of one call of ``fn`` in ms: the median over ``reps``
@@ -152,28 +137,6 @@ def k2b_work(shape, elem_bytes: int = 4) -> tuple[int, int]:
     (xhat, the ReLU mask, the two sums, dx)."""
     numel = math.prod(shape)
     return 3 * elem_bytes * numel + 12 * shape[0] * shape[1], 10 * numel
-
-
-def stft_library(x: torch.Tensor) -> torch.Tensor:
-    """|STFT| by one PyTorch call (cuFFT): the yardstick for K1."""
-    w = torch.hann_window(N_FFT, periodic=True, device=x.device)
-    return torch.stft(x, N_FFT, HOP, window=w, center=True,
-                      pad_mode="reflect", return_complex=True).abs().T
-
-
-def instance_norm_library(x: torch.Tensor) -> torch.Tensor:
-    """InstanceNorm by one PyTorch call, in x's dtype: the yardstick for K2
-    (no ReLU)."""
-    return torch.nn.functional.instance_norm(x, eps=1e-5)
-
-
-def instance_norm_backward_library(x: torch.Tensor, g: torch.Tensor):
-    """InstanceNorm's backward by PyTorch: the yardstick for K2b (no
-    ReLU). Returns a function that runs the backward of one
-    ``F.instance_norm`` forward, kept with its graph, on ``g``."""
-    xr = x.detach().requires_grad_()
-    y = torch.nn.functional.instance_norm(xr, eps=1e-5)
-    return lambda: torch.autograd.grad(y, xr, g, retain_graph=True)[0]
 
 
 # elements whose float64 pre-ReLU output lies within this of the kink may

@@ -68,47 +68,6 @@ def init_random_(module: nn.Module, generator: torch.Generator
     return module
 
 
-def full_width_nets(seed: int = 0, style: str = "drawing"
-                    ) -> dict[str, nn.Module]:
-    """The slice's nets at full width with seeded random weights, on the
-    CPU: AutoVC, both landmark branches, the trident generator (ngf 64,
-    9 blocks, div 3, disp 3; output_nc 1 for drawing, 3 for cartoon),
-    FlowUnet, MODNet, the static net of the style (the drawing net,
-    ``static_g``, or Photo2Cartoon ngf 32, ``photo2cartoon``) and the
-    speaker encoder. With style "drawing" these are the nets of the
-    configuration ``bench.py:bench_e2e`` times."""
-    from animateportrait_tpu_torch.models.audio2landmark import (
-        Audio2landmarkContent, Audio2landmarkPos)
-    from animateportrait_tpu_torch.models.autovc import AutoVCGenerator
-    from animateportrait_tpu_torch.models.flowunet import FlowUnet
-    from animateportrait_tpu_torch.models.gan import (
-        ResnetStyle2Generator, TridentGeneratorFullIFW)
-    from animateportrait_tpu_torch.models.modnet import MODNet
-    from animateportrait_tpu_torch.models.photo2cartoon import (
-        Photo2CartoonGenerator)
-    from animateportrait_tpu_torch.models.speaker_encoder import VoiceEncoder
-
-    g = torch.Generator().manual_seed(seed)
-    nets = {
-        "autovc": AutoVCGenerator(),
-        "pos": Audio2landmarkPos(),
-        "content": Audio2landmarkContent(),
-        "generator": TridentGeneratorFullIFW(
-            output_nc=1 if style == "drawing" else 3, ngf=64, n_blocks=9,
-            div=3, disp=3),
-        "flowunet": FlowUnet(),
-        "modnet": MODNet(),
-        "voice_encoder": VoiceEncoder(),
-    }
-    if style == "drawing":
-        nets["static_g"] = ResnetStyle2Generator()
-    else:
-        nets["photo2cartoon"] = Photo2CartoonGenerator(ngf=32)
-    for net in nets.values():
-        init_random_(net, g).eval()
-    return nets
-
-
 # gain on the random weights of each MTCNN classifier head: it spreads the
 # face logit over about +-1 across an image. Without it every cell scores
 # within a few fp32 ulps of the next, score ties decide which boxes NMS

@@ -4,8 +4,9 @@
 
 - ``read_video_frames`` gives every frame of an AVI byte-equal to
   ``cv2.VideoCapture``, and its fps: a cv2-written Motion-JPEG AVI (as
-  ``tests/test_vis_av2flau.py:35``), the committed fixture of
-  ``chip_smoke.py`` phase 15 (whose hashes it matches), a raw AVI of the
+  ``tests/test_vis_av2flau.py:35``), the committed fixture (whose hashes
+  it matches; ``tests/test_torch_cuda.py`` decodes it on the card
+  machine too), a raw AVI of the
   port's writer, and each with an empty (dropped) frame chunk, which
   OpenCV skips; ``every`` and ``max_frames`` as the JAX reader.
 - ``Av2FlauConverter.convert`` with one ``landmark_fn``: the same frame

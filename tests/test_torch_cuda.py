@@ -1,35 +1,48 @@
 """Card-only tests of the port's CUDA kernels: each kernel against its plain
 PyTorch version, the wrappers' checks and launch counters, K2's gradient
 path (K2 forward, K2b backward) against autograd through the plain version,
-and small runs on the card against the CPU: the renderer (drawing and
-cartoon, ``render_visuals`` too), the MTCNN cascade, Photo2Cartoon, the
-speaker embedding and the Module2 training step; ``test_cli.main`` and
-``cli.main --video`` on the card, the batched front end against
+K2 and K2b on the activations the main paths feed their InstanceNorms, and
+small runs on the card against the CPU: the renderer (drawing, cartoon and
+TPS grids, ``render_visuals`` too), the MTCNN cascade, Photo2Cartoon, the
+speaker embedding, the mel front end, FAN3D, the av2flau converter, the
+fakeB_static builder and the Module2 training step; ``cli.main`` (a photo,
+``--render_bf16``, ``--warp_mode tps`` with FAN, ``--video``,
+``--render_dp``), ``test_cli.main`` and ``train_cli.main`` (resumed, bf16,
+JPEG photos, ``--multihost``) on the card, the batched front end against
 single calls, and one step of each Module1-side trainer (content,
 speaker-aware, flow regression, image translation, pose transfer, FAN,
-face_of_art) on the card against the host and a float64 host run, and
-their convergence runs with no kernel launch; a few ``define_g`` /
-``define_d`` nets (K2 and K2b on the card) and LPIPS card against host;
-``postalign_video`` card against host; the data-parallel step of two
-ranks and a renderer of two replicas, both on one card; and, one rank a
-card over NCCL, the FSDP step against the data-parallel step, the
-tensor-parallel generator and the sequence-parallel pos branch against one
-card. They skip without a CUDA device, the last three with fewer than 2
-cards.
+face_of_art) on the card against the host and a float64 host run, the
+face_of_art driver, and the convergence runs; every ``define_g`` /
+``define_d`` net (K2 and K2b on the card), ``entry()``, Module1's
+discriminators and LPIPS card against host; ``postalign_video`` card
+against host; the data-parallel step of two ranks, GPipe over three ranks,
+a renderer of two replicas and the multi-card dry run, all on one card;
+and, one rank a card over NCCL, the FSDP step against the data-parallel
+step and one process, the data-parallel and ``--multihost`` trainers,
+GPipe, the tensor-parallel generator and the sequence-parallel pos branch
+against one card. They skip without a CUDA device, the one-rank-a-card
+ones with fewer than 2 cards.
 
 This file imports neither JAX nor the JAX package, so it runs where JAX is
 not installed; the repo's conftest imports JAX, so on such a machine run
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
+import copy
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from animateportrait_tpu_torch.models import gan_extra
 from animateportrait_tpu_torch.ops import instnorm, stft
 from animateportrait_tpu_torch.ops.spectral import stft_magnitude as stft_plain
 from animateportrait_tpu_torch.utils.kernel_bench import (
-    K2_SHAPES, K2_STREAM_SHAPE, k2_gradient_errors, k2_input)
+    K2_BATCH_MIX, K2_BF16_RENDER_SHAPES, K2_SHAPES, K2_STREAM_SHAPE,
+    k2_gradient_errors, k2_input)
+from animateportrait_tpu_torch.utils.smoke import (
+    _kept_instance_norm_inputs, init_random_, make_wav, write_mtcnn_weights)
 from torch_port_helpers import (  # noqa: F401
     cuda_device, in_cancelled_biases, maxdiff, psnr)
 
@@ -42,6 +55,9 @@ K2_ATOL = 1e-5
 # K2b: dx = rstd * (gy - E[gy] - xhat E[gy xhat]) with |dx| ~ 1 here; the
 # two sums over up to 65536 pixels are taken in another order
 K2B_ATOL = 1e-5
+# K2b against its plain version on the same statistics, of the largest |dx|
+# (the discriminators' flat planes give |dx| up to ~100)
+K2B_RTOL = 1e-5
 # K2 + K2b against float64 autograd and fp32 autograd through the plain
 # version, on the function the forward computed (with ReLU, the upstream
 # gradient masked by K2's output: kernel_bench.k2_gradient_errors), as
@@ -69,6 +85,63 @@ def _act(shape, seed=0, offset=0.5):
     return (torch.randn(shape, generator=g)
             * (1 + torch.rand((n, c, 1, 1), generator=g))
             + offset * torch.randn((n, c, 1, 1), generator=g))
+
+
+def _count_instance_norms(nets) -> tuple[dict, list]:
+    """Forward pre-hooks counting the InstanceNorm2d calls of ``nets`` by
+    (shape, relu, recorded for the backward); remove the hooks after."""
+    from animateportrait_tpu_torch.nn import InstanceNorm2d
+
+    counts, hooks = {}, []
+
+    def count(mod, args):
+        x = args[0]
+        key = (tuple(x.shape), mod.relu,
+               bool(x.requires_grad and torch.is_grad_enabled()))
+        counts[key] = counts.get(key, 0) + 1
+
+    for net in nets:
+        hooks += [m.register_forward_pre_hook(count) for m in net.modules()
+                  if isinstance(m, InstanceNorm2d)]
+    return counts, hooks
+
+
+def _hold_k2_on(kept: dict, grads: bool = False) -> None:
+    """K2 against its plain version on the activations a path fed its
+    InstanceNorms (``kept``: (shape, relu) -> the first input of each,
+    ``utils/smoke.py:_kept_instance_norm_inputs``): within K2_ATOL in fp32,
+    one bf16 ulp at each element in bf16. With ``grads``, also K2's
+    gradient path against float64 and plain autograd and K2b against its
+    plain version on K2's statistics, of the largest |dx|, with a seeded
+    upstream gradient in the inputs' dtype."""
+    assert kept
+    for i, ((shape, relu), x) in enumerate(sorted(kept.items())):
+        bf16 = x.dtype == torch.bfloat16
+        with torch.inference_mode():
+            got = instnorm.instance_norm(x, relu=relu)
+            want = instnorm.instance_norm_plain(x, relu=relu)
+        assert (within_bf16_ulp(got, want) if bf16 else
+                maxdiff(got.cpu(), want.cpu()) <= K2_ATOL), (shape, relu)
+        if not grads:
+            continue
+        x = x.clone()
+        g = torch.randn(shape, generator=torch.Generator(
+            device=x.device).manual_seed(i), device=x.device).to(x.dtype)
+        stats = instnorm.empty_stats(x)
+        instnorm._launch(x, torch.empty_like(x), 1e-5, relu,
+                         instnorm.k2_cluster(x), stats)
+        dx = instnorm.instance_norm_backward(x, g, stats, relu)
+        want = instnorm.instance_norm_backward_plain(x, g, stats, relu)
+        e = k2_gradient_errors(x, g, relu)
+        if bf16:
+            assert dx_within_bf16_ulp(dx, want), (shape, relu)
+            assert e["vs_f64"] <= K2B_BF16_F64_RTOL, (shape, relu, e)
+            assert e["vs_plain"] <= K2B_BF16_RTOL, (shape, relu, e)
+        else:
+            assert maxdiff(dx.cpu(), want.cpu()) <= K2B_RTOL * float(
+                want.abs().max()), (shape, relu)
+            assert e["vs_f64"] <= K2B_F64_RTOL, (shape, relu, e)
+            assert e["vs_plain"] <= K2B_PLAIN_RTOL, (shape, relu, e)
 
 
 # 513 and 4095: every block touches a reflected edge; 96000 and 96001:
@@ -199,34 +272,116 @@ def test_launch_counters_count_kernel_launches_only(cuda_device):
     assert stft.stft_magnitude.launches == k1 + 1
 
 
-def test_small_renderer_card_matches_host(cuda_device):
-    import copy
-
+def _small_renderer(device, style: str = "drawing", **kw):
+    """A ``Module2Renderer`` on ``device`` of seeded small nets, the same
+    weights at every call: the trident generator at ngf 8 with 3 blocks,
+    FlowUnet nf 4, MODNet, and the style's static net (the drawing net at
+    ngf 8 with 2 blocks, Photo2Cartoon at ngf 8)."""
     from animateportrait_tpu_torch.models.flowunet import FlowUnet
     from animateportrait_tpu_torch.models.gan import (
         ResnetStyle2Generator, TridentGeneratorFullIFW)
     from animateportrait_tpu_torch.models.modnet import MODNet
+    from animateportrait_tpu_torch.models.photo2cartoon import (
+        Photo2CartoonGenerator)
     from animateportrait_tpu_torch.pipeline.render import Module2Renderer
-    from animateportrait_tpu_torch.utils.smoke import init_random_
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator().manual_seed(0)
     nets = [init_random_(n, g) for n in (
-        TridentGeneratorFullIFW(output_nc=1, ngf=8, n_blocks=3, div=3,
-                                disp=3),
-        FlowUnet(nf=4, num_scale=3, max_nf=64), MODNet(),
-        ResnetStyle2Generator(ngf=8, n_blocks=2))]
-    rng = np.random.default_rng(0)
+        TridentGeneratorFullIFW(output_nc=1 if style == "drawing" else 3,
+                                ngf=8, n_blocks=3, div=3, disp=3),
+        FlowUnet(nf=4, num_scale=3, max_nf=64), MODNet())]
+    if style == "drawing":
+        static = init_random_(ResnetStyle2Generator(ngf=8, n_blocks=2), g)
+        return Module2Renderer(*nets, static, device=device, **kw)
+    static = init_random_(Photo2CartoonGenerator(ngf=8), g)
+    return Module2Renderer(*nets, style=style, cartoon_g=static,
+                           device=device, **kw)
+
+
+def _render_inputs(frames: int, seed: int = 0):
+    """A photo (256^2, [-1, 1]), its 68 points and ``frames`` targets."""
+    rng = np.random.default_rng(seed)
     photo = rng.uniform(-1, 1, (256, 256, 3)).astype(np.float32)
     a68 = rng.uniform(70, 190, (68, 2)).astype(np.float32)
-    tb68 = a68 + rng.uniform(-2, 2, (3, 68, 2)).astype(np.float32)
+    tb68 = a68 + rng.uniform(-2, 2, (frames, 68, 2)).astype(np.float32)
+    return photo, a68, tb68
+
+
+@pytest.mark.parametrize("style,motion", [
+    ("drawing", "linear"), ("cartoon", "linear"), ("drawing", "tps")])
+def test_small_renderer_card_matches_host(cuda_device, style, motion):
+    """3 frames at a frame batch of 2 on the card (K2) and on the CPU (its
+    plain version) at PSNR >= 40 dB; on the card one K2 launch for each
+    InstanceNorm call of the four nets."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    photo, a68, tb68 = _render_inputs(3)
     outs = []
     for dev in (cuda_device, torch.device("cpu")):
-        r = Module2Renderer(*copy.deepcopy(nets), frame_batch=2, device=dev)
+        r = _small_renderer(dev, style, frame_batch=2, motion_mode=motion)
+        calls, hooks = _count_instance_norms(
+            [r.g, r.flowunet, r.modnet, r.static_net])
+        launches = instnorm.instance_norm.launches
         with torch.inference_mode():
             outs.append(r(photo, a68, tb68))
+        for h in hooks:
+            h.remove()
+        if dev.type == "cuda":
+            assert instnorm.instance_norm.launches - launches == sum(
+                calls.values()) > 0
     assert psnr(outs[0], outs[1]) >= 40.0
+
+
+def test_full_width_render_batch_launches_and_trace(cuda_device, tmp_path):
+    """One 8-frame batch of the full-width drawing renderer (``entry()``'s
+    generator, seeded nets): one K2 launch for each InstanceNorm call, by
+    shape ``kernel_bench.K2_BATCH_MIX`` (the batch ``kernel_bench.py``
+    times), and inside ``profile_trace`` one K2 kernel event in the Chrome
+    trace for each launch."""
+    import json
+
+    from animateportrait_tpu_torch.entry import entry
+    from animateportrait_tpu_torch.models.flowunet import FlowUnet
+    from animateportrait_tpu_torch.models.gan import ResnetStyle2Generator
+    from animateportrait_tpu_torch.models.modnet import MODNet
+    from animateportrait_tpu_torch.ops.tps import triangulate_frames
+    from animateportrait_tpu_torch.pipeline.render import (
+        CROP_SIZE, Module2Renderer)
+    from animateportrait_tpu_torch.utils.observe import profile_trace
+
+    gen = torch.Generator().manual_seed(1)
+    r = Module2Renderer(entry(cuda_device)[0], init_random_(FlowUnet(), gen),
+                        init_random_(MODNet(), gen),
+                        init_random_(ResnetStyle2Generator(), gen),
+                        frame_batch=8, device=cuda_device)
+    photo, a68, tb68 = _render_inputs(8)
+    tris = torch.as_tensor(triangulate_frames(tb68, CROP_SIZE),
+                           device=cuda_device)
+    photo, a68, tb68 = (torch.as_tensor(v, device=cuda_device)
+                        for v in (photo, a68, tb68))
+    photo, a68 = photo.permute(2, 0, 1)[None].contiguous(), a68[None]
+    with torch.inference_mode():
+        fore, mask, static = r.prepare(photo)
+        cache = r.encode(fore, a68)
+        r.frames(cache, mask, static, a68, tb68, None, tris)      # warm
+        calls, hooks = _count_instance_norms(
+            [r.g, r.flowunet, r.modnet, r.static_net])
+        launches = instnorm.instance_norm.launches
+        with profile_trace(str(tmp_path)) as path:
+            r.frames(cache, mask, static, a68, tb68, None, tris)
+        launches = instnorm.instance_norm.launches - launches
+    for h in hooks:
+        h.remove()
+    mix = {}
+    for (shape, _, _), n in calls.items():
+        mix[shape] = mix.get(shape, 0) + n
+    assert mix == K2_BATCH_MIX
+    assert launches == sum(K2_BATCH_MIX.values())
+    with open(path) as f:
+        k2 = [e for e in json.load(f)["traceEvents"]
+              if e.get("cat") == "kernel"
+              and "instance_norm" in e.get("name", "")]
+    assert len(k2) == launches
 
 
 # Photo2Cartoon (ngf 32) planes at 256 px, down to the 16x16 hourglass
@@ -244,10 +399,7 @@ def test_k2_kernel_at_photo2cartoon_shapes(cuda_device, shape, relu):
 
 
 def test_mtcnn_card_matches_host(cuda_device, tmp_path):
-    import os
-
     from animateportrait_tpu_torch.models import mtcnn
-    from animateportrait_tpu_torch.utils.smoke import write_mtcnn_weights
 
     d = write_mtcnn_weights(str(tmp_path / "mtcnn"))
     img = np.random.default_rng(6).uniform(0, 255, (200, 180, 3)).astype(
@@ -267,19 +419,21 @@ def test_mtcnn_card_matches_host(cuda_device, tmp_path):
     assert maxdiff(lc, lh) <= 1.0
 
 
-def test_photo2cartoon_and_speaker_card_match_host(cuda_device):
-    import copy
-
+@pytest.mark.parametrize("light", [True, False])
+def test_photo2cartoon_and_speaker_card_match_host(cuda_device, light):
+    """Photo2Cartoon (the light head, and ``light=False``, the full head)
+    at ngf 8 on a 64^2 photo at PSNR >= 40 dB, and the speaker embedding
+    within 1e-4, card against host."""
     from animateportrait_tpu_torch.models.photo2cartoon import (
         Photo2CartoonGenerator)
     from animateportrait_tpu_torch.models.speaker_encoder import (
         VoiceEncoder, get_spk_emb)
-    from animateportrait_tpu_torch.utils.smoke import init_random_, make_wav
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator().manual_seed(0)
-    p2c = init_random_(Photo2CartoonGenerator(ngf=8), g).eval()
+    p2c = init_random_(Photo2CartoonGenerator(ngf=8, light=light,
+                                              img_size=64), g).eval()
     enc = init_random_(VoiceEncoder(), g).eval()
     x = torch.from_numpy(np.random.default_rng(0).uniform(
         -1, 1, (1, 3, 64, 64)).astype(np.float32))
@@ -292,6 +446,63 @@ def test_photo2cartoon_and_speaker_card_match_host(cuda_device):
         outs.append((y, e))
     assert psnr(outs[0][0], outs[1][0]) >= 40.0
     assert maxdiff(outs[0][1], outs[1][1]) <= 1e-4
+
+
+@pytest.mark.parametrize("path", ["render", "render_cartoon", "render_bf16",
+                                  "photo2cartoon", "train_step",
+                                  "train_step_bf16"])
+def test_k2_matches_plain_on_path_activations(cuda_device, path):
+    """K2 against its plain version on the activations a path feeds its
+    InstanceNorms (the first input of each shape), at small widths: the
+    renderer (drawing, cartoon, and drawing with ``use_bf16``: K2-bf16),
+    Photo2Cartoon with the full head, and the Module2 training step's G
+    and Ds in fp32
+    and bf16 with stacked D passes, where K2's gradient path and K2b are
+    held too (``_hold_k2_on``)."""
+    from animateportrait_tpu_torch.train import module2 as m2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if path.startswith("render"):
+        r = _small_renderer(cuda_device, "cartoon" if path.endswith(
+            "cartoon") else "drawing", frame_batch=2,
+            use_bf16=path == "render_bf16")
+        kept, hooks = _kept_instance_norm_inputs(
+            [r.g, r.flowunet, r.modnet, r.static_net])
+        with torch.inference_mode():
+            r(*_render_inputs(2))
+    elif path == "photo2cartoon":
+        from animateportrait_tpu_torch.models.photo2cartoon import (
+            Photo2CartoonGenerator)
+
+        net = init_random_(Photo2CartoonGenerator(ngf=8, light=False,
+                                                  img_size=64),
+                           torch.Generator().manual_seed(0)).eval()
+        net = net.to(cuda_device)
+        kept, hooks = _kept_instance_norm_inputs([net])
+        with torch.inference_mode():
+            net(torch.rand(1, 3, 64, 64, device=cuda_device) * 2 - 1)
+    else:
+        dtype = "bfloat16" if path.endswith("bf16") else "float32"
+        cfg = m2.Module2Config(crop_size=64, ngf=8, ndf=8, pool_size=4,
+                               batch_d_passes=True, compute_dtype=dtype)
+        state = m2.init_state(cfg, torch.Generator().manual_seed(0),
+                              cuda_device)
+        frozen = m2.init_frozen_random(torch.Generator().manual_seed(1),
+                                       cuda_device)
+        batch = m2.make_random_batch(cfg, 2, torch.Generator(
+            device=cuda_device).manual_seed(2), cuda_device)
+        kept, hooks = _kept_instance_norm_inputs([state.g, state.d])
+        m2.build_train_step(cfg).grads(state, batch, frozen,
+                                       torch.Generator().manual_seed(3))
+    for h in hooks:
+        h.remove()
+    dtypes = {x.dtype for x in kept.values()}
+    if path == "train_step_bf16":
+        assert dtypes == {torch.bfloat16}
+    elif path == "render_bf16":           # the once-per-photo nets in fp32
+        assert dtypes == {torch.bfloat16, torch.float32}
+    _hold_k2_on(kept, grads=path.startswith("train"))
 
 
 def _k2_grad_case(shape, relu, device, seed=0):
@@ -400,6 +611,7 @@ def test_full_width_training_step_on_the_card(cuda_device):
         assert float((next(state.g.parameters()) - g0).abs().max()) > 0
         assert float((next(state.d.parameters()) - d0).abs().max()) > 0
     assert state.pool_count == 8
+    assert bool(state.pool[:8].abs().sum((1, 2, 3)).gt(0).all())
     # G: 2 forwards of 38 INs; Ds: 5 stacked passes of 3 INs in the G pass
     # and 5 in the D pass; MODNet: 16 INs, inference only
     assert instnorm.instance_norm_backward.launches - k2b == 2 * 38 + 30
@@ -435,16 +647,22 @@ def test_small_training_grads_card_match_host(cuda_device, tf32_off):
             torch.Generator().manual_seed(3))
     c, h = out["cuda"], out["cpu"]
     for k, v in h.metrics.items():
-        np.testing.assert_allclose(float(c.metrics[k]), float(v), rtol=1e-4,
-                                   atol=1e-5, err_msg=k)
+        assert abs(float(c.metrics[k]) - float(v)) <= 1e-4 * max(
+            abs(float(v)), 1e-5), k
     for net in ("g", "d"):
         host, card = getattr(h, net), getattr(c, net)
         gscale = max(float(v.abs().max()) for v in host.values())
-        errs = {k: float((card[k].cpu() - v).abs().max() / v.abs().max())
-                for k, v in host.items() if float(v.abs().max()) > 1e-5 * gscale}
+        errs = {}
+        for k, v in host.items():
+            if float(v.abs().max()) > 1e-5 * gscale:
+                errs[k] = float((card[k].cpu() - v).abs().max()
+                                / v.abs().max())
+            else:          # rounding noise on the host: so on the card
+                assert float(card[k].abs().max()) <= 1e-5 * gscale, k
         over = {k: e for k, e in errs.items() if e > 1e-3}
         assert len(over) <= 2 and all(e <= 5e-2 for e in over.values()), over
     assert c.pool_count == h.pool_count == 2
+    assert maxdiff(c.pool.cpu(), h.pool) <= 1e-4
 
 
 # The graphed Module2 step against the eager step from the same state, with
@@ -552,8 +770,6 @@ def test_graphed_module2_step_matches_the_eager_step(cuda_device,
     leaf between two eager runs, so the comparison is made step by step.
     The first step is the graph's eager warm-up, held against the step as
     it was before (Adam not yet capturable)."""
-    import copy
-
     m2, cfg, state, frozen, batches = _graph_setup(
         cuda_device, batch_sizes=(1, 1, 1))
     step = m2.build_train_step(cfg)
@@ -581,8 +797,6 @@ def test_graphed_module2_step_takes_a_graph_per_batch_layout(
     """A second batch shape captures its own graph, which replays the step
     (its losses and pool bit for bit those of the eager step from the
     same state); a third, past ``MAX_GRAPHS``, steps eagerly."""
-    import copy
-
     from animateportrait_tpu_torch.utils import observe
 
     m2, cfg, state, frozen, (b1, b2, b3) = _graph_setup(
@@ -640,6 +854,49 @@ def test_graphed_module2_step_counts_under_profile_trace(cuda_device,
                for k in kernels) >= 6 * (2 * 38 + 16)
 
 
+def test_graphed_step_replays_every_instance_norm(cuda_device):
+    """At the bench layout (stacked D passes, batch 4) at crop 64: the
+    eager warm-up step launches K2 once for each InstanceNorm call of G,
+    the Ds and MODNet and K2b once for each recorded one (counted by
+    hooks), and the trace of a replayed step of the CUDA graph, in which
+    no wrapper counts, holds as many K2 and K2b kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from animateportrait_tpu_torch.train import module2 as m2
+
+    cfg = m2.Module2Config(crop_size=64, ngf=8, ndf=8, batch_d_passes=True)
+    state = m2.init_state(cfg, torch.Generator().manual_seed(0), cuda_device)
+    frozen = m2.init_frozen_random(torch.Generator().manual_seed(1),
+                                   cuda_device)
+    batch = m2.make_random_batch(cfg, 4, torch.Generator(
+        device=cuda_device).manual_seed(2), cuda_device)
+    step, gen = m2.build_train_step(cfg), torch.Generator().manual_seed(3)
+    calls, hooks = _count_instance_norms([state.g, state.d, frozen.modnet])
+    k2, k2b = (instnorm.instance_norm.launches,
+               instnorm.instance_norm_backward.launches)
+    step.step(state, batch, frozen, gen)                  # eager warm-up
+    for h in hooks:
+        h.remove()
+    n_fwd = sum(calls.values())
+    n_bwd = sum(n for (_, _, rec), n in calls.items() if rec)
+    assert instnorm.instance_norm.launches - k2 == n_fwd
+    assert instnorm.instance_norm_backward.launches - k2b == n_bwd > 0
+    step.step(state, batch, frozen, gen)                  # the capture
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step.step(state, batch, frozen, gen)
+        torch.cuda.synchronize()
+    kernels = {"fwd": 0, "bwd": 0}
+    for e in prof.key_averages():
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and "instance_norm" in e.key):
+            kernels["bwd" if "instance_norm_bwd" in e.key else "fwd"] += \
+                e.count
+    assert kernels == {"fwd": n_fwd, "bwd": n_bwd}
+
+
 def test_checkpoint_of_a_graphed_state_resumes_anywhere(
         cuda_device, deterministic_fp32, tmp_path):
     """A checkpoint written after graphed steps (Adam ``capturable``, its
@@ -681,6 +938,22 @@ def test_checkpoint_of_a_graphed_state_resumes_anywhere(
     assert card.step == state.step == 4
 
 
+# train_cli's small configuration
+TRAIN_CLI_SMALL = ["--output_nc", "1", "--ngf", "8", "--ndf", "8",
+                   "--load_size", "72", "--crop_size", "64",
+                   "--batch_size", "2", "--num_threads", "2",
+                   "--print_freq", "1"]
+# one process on one card: the default --data_parallel 0 takes every
+# visible card
+ONE_CARD = ["--data_parallel", "1"]
+
+
+def _launch_counts() -> tuple:
+    """K2's, K2b's, K2-bf16's and K2b-bf16's launch counters."""
+    fwd, bwd = instnorm.instance_norm, instnorm.instance_norm_backward
+    return fwd.launches, bwd.launches, fwd.launches_bf16, bwd.launches_bf16
+
+
 def test_train_cli_one_step_on_the_card(cuda_device, tmp_path):
     """``train_cli.main`` on ``cuda`` for one step over a small synthetic
     UMLVD-IFW tree, with two loader worker processes: K2 and K2b launch,
@@ -694,9 +967,7 @@ def test_train_cli_one_step_on_the_card(cuda_device, tmp_path):
                instnorm.instance_norm_backward.launches)
     res = train_cli.main([
         "--dataroot", root, "--checkpoints_dir", str(tmp_path / "ck"),
-        "--name", "smoke", "--output_nc", "1", "--ngf", "8", "--ndf", "8",
-        "--load_size", "72", "--crop_size", "64", "--batch_size", "2",
-        "--num_threads", "2", "--max_steps", "1", "--print_freq", "1",
+        "--name", "smoke", *TRAIN_CLI_SMALL, *ONE_CARD, "--max_steps", "1",
         "--display_freq", "1", "--frozen_dir", str(tmp_path / "none"),
         "--device", "cuda"])
     assert res.state.step == 1 and next(res.state.g.parameters()).is_cuda
@@ -706,6 +977,147 @@ def test_train_cli_one_step_on_the_card(cuda_device, tmp_path):
     assert "iters: 1," in (exp / "loss_log.txt").read_text()
     assert (exp / "checkpoints" / "1.pt").exists()
     assert len(list((exp / "web" / "images").iterdir())) == 11
+
+
+def _jpeg_photos(root: str) -> None:
+    """The photos of the UMLVD-IFW tree ``root`` replaced by copies of the
+    committed JPEG fixture, ``Photo/<name>.jpg`` for each ``<name>.png``,
+    and the files found by the photo's path (its dot image, masks and
+    static stylization) renamed to ``.jpg`` beside it, their bytes still
+    PNG (the readers go by the bytes, not the name)."""
+    import glob
+    import shutil
+
+    from animateportrait_tpu_torch.utils.assets import ASSET_DIR
+
+    fixture = os.path.join(ASSET_DIR, "portrait_420_rst_exif6.jpg")
+    for photo in glob.glob(os.path.join(root, "Photo", "**", "*.png"),
+                           recursive=True):
+        stem = os.path.splitext(photo)[0]
+        os.remove(photo)
+        shutil.copyfile(fixture, stem + ".jpg")
+        for sub in ("/Alm/MTCNN/", "/Amask/nose/", "/Amask/eyes/",
+                    "/Amask/lips/", "/fakeB_static/"):
+            twin = stem.replace("/Photo/", sub) + ".png"
+            os.rename(twin, os.path.splitext(twin)[0] + ".jpg")
+
+
+def _state_diff(a, b) -> list:
+    """The names of the parts of two TrainStates' checkpoint trees that
+    differ in any bit."""
+    from animateportrait_tpu_torch.io.checkpoint import train_state_dict
+
+    diff = []
+
+    def walk(x, y, name):
+        if torch.is_tensor(x):
+            if not (torch.is_tensor(y) and x.shape == y.shape
+                    and x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())):
+                diff.append(name)
+        elif isinstance(x, dict):
+            if not isinstance(y, dict) or set(x) != set(y):
+                diff.append(name)
+            else:
+                for k in x:
+                    walk(x[k], y[k], f"{name}.{k}")
+        elif isinstance(x, (list, tuple)):
+            if not isinstance(y, (list, tuple)) or len(x) != len(y):
+                diff.append(name)
+            else:
+                for i, (u, v) in enumerate(zip(x, y)):
+                    walk(u, v, f"{name}[{i}]")
+        elif x != y:
+            diff.append(name)
+
+    walk(train_state_dict(a), train_state_dict(b), "state")
+    return diff
+
+
+def _child_processes() -> list[str]:
+    """The processes whose parent is this one, as "pid command"."""
+    out = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:       # it exited while we looked
+            continue
+        # the parent is the second field after the command in parentheses
+        if int(stat.rsplit(")", 1)[1].split()[1]) == os.getpid():
+            out.append(f"{pid} {cmd.strip()[:120]}")
+    return out
+
+
+@pytest.mark.parametrize("mode", ["resume", "bf16", "jpeg", "multihost"])
+def test_train_cli_modes_on_the_card(cuda_device, tmp_path, mode):
+    """``train_cli.main`` on the card for 2 steps over a small synthetic
+    UMLVD-IFW tree, K2 and K2b (or K2-bf16 and K2b-bf16) launched:
+
+    - resume: the state restored from the step-2 checkpoint equals the
+      run's, bit for bit, and ``--continue_train`` resumes there to step
+      3; after ``stop_worker_servers`` no process this one started runs;
+    - bf16: ``--compute_dtype bfloat16``, and the checkpoint holds a bf16
+      run's fp32 masters;
+    - jpeg: the tree's photos replaced by the committed JPEG fixture;
+    - multihost: ``--multihost 1 --num_processes 1`` (NCCL at world size
+      1): one loss log of both steps, one checkpoint tree."""
+    from animateportrait_tpu_torch import train_cli
+    from animateportrait_tpu_torch.data.umlvd_ifw import stop_worker_servers
+    from animateportrait_tpu_torch.io.checkpoint import CheckpointManager
+    from animateportrait_tpu_torch.train import module2 as m2
+    from animateportrait_tpu_torch.utils.distributed import free_port
+    from animateportrait_tpu_torch.utils.options import to_configs
+    from animateportrait_tpu_torch.utils.smoke import write_umlvd_tree
+
+    # the fixture is 512^2: so is the tree it goes into
+    root = write_umlvd_tree(str(tmp_path / "data"),
+                            size=512 if mode == "jpeg" else 96, seed=0,
+                            png_filter=4)
+    if mode == "jpeg":
+        _jpeg_photos(root)
+    ck = str(tmp_path / "ck")
+    argv = ["--dataroot", root, "--checkpoints_dir", ck, "--name", "run",
+            *TRAIN_CLI_SMALL, *ONE_CARD, "--max_steps", "2", "--frozen_dir",
+            str(tmp_path / "none"), "--device", "cuda"]
+    if mode == "bf16":
+        argv += ["--compute_dtype", "bfloat16"]
+    if mode == "multihost":
+        argv += ["--multihost", "1", "--num_processes", "1", "--process_id",
+                 "0", "--coordinator_address", f"127.0.0.1:{free_port()}"]
+    before = _launch_counts()
+    run = train_cli.main(argv)
+    launches = [a - b for a, b in zip(_launch_counts(), before)]
+    assert run.state.step == 2
+    assert min(launches[2:] if mode == "bf16" else launches[:2]) > 0, \
+        launches
+    exp = os.path.join(ck, "run")
+    mgr = CheckpointManager(os.path.join(exp, "checkpoints"))
+    assert mgr.all_steps()[-1] == 2
+    with open(os.path.join(exp, "loss_log.txt")) as f:
+        log = f.read()
+    assert "iters: 2," in log
+    if mode == "bf16":
+        saved = mgr.restore(2, None)
+        assert saved["compute_dtype"] == "bfloat16"
+        assert {v.dtype for v in saved["g"].values()} == {torch.float32}
+    if mode == "multihost":
+        assert log.count("Training Loss") == 1 and log.count("(epoch") == 2
+        assert sorted(os.listdir(ck)) == ["run"]
+    if mode == "resume":
+        cfg, _ = to_configs(train_cli.build_argparser().parse_args(argv))
+        fresh = mgr.restore(2, m2.init_state(
+            cfg, torch.Generator().manual_seed(5), cuda_device))
+        assert not _state_diff(run.state, fresh)
+        run2 = train_cli.main(argv + ["--max_steps", "3",
+                                      "--continue_train"])
+        assert run2.resumed_from == 2 and run2.state.step == 3
+        with open(os.path.join(exp, "loss_log.txt")) as f:
+            assert "iters: 3," in f.read()
+        del run, run2, fresh
+        stop_worker_servers()
+        assert not _child_processes()
 
 
 def test_remat_grads_match_on_the_card(cuda_device):
@@ -755,18 +1167,23 @@ def test_remat_grads_match_on_the_card(cuda_device):
 
 # --- bf16: K2 and K2b on bf16 tensors -----------------------------------------
 
-# every bf16 InstanceNorm shape of the two bf16 paths that the fp32 lists do
-# not hold already: the render decode's and the training step's planes; the
-# 31 x 31 planes (hw odd), a plane of hw % 8 == 4 (14 x 14: 16-byte slices
-# impossible, scalar loads), an odd plane and the streaming branch
+# every bf16 InstanceNorm shape of the two bf16 paths: the render decode's
+# and encode_static's (kernel_bench.K2_BF16_RENDER_SHAPES) and the training
+# step's planes; the 31 x 31 planes (hw odd), a plane of hw % 8 == 4
+# (14 x 14: 16-byte slices impossible, scalar loads), an odd plane and the
+# streaming branch
 BF16_SHAPES = sorted(set(
     [(8, 128, 128, 128), (8, 256, 64, 64), (8, 8, 256, 256),
      (8, 64, 256, 256), (1, 64, 512, 512), (1, 128, 256, 256),
-     (2, 6, 14, 14), (2, 3, 5, 7), (1, 4, 1024, 1024)] + TRAIN_IN_SHAPES))
+     (2, 6, 14, 14), (2, 3, 5, 7), (1, 4, 1024, 1024)] + TRAIN_IN_SHAPES
+    + K2_BF16_RENDER_SHAPES))
 
 
 # K2b-bf16: one bf16 ulp of the largest |dx|
 K2B_BF16_RTOL = 2.0 ** -7
+# K2 + K2b in bf16 against float64 autograd on the same bf16 inputs, of the
+# largest |dx|: two bf16 ulps (each side rounds once)
+K2B_BF16_F64_RTOL = 2.0 ** -6
 
 
 def dx_within_bf16_ulp(got: torch.Tensor, want: torch.Tensor) -> bool:
@@ -904,44 +1321,35 @@ def test_small_bf16_renderer_card_matches_host(cuda_device):
     """``use_bf16`` on the card (K2-bf16) and on the CPU (its plain
     version): two bf16 renders of the same nets, each ~39 dB from fp32 on
     the CPU at these widths (tests/test_torch_bf16_render.py), so held to
-    30 dB of each other; K2-bf16 launches, and fp32 K2 for MODNet."""
-    import copy
-
-    from animateportrait_tpu_torch.models.flowunet import FlowUnet
-    from animateportrait_tpu_torch.models.gan import (
-        ResnetStyle2Generator, TridentGeneratorFullIFW)
-    from animateportrait_tpu_torch.models.modnet import MODNet
-    from animateportrait_tpu_torch.pipeline.render import Module2Renderer
-    from animateportrait_tpu_torch.utils.smoke import init_random_
-
-    g = torch.Generator().manual_seed(0)
-    nets = [init_random_(n, g) for n in (
-        TridentGeneratorFullIFW(output_nc=1, ngf=8, n_blocks=3, div=3,
-                                disp=3),
-        FlowUnet(nf=4, num_scale=3, max_nf=64), MODNet(),
-        ResnetStyle2Generator(ngf=8, n_blocks=2))]
-    rng = np.random.default_rng(0)
-    photo = rng.uniform(-1, 1, (256, 256, 3)).astype(np.float32)
-    a68 = rng.uniform(70, 190, (68, 2)).astype(np.float32)
-    tb68 = a68 + rng.uniform(-2, 2, (3, 68, 2)).astype(np.float32)
-    f32, b16 = (instnorm.instance_norm.launches,
-                instnorm.instance_norm.launches_bf16)
+    30 dB of each other and of the card's fp32 render; K2-bf16 launches,
+    and fp32 K2 for MODNet, one launch for each InstanceNorm call."""
+    photo, a68, tb68 = _render_inputs(3)
     outs = []
     for dev in (cuda_device, torch.device("cpu")):
-        r = Module2Renderer(*copy.deepcopy(nets), frame_batch=2, device=dev,
-                            use_bf16=True)
+        r = _small_renderer(dev, frame_batch=2, use_bf16=True)
+        calls, hooks = _count_instance_norms(
+            [r.g, r.flowunet, r.modnet, r.static_net])
+        before = _launch_counts()
         with torch.inference_mode():
             outs.append(r(photo, a68, tb68))
-    assert instnorm.instance_norm.launches > f32
-    assert instnorm.instance_norm.launches_bf16 > b16
+        launches = [a - b for a, b in zip(_launch_counts(), before)]
+        for h in hooks:
+            h.remove()
+        if dev.type == "cuda":
+            assert launches[0] > 0 and launches[2] > 0
+            assert launches[0] + launches[2] == sum(calls.values())
     assert outs[0].dtype == np.float32 and np.isfinite(outs[0]).all()
     assert psnr(outs[0], outs[1]) >= 30.0
+    with torch.inference_mode():
+        fp32 = _small_renderer(cuda_device, frame_batch=2)(photo, a68, tb68)
+    assert psnr(outs[0], fp32) >= 30.0
 
 
 def test_bf16_training_step_on_the_card(cuda_device):
-    """One bf16 step at the small configuration: every InstanceNorm forward
-    through K2-bf16 and every backward through K2b-bf16, finite losses
-    within 2e-2 of the host's bf16 step, fp32 masters that move."""
+    """One bf16 step at the small configuration: one K2-bf16 launch for
+    each InstanceNorm call of G, the Ds and MODNet and one K2b-bf16 launch
+    for each recorded one, no fp32 K2 or K2b, finite losses within 2e-2 of
+    the host's bf16 step, fp32 masters that move."""
     from animateportrait_tpu_torch.train import module2 as m2
 
     cfg = m2.Module2Config(crop_size=64, ngf=8, ndf=8, pool_size=4,
@@ -949,26 +1357,27 @@ def test_bf16_training_step_on_the_card(cuda_device):
     batch = m2.make_random_batch(cfg, 1, torch.Generator().manual_seed(2),
                                  "cpu")
     out = {}
-    counts = (instnorm.instance_norm.launches,
-              instnorm.instance_norm_backward.launches,
-              instnorm.instance_norm.launches_bf16,
-              instnorm.instance_norm_backward.launches_bf16)
     for where in (cuda_device, torch.device("cpu")):
         state = m2.init_state(cfg, torch.Generator().manual_seed(0), where)
         frozen = m2.init_frozen_random(torch.Generator().manual_seed(1),
                                        where)
+        step = m2.build_train_step(cfg)
+        calls, hooks = _count_instance_norms(
+            [state.g, state.d, step.frozen_nets(frozen).modnet])
         g0 = next(state.g.parameters()).detach().clone()
-        out[where.type] = m2.build_train_step(cfg).step(
+        before = _launch_counts()
+        out[where.type] = step.step(
             state, {k: v.to(where) for k, v in batch.items()}, frozen,
             torch.Generator().manual_seed(3))
+        launches = [a - b for a, b in zip(_launch_counts(), before)]
+        for h in hooks:
+            h.remove()
         assert {p.dtype for p in state.g.parameters()} == {torch.float32}
         assert float((next(state.g.parameters()) - g0).abs().max()) > 0
-    now = (instnorm.instance_norm.launches,
-           instnorm.instance_norm_backward.launches,
-           instnorm.instance_norm.launches_bf16,
-           instnorm.instance_norm_backward.launches_bf16)
-    assert now[:2] == counts[:2]                  # no fp32 InstanceNorm
-    assert now[2] > counts[2] and now[3] > counts[3]
+        if where.type == "cuda":
+            n_bwd = sum(n for (_, _, rec), n in calls.items() if rec)
+            assert launches == [0, 0, sum(calls.values()), n_bwd], launches
+            assert n_bwd > 0
     for k, v in out["cpu"].items():
         assert np.isfinite(float(out["cuda"][k])), k
         np.testing.assert_allclose(float(out["cuda"][k]), float(v),
@@ -979,39 +1388,16 @@ def test_bf16_training_step_on_the_card(cuda_device):
 # front end --------------------------------------------------------------
 
 
-def _small_renderer_nets():
-    from animateportrait_tpu_torch.models.flowunet import FlowUnet
-    from animateportrait_tpu_torch.models.gan import (
-        ResnetStyle2Generator, TridentGeneratorFullIFW)
-    from animateportrait_tpu_torch.models.modnet import MODNet
-    from animateportrait_tpu_torch.utils.smoke import init_random_
-
-    g = torch.Generator().manual_seed(0)
-    return [init_random_(n, g) for n in (
-        TridentGeneratorFullIFW(output_nc=1, ngf=8, n_blocks=3, div=3,
-                                disp=3),
-        FlowUnet(nf=4, num_scale=3, max_nf=64), MODNet(),
-        ResnetStyle2Generator(ngf=8, n_blocks=2))]
-
-
 def test_render_visuals_card_matches_host(cuda_device):
     """Every float visual of a 3-frame render_visuals batch at PSNR >= 40
     dB between the card (K2) and the CPU (its plain version)."""
-    import copy
-
-    from animateportrait_tpu_torch.pipeline.render import Module2Renderer
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    nets = _small_renderer_nets()
-    rng = np.random.default_rng(0)
-    photo = rng.uniform(-1, 1, (256, 256, 3)).astype(np.float32)
-    a68 = rng.uniform(70, 190, (68, 2)).astype(np.float32)
-    tb68 = a68 + rng.uniform(-2, 2, (3, 68, 2)).astype(np.float32)
+    photo, a68, tb68 = _render_inputs(3)
     launches = instnorm.instance_norm.launches
     outs = []
     for dev in (cuda_device, torch.device("cpu")):
-        r = Module2Renderer(*copy.deepcopy(nets), frame_batch=2, device=dev)
+        r = _small_renderer(dev, frame_batch=2)
         with torch.inference_mode():
             outs.append(r.render_visuals(photo, a68, tb68))
     assert instnorm.instance_norm.launches > launches
@@ -1026,48 +1412,238 @@ def test_render_visuals_card_matches_host(cuda_device):
 
 def test_test_cli_on_the_card(cuda_device, tmp_path, monkeypatch):
     """test_cli.main with --device cuda (the default) over a seeded driver
-    layout at generator ngf 8: the nine visuals of each frame, the index,
-    K2 launches."""
-    import os
-
+    layout at generator ngf 8: the nine visuals of each frame by name, the
+    index, K2 launches; the landmark drawings of the first two frames equal
+    ``draw_landmarks``' on the host."""
     from animateportrait_tpu_torch import test_cli
+    from animateportrait_tpu_torch.utils.image import (
+        draw_landmarks, read_image)
     from animateportrait_tpu_torch.utils.smoke import write_test_layout
 
     db = write_test_layout(str(tmp_path), n_frames=3, size=256)
     monkeypatch.chdir(tmp_path)
+    argv = (f"--dataroot {db} --name formal/drawing --netg_resb_disp 3 "
+            f"--output_nc 1 --ngf 8 --epoch 70 --num_test 3 --serial_batches "
+            f"--imagefolder {db} --frame_batch 2 --checkpoints_dir none "
+            f"--results_dir {tmp_path / 'res'}").split()
     launches = instnorm.instance_norm.launches
-    res = test_cli.main(
-        f"--dataroot {db} --name formal/drawing --netg_resb_disp 3 "
-        f"--output_nc 1 --ngf 8 --epoch 70 --num_test 3 --serial_batches "
-        f"--imagefolder {db} --frame_batch 2 --checkpoints_dir none "
-        f"--results_dir {tmp_path / 'res'}".split())
+    res = test_cli.main(argv)
     assert instnorm.instance_norm.launches > launches
-    assert len(os.listdir(res.image_dir)) == 3 * 9
-    assert os.path.exists(res.index)
+    lists = test_cli.resolve_lists(db, "test", float("inf"))
+    _, a68, tb68, _, names = test_cli.load_group(
+        test_cli.build_test_argparser().parse_args(argv), lists[0][0],
+        lists[1][:3])
+    assert sorted(os.listdir(res.image_dir)) == sorted(
+        f"{n}_{label}.png" for n in names for label in test_cli.LABELS)
+    assert len(names) == 3 and os.path.exists(res.index)
+    for t in range(2):
+        for label, lm in (("real_A_lm", a68), ("target_B_lm", tb68[t])):
+            got = read_image(os.path.join(res.image_dir,
+                                          f"{names[t]}_{label}.png"))
+            np.testing.assert_array_equal(got[:, :, ::-1], test_cli.tensor2im(
+                draw_landmarks(256, 256, lm, 3, 2, op=0)))
 
 
-def test_video_cli_on_the_card(cuda_device, tmp_path):
-    """cli.main --video (no --audio: the clip's 16 kHz track) on the card at
-    small widths: K1 once, K2, the AVI under frame-audio/."""
+class _PhotoRecorder:
+    """A pipeline that records the photo of each call."""
+
+    def __init__(self, pipe, seen: list):
+        self.pipe, self.seen = pipe, seen
+
+    def __getattr__(self, name):
+        return getattr(self.pipe, name)
+
+    def __call__(self, img, *args, **kwargs):
+        self.seen.append(np.array(img))
+        return self.pipe(img, *args, **kwargs)
+
+
+# cli.main's nets at small widths
+CLI_SMALL = ["--ngf", "8", "--flow_nf", "4", "--static_ngf", "8",
+             "--cartoon_ngf", "8", "--frame_batch", "4"]
+
+
+@pytest.mark.parametrize("speech", ["track", "audio"])
+def test_video_cli_on_the_card(cuda_device, tmp_path, monkeypatch, speech):
+    """cli.main --video on the card at small widths, its speech the clip's
+    16 kHz track (the AVI under frame-audio/, its PCM the track's) or
+    ``--audio`` (under frame-speech/): K1 once, K2, the photo the pipeline
+    gets the decode of the first frame's JPEG."""
     from animateportrait_tpu_torch import cli
-    from animateportrait_tpu_torch.utils import video
-    from animateportrait_tpu_torch.utils.smoke import (
-        make_wav, write_mtcnn_weights)
+    from animateportrait_tpu_torch.utils import jpeg, video
 
     rng = np.random.default_rng(1)
     frames = rng.integers(0, 256, (70, 160, 144, 3), np.uint8)
     avi = video.mux_avi(str(tmp_path / "clip.avi"), frames,
                         make_wav(1.2, seed=2))
     write_mtcnn_weights(str(tmp_path / "ckpt" / "mtcnn"))
+    extra = [] if speech == "track" else [
+        "--audio", video.write_wav(str(tmp_path / "speech.wav"),
+                                   make_wav(1.2, seed=3))]
+    seen = []
+    build = cli.build_pipeline
+    monkeypatch.setattr(cli, "build_pipeline",
+                        lambda a: _PhotoRecorder(build(a), seen))
     k1, k2 = stft.stft_magnitude.launches, instnorm.instance_norm.launches
-    res = cli.main(["--video", avi, "--ckpt_dir", str(tmp_path / "ckpt"),
-                    "--output", str(tmp_path / "out"), "--ngf", "8",
-                    "--flow_nf", "4", "--static_ngf", "8", "--frame_batch",
-                    "4"])
+    res = cli.main(["--video", avi, *extra, "--ckpt_dir",
+                    str(tmp_path / "ckpt"), "--output", str(tmp_path / "out"),
+                    *CLI_SMALL])
     assert stft.stft_magnitude.launches == k1 + 1
     assert instnorm.instance_norm.launches > k2
-    assert res.path.endswith("frame-audio/output_formal_drawing.avi")
-    assert video.read_avi(res.path)["frames"].shape[0] == res.frames > 0
+    name = "frame-audio" if speech == "track" else "frame-speech"
+    assert res.path.endswith(f"{name}/output_formal_drawing.avi")
+    out = video.read_avi(res.path)
+    assert out["frames"].shape[0] == res.frames > 0
+    assert len(seen) == 1 and np.array_equal(seen[0], jpeg.decode_jpeg(
+        jpeg.encode_jpeg(np.ascontiguousarray(frames[0][:, :, ::-1]))))
+    if speech == "track":
+        track = (video.read_pcm_track(avi) * 32768.0).astype(np.int16)
+        assert out["pcm"] == track[:len(out["pcm"]) // 2].tobytes()
+
+
+@pytest.mark.parametrize("case", ["cartoon", "cartoon_bf16", "tps_fan"])
+def test_photo_cli_on_the_card(cuda_device, tmp_path, case):
+    """cli.main on the committed JPEG and a 2 s WAV at small widths, on the
+    card: ``--exp formal/cartoon``, that with ``--render_bf16`` (K2-bf16
+    launches too), and ``--exp formal/drawing --warp_mode tps`` with
+    seeded face_alignment FAN and depth checkpoints (the FAN stage runs).
+    K1 and K2 launch; the AVI holds the frames at 62.5 fps and an audio
+    stream whose PCM is the WAV's."""
+    import wave
+
+    from animateportrait_tpu_torch import cli
+    from animateportrait_tpu_torch.utils.assets import ASSET_DIR
+    from animateportrait_tpu_torch.utils.smoke import write_fan_checkpoints
+    from animateportrait_tpu_torch.utils.video import read_avi, write_wav
+
+    ckpt = str(tmp_path / "ckpt")
+    write_mtcnn_weights(os.path.join(ckpt, "mtcnn"))
+    wav = write_wav(str(tmp_path / "speech.wav"), make_wav(2.0, seed=3))
+    argv = ["--jpg", os.path.join(ASSET_DIR, "portrait_420_rst_exif6.jpg"),
+            "--audio", wav, "--ckpt_dir", ckpt, "--output",
+            str(tmp_path / "out"), "--device", "cuda", *CLI_SMALL]
+    if case == "tps_fan":
+        write_fan_checkpoints(os.path.join(ckpt, "face_alignment"))
+        argv += ["--exp", "formal/drawing", "--warp_mode", "tps"]
+    else:
+        argv += ["--exp", "formal/cartoon"]
+    if case == "cartoon_bf16":
+        argv += ["--render_bf16"]
+    before = (stft.stft_magnitude.launches, instnorm.instance_norm.launches,
+              instnorm.instance_norm.launches_bf16)
+    res = cli.main(argv)
+    k1, k2, k2_bf16 = (a - b for a, b in zip(
+        (stft.stft_magnitude.launches, instnorm.instance_norm.launches,
+         instnorm.instance_norm.launches_bf16), before))
+    assert k1 > 0 and k2 > 0 and (k2_bf16 > 0 or case != "cartoon_bf16")
+    assert ("fan" in res.stage_seconds) == (case == "tps_fan")
+    avi = read_avi(res.path)
+    T = res.frames
+    assert avi["frames"].shape == (T, 256, 256, 3) and avi["fps"] == 62.5
+    assert b"auds" in avi["streams"]
+    with wave.open(wav, "rb") as w:
+        pcm = w.readframes(w.getnframes())
+    assert len(avi["pcm"]) == min(len(pcm), T * 512)
+    assert avi["pcm"] == pcm[:len(avi["pcm"])]
+
+
+def test_committed_fixtures_on_the_card_machine(cuda_device):
+    """The committed fixtures where the card is, which has neither PIL nor
+    OpenCV: each JPEG decoded by both readers to the SHA-256 that PIL and
+    OpenCV gave (``jpeg_fixtures.json``), the quality-95 encoder's file and
+    its round trip to OpenCV's, and every frame of the Motion-JPEG clip to
+    OpenCV's decode, at its fps (``video_fixtures.json``)."""
+    import hashlib
+    import json
+
+    from animateportrait_tpu_torch.data.av2flau import read_video_frames
+    from animateportrait_tpu_torch.utils import image, jpeg
+    from animateportrait_tpu_torch.utils.assets import ASSET_DIR
+
+    def digest(px):
+        px = np.ascontiguousarray(px)
+        return {"sha256": hashlib.sha256(px.tobytes()).hexdigest(),
+                "shape": list(px.shape)}
+
+    with open(os.path.join(ASSET_DIR, "jpeg_fixtures.json")) as f:
+        table = json.load(f)
+    for name in ("portrait_420_rst_exif6.jpg", "portrait_gray.jpg"):
+        path, want = os.path.join(ASSET_DIR, name), table[name]
+        assert digest(image.load_image(path)) == want["pil_rgb"]
+        assert digest(image.load_image(path, grayscale=True)) == want["pil_l"]
+        img = image.read_image(path)
+        assert digest(img) == want["cv2_bgr"]
+        data = jpeg.encode_jpeg(img)
+        assert {"sha256": hashlib.sha256(data).hexdigest(),
+                "size": len(data)} == want["cv2_q95_file"]
+        assert digest(jpeg.decode_jpeg(data)) == want["cv2_q95"]
+    with open(os.path.join(ASSET_DIR, "video_fixtures.json")) as f:
+        want = json.load(f)["face_clip_mjpg.avi"]
+    frames, fps = read_video_frames(os.path.join(ASSET_DIR,
+                                                 "face_clip_mjpg.avi"))
+    assert fps == want["fps"]
+    assert [digest(f)["sha256"] for f in frames] == [
+        h["sha256"] for h in want["frames"]]
+
+
+def test_write_video_round_trip_on_the_card_machine(cuda_device, tmp_path):
+    """``write_video`` of 16 gray frames to a ``.mp4`` name where the card
+    is: an ``.avi`` at 62.5 fps that ``read_video_frames`` reads back as
+    the frames' RGB, each the decode of its quality-95 JPEG."""
+    from animateportrait_tpu_torch.utils.jpeg import (
+        decode_mjpeg_frame, encode_jpeg)
+    from animateportrait_tpu_torch.utils.video import (
+        read_video_frames, write_video)
+
+    clip = np.random.default_rng(3).integers(0, 256, (16, 64, 48, 1),
+                                            dtype=np.uint8)
+    path = write_video(str(tmp_path / "clip.mp4"), clip, fps=62.5)
+    got, fps = read_video_frames(path)
+    assert path.endswith(".avi") and fps == 62.5
+    rgb = np.repeat(clip, 3, axis=-1)
+    assert got.shape == rgb.shape
+    for g, f in zip(got, rgb):
+        np.testing.assert_array_equal(g, decode_mjpeg_frame(encode_jpeg(
+            np.ascontiguousarray(f[:, :, ::-1]))))
+
+
+def test_render_dp_cli_matches_the_plain_cli(cuda_device, tmp_path):
+    """cli.main --render_dp (a replica on each visible card, 8 frames a
+    replica) against the same call without it, twice, under cuDNN's
+    deterministic algorithms: the same frames bit for bit, K1 and K2
+    launched; on one card, one replica, the launches of the call without
+    the flag."""
+    from animateportrait_tpu_torch import cli
+    from animateportrait_tpu_torch.utils.assets import ASSET_DIR
+    from animateportrait_tpu_torch.utils.video import read_avi, write_wav
+
+    n = torch.cuda.device_count()
+    ckpt = str(tmp_path / "ckpt")
+    write_mtcnn_weights(os.path.join(ckpt, "mtcnn"))
+    argv = ["--jpg", os.path.join(ASSET_DIR, "portrait_420_rst_exif6.jpg"),
+            "--audio", write_wav(str(tmp_path / "speech.wav"),
+                                 make_wav(2.0, seed=3)),
+            "--exp", "formal/cartoon", "--ckpt_dir", ckpt, *CLI_SMALL,
+            "--frame_batch", "8"]
+    runs = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for i, flags in enumerate(([], [], ["--render_dp", "--frame_batch",
+                                            str(8 * n)])):
+            before = (stft.stft_magnitude.launches,
+                      instnorm.instance_norm.launches)
+            res = cli.main(argv + flags + ["--output",
+                                           str(tmp_path / f"out{i}")])
+            launches = (stft.stft_magnitude.launches - before[0],
+                        instnorm.instance_norm.launches - before[1])
+            runs.append((read_avi(res.path)["frames"], launches))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for frames, launches in runs:
+        assert min(launches) > 0
+        assert np.array_equal(frames, runs[0][0])
+    if n == 1:
+        assert runs[2][1] == runs[0][1]
 
 
 def test_batched_front_end_matches_single_calls_on_the_card(cuda_device,
@@ -1075,16 +1651,12 @@ def test_batched_front_end_matches_single_calls_on_the_card(cuda_device,
     """detect_faces_batch against single calls (the same faces; boxes,
     five points and scores within 1e-3) and the batched landmark predictor
     against the single one (max |diff| <= 1e-4), on the card."""
-    import os
-
     from animateportrait_tpu_torch.models import mtcnn
     from animateportrait_tpu_torch.models.audio2landmark import (
         Audio2landmarkContent, Audio2landmarkPos)
     from animateportrait_tpu_torch.pipeline.batch import (
         BatchedLandmarkPredictor, detect_faces_batch)
     from animateportrait_tpu_torch.pipeline.landmark import LandmarkPredictor
-    from animateportrait_tpu_torch.utils.smoke import (
-        init_random_, write_mtcnn_weights)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1094,7 +1666,9 @@ def test_batched_front_end_matches_single_calls_on_the_card(cuda_device,
         device=cuda_device)
     imgs = np.random.default_rng(6).uniform(0, 255, (3, 200, 180, 3)).astype(
         np.float32)
-    for (bb, bl), img in zip(detect_faces_batch(det, imgs), imgs):
+    batched = detect_faces_batch(det, imgs)
+    assert sum(len(bb) for bb, _ in batched) > 0
+    for (bb, bl), img in zip(batched, imgs):
         sb, sl = det(img)
         assert bb.shape == sb.shape
         if len(sb):
@@ -1123,8 +1697,10 @@ def test_module1_trainer_step_card_vs_host(cuda_device, name):
     same weights and batch: the metrics within rtol 1e-4 (PSNR within 0.01
     dB) in fp32 and in float64; every gradient leaf of the float64 step
     within 1e-3 of its scale of the host's, with no fallback (fp32
-    gradients can differ by a kink flip at random weights:
-    chip_smoke.py:phase13_parity); and no launch of the port's kernels."""
+    gradients can differ by a kink flip at random weights: an input of an
+    L1 term or a ReLU within ~1e-5 of its tensor's largest value from the
+    kink lands on either side, and one such flip moves most leaves by
+    percent); and no launch of the port's kernels."""
     from animateportrait_tpu_torch.ops.instnorm import (
         instance_norm, instance_norm_backward)
     from animateportrait_tpu_torch.ops.stft import stft_magnitude
@@ -1153,51 +1729,194 @@ def test_module1_trainer_step_card_vs_host(cuda_device, name):
 
 
 def test_module1_convergence_runs_fall_on_the_card(cuda_device):
-    """``train.convergence`` on the card for 20 steps: every metric falls."""
+    """``train.convergence`` on the card for 20 steps: every metric falls,
+    and no kernel of the port launches."""
     from animateportrait_tpu_torch.train import convergence
 
+    before = _launch_counts() + (stft.stft_magnitude.launches,)
     rows = convergence.run_all(20, cuda_device, say=lambda m: None)
     assert len(rows) == 8
     assert all(last < first for _, first, last in rows), rows
+    assert _launch_counts() + (stft.stft_magnitude.launches,) == before
 
 
-@pytest.mark.parametrize("name", ["resnet_9blocks",
-                                  "resnet_9blocks_rcatland32_ifw",
-                                  "resnet_9blocks_rcatland32_full_ifw2",
-                                  "unet_256", "cls"])
-def test_gan_extra_card_vs_host(cuda_device, name):
-    """A ``define_g`` / ``define_d`` net at a small width on the card and
-    on the host: K2 and K2b both launch on the card; the outputs within
-    1e-4 of their scale, the loss (mean square) within rtol 1e-4 and every
-    gradient leaf by ``grad_parity`` with a float64 host run
-    (chip_smoke.py phase 14 runs every name)."""
-    import chip_smoke as cs
+def _write_foa_tree(root: str, n: int, size: int = 320) -> str:
+    """A seeded ibug-style directory: ``n`` photos (every other one a
+    baseline JPEG, the rest PNG) of a shaded face with dark strokes at its
+    68 landmarks, each with its 1-based ``.pts`` file."""
+    from animateportrait_tpu_torch.train.convergence import render_face
+    from animateportrait_tpu_torch.utils.assets import std_face_landmarks
+    from animateportrait_tpu_torch.utils.image import write_png
+    from animateportrait_tpu_torch.utils.jpeg import encode_jpeg
+
+    rng = np.random.default_rng(14)
+    base = std_face_landmarks().reshape(68, 3)[:, :2]
+    base = base - base.min(0)
+    base = base / base.max() * (0.5 * size) + 0.25 * size
+    os.makedirs(root, exist_ok=True)
+    for i in range(n):
+        lm = base[:, ::-1] + rng.uniform(-4, 4, (68, 2))
+        img = render_face(lm, size)
+        img = np.clip(img * rng.uniform(0.6, 1.0, 3) * 255 + rng.normal(
+            0, 6, img.shape), 0, 255).astype(np.uint8)
+        stem = os.path.join(root, f"face{i:02d}")
+        if i % 2:
+            with open(stem + ".jpg", "wb") as f:
+                f.write(encode_jpeg(img[:, :, ::-1]))
+        else:
+            write_png(stem + ".png", img)
+        with open(stem + ".pts", "w") as f:
+            f.write("version: 1\nn_points: 68\n{\n")
+            f.writelines(f"{x + 1:.3f} {y + 1:.3f}\n" for y, x in lm)
+            f.write("}\n")
+    return root
+
+
+def test_train_foa_driver_on_the_card(cuda_device, tmp_path):
+    """``train_foa`` on the card for 4 steps at 64^2, batch 2, with
+    augmentation on (geometric p 0.5: the TPS warps on the card) over a
+    seeded ibug-style tree of PNG and JPEG photos: every item loads, the
+    steps and their log lines run, no kernel of the port launches; then
+    ``predict_artistic_landmarks`` with ``train_pdm`` PDMs gives 68 finite
+    points for each photo."""
+    from animateportrait_tpu_torch.data import face_of_art as fdata
+    from animateportrait_tpu_torch.models.face_of_art import (
+        PART_INDS, predict_artistic_landmarks, train_pdm)
+    from animateportrait_tpu_torch.train import face_of_art as ftrain
+
+    items = fdata.load_foa_image_list(
+        _write_foa_tree(str(tmp_path / "ibug"), 4), image_size=64)
+    assert len(items) == 4
+    logs = []
+    before = _launch_counts() + (stft.stft_magnitude.launches,)
+    tr = ftrain.train_foa(items, train_iter=4, batch_size=2, image_size=64,
+                          p_geom=0.5, augment=True, print_every=2, seed=0,
+                          log_fn=logs.append, device=cuda_device)
+    assert _launch_counts() + (stft.stft_magnitude.launches,) == before
+    assert tr.steps == 4 and len(logs) == 2
+    faces = items[0].lms[None] + np.random.default_rng(15).normal(
+        0, 2.0, (40, 68, 2))
+    pdms = {part: train_pdm(faces[:, inds], 3)
+            for part, inds in PART_INDS.items()}
+    model = tr.model.eval()
+    for it in items:
+        lms = predict_artistic_landmarks(it.image, model, pdms)
+        assert lms.shape == (68, 2) and np.isfinite(lms).all()
+
+
+def _gan_net(kind: str, name: str, ngf: int, seed: int = 0):
+    """``define_g(name)`` (output_nc 1, the Regressor at arch 2, the one
+    with InstanceNorms) or ``define_d(name)`` with seeded N(0, 0.02)
+    weights (the reference's init)."""
+    from animateportrait_tpu_torch.models.gan import init_weights
+
+    if kind == "d":
+        net = gan_extra.define_d(name, 3, ndf=ngf)
+    else:
+        kw = {"arch": 2} if name == "regressor" else {}
+        net = gan_extra.define_g(name, 3, 1, ngf=ngf, **kw)
+    return init_weights(net, generator=torch.Generator().manual_seed(seed))
+
+
+def _gan_inputs(name: str, size: int, batch: int, dev, dtype=torch.float32,
+                seed: int = 0) -> list:
+    """Seeded inputs of ``define_g(name)``'s forward: the photo, landmark
+    images, motion grids (N, H, W, 2), flow (N, 2, H, W) and mask as the
+    net's mode takes them."""
+    g = torch.Generator().manual_seed(seed)
+
+    def u(*shape, lo=-1.0, hi=1.0):
+        return (lo + (hi - lo) * torch.rand(*shape, generator=g)).to(
+            dev, dtype)
+
+    def land(c=1):
+        return torch.where(u(batch, c, size, size) > 0.8, 1.0, -1.0).to(dtype)
+
+    x = u(batch, 3, size, size)
+    motion, motion2 = u(batch, size, size, 2), u(batch, size, size, 2)
+    flow, mask = u(batch, 2, size, size, lo=-3, hi=3), u(batch, 1, size,
+                                                         size, lo=0)
+    if name in gan_extra.CONDITIONAL:
+        mode = gan_extra.CONDITIONAL[name][1]
+        return {"none": [x, land(), land()],
+                "fw": [x, land(), land(), motion],
+                "fw2": [x, land(), land(), motion],
+                "ifw": [x, land(), land(), motion, flow, mask]}[mode]
+    if name in gan_extra.TRIDENT_VARIANTS:
+        v = gan_extra.TRIDENT_VARIANTS[name]
+        lc = v.get("land_nc", 1)
+        return {"both": [x, land(lc), land(lc), motion, flow, mask],
+                "dual_motion": [x, land(), land(), motion, None, None,
+                                motion2],
+                "motion": [x, land(), land(), motion],
+                "flow": [x, land(), land(), None, flow, mask]}[v["warp"]]
+    if name == "resnet_9blocks_rcatland32_full_ifw":
+        return [x, land(), land(), motion, flow, mask]
+    if name == "resnet_9blocks_rcatland4":
+        return [x, land(), land()]
+    if name == "resnet_9blocks_rcatland2":
+        return [x, x.roll(7, 2)]
+    if name == "resnet_style2_9blocks":
+        return [x, u(batch, 3, size // 4, size // 4)]
+    if name == "regressor":
+        return [u(batch, 3, 11, 11)]
+    return [x]
+
+
+def _mean_square(out) -> torch.Tensor:
+    outs = out if isinstance(out, tuple) else (out,)
+    return sum(torch.mean(torch.square(o)) for o in outs)
+
+
+@pytest.mark.parametrize("kind,name", [
+    ("g", n) for n in sorted(gan_extra.NETG)] + [
+    ("d", n) for n in sorted(gan_extra.NETD)], ids=lambda v: v)
+def test_gan_extra_card_vs_host(cuda_device, kind, name):
+    """Every ``define_g`` / ``define_d`` net at a small width (ngf 8 at
+    64^2, batch 2; unet_128 at 128^2, unet_256 at ngf 4 and 256^2, the
+    class discriminator at 512^2 and batch 1, the Regressor on 11^2
+    patches) on the card and on the host, cuDNN's deterministic
+    algorithms: the outputs within 1e-4 of their scale, the loss (mean
+    square) within rtol 1e-4 and every gradient leaf by ``grad_parity``
+    with a float64 host run. On the card K2 and K2b both launch where the
+    net has InstanceNorms, and hold to their plain versions on its
+    InstanceNorm inputs (``_hold_k2_on``); unet_256's reach 2x2 planes."""
     from animateportrait_tpu_torch.utils.smoke import (
         cancelled_biases, grad_parity)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kind = "d" if name == "cls" else "g"
-    size = {"unet_256": 256, "cls": 512}.get(name, 64)
+    size = {"unet_128": 128, "unet_256": 256, "cls": 512,
+            "regressor": 11}.get(name, 64)
     runs = []
-    for dev, dt in ((cuda_device, torch.float32), ("cpu", torch.float32),
-                    ("cpu", torch.float64)):
-        before = (instnorm.instance_norm.launches,
-                  instnorm.instance_norm_backward.launches)
-        net = cs.gan_net(kind, name, 4 if name == "unet_256" else 8).to(
-            dev, dt).train()
-        out = net(*cs.gan_inputs(name, size, 1 if name == "cls" else 2, dev,
-                                 dt))
-        loss = cs._mean_square(out)
-        loss.backward()
-        after = (instnorm.instance_norm.launches,
-                 instnorm.instance_norm_backward.launches)
-        if dev == cuda_device:
-            assert after[0] > before[0] and after[1] > before[1]
-        outs = out if isinstance(out, tuple) else (out,)
-        runs.append(([o.detach().double().cpu() for o in outs],
-                     float(loss.detach()),
-                     {k: p.grad for k, p in net.named_parameters()}))
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dev, dt in ((cuda_device, torch.float32), ("cpu", torch.float32),
+                        ("cpu", torch.float64)):
+            before = (instnorm.instance_norm.launches,
+                      instnorm.instance_norm_backward.launches)
+            net = _gan_net(kind, name, 4 if name == "unet_256" else 8).to(
+                dev, dt).train()
+            kept, hooks = _kept_instance_norm_inputs([net])
+            out = net(*_gan_inputs(name, size, 1 if name == "cls" else 2,
+                                   dev, dt))
+            for h in hooks:
+                h.remove()
+            loss = _mean_square(out)
+            loss.backward()
+            after = (instnorm.instance_norm.launches,
+                     instnorm.instance_norm_backward.launches)
+            if dev == cuda_device and kept:
+                assert after[0] > before[0] and after[1] > before[1]
+                _hold_k2_on(kept, grads=True)
+                if name == "unet_256":
+                    assert (2, 2) in {s[2:] for s, _ in kept}
+            outs = out if isinstance(out, tuple) else (out,)
+            runs.append(([o.detach().double().cpu() for o in outs],
+                         float(loss.detach()),
+                         {k: p.grad for k, p in net.named_parameters()}))
+    finally:
+        torch.backends.cudnn.deterministic = False
     (oc, lc, gc), (oh, lh, gh), (_, _, g64) = runs
     for a, b in zip(oc, oh):
         assert maxdiff(a, b) <= 1e-4 * float(b.abs().max())
@@ -1206,22 +1925,25 @@ def test_gan_extra_card_vs_host(cuda_device, name):
     assert max(errs.values()) <= 1e-3, max(errs, key=errs.get)
 
 
+@pytest.mark.parametrize("spatial", [False, True])
 @pytest.mark.parametrize("pnet", ["vgg", "alex", "squeeze"])
-def test_lpips_card_vs_host(cuda_device, pnet):
-    """LPIPS with seeded weights on the card and on the host: within 1e-4
-    of the distance's scale, no kernel of the port launched."""
+def test_lpips_card_vs_host(cuda_device, pnet, spatial):
+    """LPIPS with seeded weights, the distance and its spatial map, on the
+    card and on the host: within 1e-4 of the distance's scale, finite, no
+    kernel of the port launched."""
     from animateportrait_tpu_torch.models.lpips import PNetLin
 
     torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(0)
-    net = PNetLin(pnet).eval()
+    net = PNetLin(pnet, spatial=spatial).eval()
     a, b = (torch.rand(2, 3, 64, 64) * 2 - 1 for _ in range(2))
-    before = instnorm.instance_norm.launches
+    before = _launch_counts()
     with torch.no_grad():
         want = net(a, b)
         got = net.to(cuda_device)(a.to(cuda_device), b.to(cuda_device)).cpu()
     assert maxdiff(got, want) <= 1e-4 * float(want.abs().max())
-    assert instnorm.instance_norm.launches == before
+    assert torch.isfinite(got).all()
+    assert _launch_counts() == before
 
 
 def test_postalign_card_vs_host(cuda_device):
@@ -1255,6 +1977,269 @@ def test_postalign_card_vs_host(cuda_device):
     assert stab < 0.5 * drift
 
 
+# the front end's mel through K1, card against its plain version on the
+# card and against the host (fp32 sums of 1024-term FFTs in other orders)
+MEL_ATOL = 2e-3
+
+
+def test_mel_card_matches_plain_and_host(cuda_device):
+    """``mel_spectrogram`` of a conditioned 6 s WAV through K1 (one launch)
+    within ``MEL_ATOL`` of its plain version on the card and of the host;
+    ``AudioPipeline``'s raw mel, card against host, too."""
+    from animateportrait_tpu_torch.models.autovc import AutoVCGenerator
+    from animateportrait_tpu_torch.ops.spectral import (
+        mel_scale, mel_spectrogram)
+    from animateportrait_tpu_torch.pipeline.audio import (
+        AudioPipeline, condition_signal, normalize_dbfs)
+
+    wav = make_wav(6.0, seed=2)
+    x = torch.as_tensor(condition_signal(normalize_dbfs(wav)),
+                        dtype=torch.float32)
+    k1 = stft.stft_magnitude.launches
+    with torch.inference_mode():
+        got = mel_spectrogram(x.to(cuda_device))
+        assert stft.stft_magnitude.launches == k1 + 1
+        plain = mel_scale(stft_plain(x.to(cuda_device)))
+        host = mel_spectrogram(x)
+    assert maxdiff(got.cpu(), plain.cpu()) <= MEL_ATOL
+    assert maxdiff(got.cpu(), host) <= MEL_ATOL
+    autovc = init_random_(AutoVCGenerator(), torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        card, cpu = (AudioPipeline(copy.deepcopy(autovc), chunk=512,
+                                   device=d)(wav)
+                     for d in (cuda_device, torch.device("cpu")))
+    assert maxdiff(card.mel_raw, cpu.mel_raw) <= MEL_ATOL
+
+
+def _full_fan_nets():
+    """FAN3D (4 modules) and ResNetDepth ((3, 8, 36, 3)) at their full
+    widths with torch's default init from seed 0, as
+    ``utils/smoke.py:write_fan_checkpoints`` writes them: the bars below
+    were set on these."""
+    from animateportrait_tpu_torch.models import fan3d
+
+    torch.manual_seed(0)
+    return fan3d.FAN3D(), fan3d.ResNetDepth()
+
+
+def _near_tie(host: np.ndarray, card: np.ndarray, err: float) -> bool:
+    """Whether the card's decode of one (64, 64) heatmap may differ from
+    the host's only because the two differ by ``err``: its peak is within
+    2 err of the host's peak value, and where the peaks agree, a
+    neighbour pair whose order sets the quarter-pixel shift is within
+    2 err."""
+    h, w = host.shape
+    hy, hx = np.unravel_index(np.argmax(host), host.shape)
+    cy, cx = np.unravel_index(np.argmax(card), card.shape)
+    if (hy, hx) != (cy, cx):
+        return bool(host[cy, cx] >= host[hy, hx] - 2 * err)
+    pairs = [(host[hy, min(hx + 1, w - 1)], host[hy, max(hx - 1, 0)]),
+             (host[min(hy + 1, h - 1), hx], host[max(hy - 1, 0), hx])]
+    return any(abs(a - b) <= 2 * err for a, b in pairs)
+
+
+def test_fan3d_card_vs_host(cuda_device):
+    """FAN3D and the depth net on one crop of the committed JPEG, card
+    against host: the heatmaps within 1e-3, z and the landmarks finite,
+    and a landmark whose x or y differs only at a near-tie of the host's
+    heatmap (``_near_tie``)."""
+    from animateportrait_tpu_torch.models import fan3d
+    from animateportrait_tpu_torch.utils.assets import ASSET_DIR
+    from animateportrait_tpu_torch.utils.image import read_image
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rgb = np.ascontiguousarray(read_image(os.path.join(
+        ASSET_DIR, "portrait_420_rst_exif6.jpg"))[:, :, ::-1])
+    h, w = rgb.shape[:2]
+    box = (w * 0.25, h * 0.2, w * 0.75, h * 0.8)
+    crop = fan3d.fa_crop(rgb, *fan3d.bbox_to_center_scale(box))
+    fan, depth = _full_fan_nets()
+    out = []
+    for where in (cuda_device, torch.device("cpu")):
+        fa = fan3d.FaceAlignment3D(copy.deepcopy(fan), copy.deepcopy(depth),
+                                   device=where)
+        hm, _, z = fa.heatmaps_and_depth(crop)
+        out.append((hm.cpu().numpy(), z.cpu().numpy(),
+                    fa.landmarks_from_box(rgb, box)))
+    (hc, zc, lc), (hh, _, lh) = out
+    err = float(np.abs(hc - hh).max())
+    assert err <= 1e-3
+    assert np.isfinite(zc).all() and np.isfinite(lc).all()
+    differ = np.flatnonzero((lc[:, :2] != lh[:, :2]).any(1))
+    assert all(_near_tie(hh[0, c], hc[0, c], err) for c in differ), differ
+
+
+def test_av2flau_card_vs_host(cuda_device, tmp_path):
+    """``Av2FlauConverter`` over the committed Motion-JPEG fixture with
+    FAN3D + depth and ``AudioPipeline`` (K1 once), card against host: the
+    same frame indices, finite rows, at most 5% of the (x, y) landmarks
+    moved, and the registered rows within 1e-3 on the frames whose (x, y)
+    landmarks agree."""
+    from animateportrait_tpu_torch.data.av2flau import Av2FlauConverter
+    from animateportrait_tpu_torch.models import fan3d
+    from animateportrait_tpu_torch.models.autovc import AutoVCGenerator
+    from animateportrait_tpu_torch.pipeline.audio import AudioPipeline
+    from animateportrait_tpu_torch.utils.assets import ASSET_DIR
+    from animateportrait_tpu_torch.utils.video import write_wav
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    path = os.path.join(ASSET_DIR, "face_clip_mjpg.avi")
+    fan, depth = _full_fan_nets()
+    autovc = init_random_(AutoVCGenerator(), torch.Generator().manual_seed(0))
+    wav = write_wav(str(tmp_path / "speech.wav"), make_wav(2.0, seed=3))
+
+    def detector(rgb):
+        h, w = rgb.shape[:2]
+        return np.array([[w * 0.25, h * 0.2, w * 0.75, h * 0.8, 1.0]]), None
+
+    runs = []
+    for where in (cuda_device, torch.device("cpu")):
+        hook = fan3d.make_fan_landmark_fn(fan3d.FaceAlignment3D(
+            copy.deepcopy(fan), copy.deepcopy(depth), where), detector)
+        raw = []
+
+        def landmarks(frame, hook=hook, raw=raw):
+            raw.append(hook(frame))
+            return raw[-1]
+
+        k1 = stft.stft_magnitude.launches
+        fl3d, _, _ = Av2FlauConverter(landmarks, AudioPipeline(
+            copy.deepcopy(autovc), device=where)).convert(
+                path, wav, out_dir=str(tmp_path / where.type), register=True)
+        runs.append((fl3d, np.stack(raw), stft.stft_magnitude.launches - k1))
+    (c, c_raw, k1), (h, h_raw, _) = runs
+    assert k1 == 1
+    np.testing.assert_array_equal(c[:, 0], h[:, 0])
+    assert np.isfinite(c).all()
+    moved = np.abs(c_raw[..., :2] - h_raw[..., :2]).max(-1)     # (T, 68)
+    assert (moved > 0).mean() <= 0.05
+    same = ~(moved > 0).any(-1)
+    if same.any():
+        assert maxdiff(c[same], h[same]) <= 1e-3
+
+
+@pytest.mark.parametrize("style", ["drawing", "cartoon"])
+def test_fakeb_static_card_vs_host(cuda_device, tmp_path, style):
+    """The fakeB_static builder on the card over 2 photos with its
+    full-width static net (seeded): a file for each photo, K2 launched and
+    held to its plain version on the net's InstanceNorm inputs, each
+    stylization at PSNR >= 40 dB of the host's."""
+    import shutil
+
+    from animateportrait_tpu_torch.data import fakeb_static as fb
+    from animateportrait_tpu_torch.utils.image import read_image
+    from animateportrait_tpu_torch.utils.smoke import write_umlvd_tree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tree = write_umlvd_tree(str(tmp_path / "tree"), n_photos=2, n_styles=1,
+                            frames=1, size=128)
+    root = str(tmp_path / "root")
+    shutil.copytree(os.path.join(tree, "Photo"), os.path.join(root, "Photo"))
+    photos = fb.photos_of(root)
+    net = fb.build_static_net(style, None, cuda_device)
+    kept, hooks = _kept_instance_norm_inputs([net])
+    k2 = instnorm.instance_norm.launches
+    written = fb.make_fakeb_static(root, style=style, device=cuda_device,
+                                   net=net)
+    for h in hooks:
+        h.remove()
+    assert instnorm.instance_norm.launches > k2
+    _hold_k2_on(kept)
+    assert len(written) == len(photos) == 2
+    host = fb.build_static_net(style, None, "cpu")
+    for p, src in zip(written, photos):
+        assert psnr(read_image(p)[:, :, ::-1], fb.stylize(
+            host, style, read_image(src)), 255.0) >= 40.0
+
+
+def test_gan_convergence_run_on_the_card(cuda_device, tmp_path):
+    """The GAN convergence tool on the card at crop 64, ngf 8, with its
+    stand-in frozen nets (2 + 2 steps): 4 steps, then resumed to 6, in
+    this process; the loss log runs 1..6 and is finite, and K2 and K2b
+    launch."""
+    from animateportrait_tpu_torch.train import gan_convergence as gc
+    from animateportrait_tpu_torch.train import standin_frozen as sf
+
+    frozen = str(tmp_path / "frozen")
+    sf.main([frozen, "--steps", "2", "--sphere_steps", "2", "--n_faces", "8",
+             "--ids", "2", "--per_id", "4", "--device", str(cuda_device)])
+    root, ckpt = str(tmp_path / "drawing"), str(tmp_path / "ckpt")
+    gc.build_dataset(root)
+    before = _launch_counts()
+    gc.run_training(root, ckpt, 64, 4, 6, 4, 8, print_freq=1,
+                    frozen_dir=frozen, device=str(cuda_device),
+                    in_process=True)
+    launches = [a - b for a, b in zip(_launch_counts(), before)]
+    assert min(launches[:2]) > 0, launches
+    rows = gc.read_metrics(ckpt)
+    assert [r["iters"] for r in rows] == list(range(1, 7))
+    for r in rows:
+        assert np.isfinite([v for v in r.values()]).all()
+
+
+def test_entry_card_vs_host(cuda_device):
+    """``entry()`` at ngf 8 (the trident generator at 256^2) on the card
+    against the same forward on the host at PSNR >= 40 dB, K2 launched and
+    held to its plain version on the forward's InstanceNorm inputs."""
+    from animateportrait_tpu_torch.entry import entry
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fn, args = entry(cuda_device, ngf=8)
+    kept, hooks = _kept_instance_norm_inputs([fn])
+    k2 = instnorm.instance_norm.launches
+    with torch.inference_mode():
+        got = fn(*args).cpu()
+        for h in hooks:
+            h.remove()
+        assert instnorm.instance_norm.launches > k2
+        hfn, hargs = entry("cpu", ngf=8)
+        want = hfn(*hargs)
+    assert psnr(got, want) >= 40.0
+    _hold_k2_on(kept)
+
+
+@pytest.mark.parametrize("name", ["mlp", "transformer_dt", "gru"])
+def test_a2l_discriminators_card_vs_host(cuda_device, name):
+    """Module1's discriminators at the reference's widths on 100 frames,
+    forward and backward, on the card and on the host from the same
+    weights and inputs: the outputs within 1e-4 of their scale, every
+    parameter's and input's gradient by ``grad_parity`` with a float64
+    host run."""
+    from animateportrait_tpu_torch.models import audio2landmark as a2l
+    from animateportrait_tpu_torch.utils.smoke import (
+        cancelled_biases, grad_parity)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cls, widths = {"mlp": (a2l.DiscriminatorMLP, (204,)),
+                   "transformer_dt": (a2l.TransformerDT, (204, 128)),
+                   "gru": (a2l.DiscriminatorGRU, (256, 204))}[name]
+    rng = np.random.default_rng(len(name))
+    xs = [rng.standard_normal((100, w)) for w in widths]
+    runs = []
+    for where, dt in ((cuda_device, torch.float32), ("cpu", torch.float32),
+                      ("cpu", torch.float64)):
+        net = init_random_(cls(), torch.Generator().manual_seed(0)).to(
+            device=where, dtype=dt)
+        inp = [torch.tensor(x, dtype=dt, device=where, requires_grad=True)
+               for x in xs]
+        y = net(*inp)
+        names = [k for k, _ in net.named_parameters()]
+        grads = torch.autograd.grad(
+            y.square().sum(), [p for _, p in net.named_parameters()] + inp)
+        runs.append((y.detach().double().cpu(), {
+            k: g.detach().cpu() for k, g in zip(
+                names + [f"input{i}" for i in range(len(inp))], grads)}))
+    (yc, gc), (yh, gh), (_, g64) = runs
+    assert maxdiff(yc, yh) <= 1e-4 * float(yh.abs().max())
+    errs = grad_parity(gc, gh, g64, cancelled_biases(cls()))
+    assert max(errs.values()) <= 1e-3, max(errs, key=errs.get)
+
+
 # --- the multi-card paths on one card (several ranks over gloo) -----------
 
 
@@ -1267,18 +2252,78 @@ def test_postalign_card_vs_host(cuda_device):
 DP_LEAF_BAR = 5e-2
 
 
+def _loss_gaps(run: list, ref: list) -> list:
+    """Each step's largest |loss - ref's| over max(|ref's|, 1e-5)."""
+    return [max(abs(got[k] - v) / max(abs(v), 1e-5) for k, v in want.items())
+            for got, want in zip(run, ref)]
+
+
+def _spread_bars(runs: list, ref: dict, noise: dict) -> dict:
+    """Bars for a comparison with the ``dp_step_run`` record ``ref`` of one
+    process, from that process's own spread (``runs``: the same steps
+    called again, and under cuDNN's deterministic algorithms): the larger
+    of each quantity's bar and 3x the widest spread. At random weights a
+    rounding-level change of the forward moves fp32 gradients past ReLU
+    kinks by percent, and Adam turns the noise elements' gradients into
+    steps of lr: a smaller batch a rank is such a change."""
+    from animateportrait_tpu_torch.utils.smoke import grad_parity
+
+    def widest(gaps):
+        return [max(v) for v in zip(*(gaps(o) for o in runs))]
+
+    bars = {"loss": [max(1e-4, 3 * w) for w in widest(
+                lambda o: _loss_gaps(o["metrics"], ref["metrics"]))],
+            "pool": [max(bar, 3 * w) for w, bar in zip(widest(
+                lambda o: [maxdiff(a, b) for a, b in zip(
+                    o["pools"], ref["pools"])]), (1e-4, 1e-3))]}
+    for net in ("g", "d"):
+        bars[net] = max(1e-3, 3 * max(max(grad_parity(
+            o["grads"][0][net], ref["grads"][0][net], None,
+            noise[net]).values()) for o in runs))
+    return bars
+
+
+def _hold_against(rec: dict, ref: dict, bars: dict, noise: dict,
+                  lr: float) -> None:
+    """A ``dp_step_run`` record of 2 steps against ``ref``'s: the losses and
+    the pool after each step and the first step's gradients within
+    ``bars``; the pool counts equal; Adam's first update on its decisive
+    elements and both steps' updates within 1.5 lr a step
+    (``adam_update_parity``)."""
+    from animateportrait_tpu_torch.utils.smoke import (
+        adam_update_parity, grad_parity)
+
+    assert rec["pool_counts"] == ref["pool_counts"]
+    for gap, bar in zip(_loss_gaps(rec["metrics"], ref["metrics"]),
+                        bars["loss"]):
+        assert gap <= bar, (gap, bar)
+    for a, b, bar in zip(rec["pools"], ref["pools"], bars["pool"]):
+        assert maxdiff(a, b) <= bar
+    for net in ("g", "d"):
+        errs = grad_parity(rec["grads"][0][net], ref["grads"][0][net], None,
+                           noise[net])
+        assert max(errs.values()) <= bars[net], (net, max(errs.values()))
+        bound, decided = adam_update_parity(
+            rec["params"][1][net], ref["params"][1][net],
+            ref["params"][0][net], ref["grads"][0][net], lr)
+        assert decided <= 1.0, (net, decided)
+        bound = max(bound, adam_update_parity(
+            rec["params"][2][net], ref["params"][2][net],
+            ref["params"][0][net], ref["grads"][0][net], lr, 2)[0])
+        assert bound <= 1.0, (net, bound)
+
+
 def test_dp_step_two_ranks_on_the_card_match_one_process(cuda_device,
                                                          tmp_path):
     """The data-parallel step of 2 ranks on this card (gloo) against the
     single-process step on the global batch of 4, at crop 64, ngf = ndf = 8,
-    for 2 steps (``chip_smoke.py`` phase 16 (a) at a small width): the
-    losses within rtol 1e-4, the first step's gradients by ``grad_parity``
-    within ``DP_LEAF_BAR`` of each leaf's scale, and rank 0's own
-    half-batch gradients (the all-reduce left out) beyond it; the ranks'
-    parameters bit-equal after both steps, the first Adam update on its
-    decisive elements, the pool after the first step (it only fills), K2
-    and K2b launched on each rank and K2 against its plain version on its
-    InstanceNorm inputs."""
+    for 2 steps: the losses within rtol 1e-4, the first step's gradients by
+    ``grad_parity`` within ``DP_LEAF_BAR`` of each leaf's scale, and rank
+    0's own half-batch gradients (the all-reduce left out) beyond it; the
+    ranks' parameters bit-equal after both steps, the first Adam update on
+    its decisive elements and both steps' updates within 1.5 lr a step,
+    the pool after the first step, K2 and K2b launched on each rank and K2
+    against its plain version on its InstanceNorm inputs."""
     from animateportrait_tpu_torch.train import module2 as m2
     from animateportrait_tpu_torch.utils import distributed as ddp
     from animateportrait_tpu_torch.utils.smoke import (
@@ -1320,44 +2365,165 @@ def test_dp_step_two_ranks_on_the_card_match_one_process(cuda_device,
             ranks[0]["params"][1][net], single["params"][1][net],
             single["params"][0][net], single["grads"][0][net], cfg.lr)
         assert bound <= 1.0 and decided <= 1.0, (net, bound, decided)
+        bound = adam_update_parity(
+            ranks[0]["params"][2][net], single["params"][2][net],
+            single["params"][0][net], single["grads"][0][net], cfg.lr, 2)[0]
+        assert bound <= 1.0, (net, bound)
 
 
-def test_render_dp_two_replicas_on_the_card(cuda_device):
-    """Two renderer replicas on this card (``devices=[card, card]``) against
-    one, 10 frames: uint8 frames at PSNR >= 40 dB (cuDNN may take other
-    algorithms at 4 frames a replica than at 8), K2 launched (``chip_smoke.py``
-    phase 16 (c) at a small width)."""
-    import copy
-
-    from animateportrait_tpu_torch.pipeline.render import Module2Renderer
+def test_dp_step_two_ranks_at_full_width_within_the_spread(cuda_device,
+                                                           tmp_path):
+    """The data-parallel step of 2 ranks on this card (gloo) at the bench
+    configuration (crop 256, ngf = ndf = 64, batch 4, stacked D passes)
+    against one process on the global batch, 2 steps, by
+    ``_hold_against`` at bars from that process's own spread
+    (``_spread_bars``: at full width a rounding-level change of the
+    forward moves fp32 gradients past kinks by percent, and the spread
+    shows it; at crop 64 the ranks' batch of 2 rounds otherwise than one
+    batch of 4 by more than the one process's own spread, and
+    ``DP_LEAF_BAR`` holds that case); rank 0's half batch alone beyond
+    the gradient bars; the ranks' parameters bit-equal; K2 and K2b
+    launched on each rank and K2 against its plain version."""
+    from animateportrait_tpu_torch.train import module2 as m2
+    from animateportrait_tpu_torch.utils import distributed as ddp
+    from animateportrait_tpu_torch.utils.smoke import (
+        dp_step_rank, dp_step_run, grad_parity)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    nets = _small_renderer_nets()
-    rng = np.random.default_rng(0)
-    photo = rng.uniform(-1, 1, (256, 256, 3)).astype(np.float32)
-    a68 = rng.uniform(70, 190, (68, 2)).astype(np.float32)
-    tb68 = a68 + rng.uniform(-2, 2, (10, 68, 2)).astype(np.float32)
+    cfg = m2.Module2Config(batch_d_passes=True)
+    batch = {k: v.numpy() for k, v in m2.make_random_batch(
+        cfg, 4, torch.Generator().manual_seed(2), "cpu").items()}
+    ddp.spawn(dp_step_rank, [cuda_device] * 2, cfg, batch, 2, str(tmp_path),
+              timeout=600)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    single = dp_step_run(cfg, batch, 2, cuda_device)
+    again = [dp_step_run(cfg, batch, 2, cuda_device)]
+    torch.backends.cudnn.deterministic = True
+    try:
+        again.append(dp_step_run(cfg, batch, 2, cuda_device))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    half = dp_step_run(cfg, {k: v[:2] for k, v in batch.items()}, 1,
+                       cuda_device)
+    state = m2.init_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    noise = {net: in_cancelled_biases(getattr(state, net))
+             for net in ("g", "d")}
+    bars = _spread_bars(again, single, noise)
+    _hold_against(ranks[0], single, bars, noise, cfg.lr)
+    for rec in ranks:
+        assert rec["backend"] == "gloo"
+        assert min(rec["launches"].values()) > 0, rec["launches"]
+        assert rec["k2_err"] <= K2_ATOL
+    for net in ("g", "d"):
+        fault = grad_parity(half["grads"][0][net], single["grads"][0][net],
+                            None, noise[net])
+        assert max(fault.values()) > bars[net], (net, bars[net])
+        for k, v in ranks[0]["params"][-1][net].items():
+            assert torch.equal(v, ranks[1]["params"][-1][net][k]), k
+
+
+def test_render_dp_two_replicas_on_the_card(cuda_device):
+    """Two renderer replicas on this card (``devices=[card, card]``), the
+    second a copy of the nets, against one, 10 frames: uint8 frames at
+    PSNR >= 40 dB (cuDNN may take other algorithms at 4 frames a replica
+    than at 8), K2 launched and held to its plain version on the second
+    replica's InstanceNorm inputs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    photo, a68, tb68 = _render_inputs(10)
     frames = []
     for devices in (None, [cuda_device, cuda_device]):
-        r = Module2Renderer(*copy.deepcopy(nets), frame_batch=8,
-                            device=cuda_device, output_uint8=True,
+        r = _small_renderer(cuda_device, frame_batch=8, output_uint8=True,
                             data_parallel=devices is not None,
                             devices=devices)
         assert len(r.replicas) == (1 if devices is None else 2)
+        kept, hooks = _kept_instance_norm_inputs(r.replicas[-1][:2])
         launches = instnorm.instance_norm.launches
         with torch.inference_mode():
             frames.append(r(photo, a68, tb68))
+        for h in hooks:
+            h.remove()
         assert instnorm.instance_norm.launches > launches
+    assert r.replicas[1][0] is not r.g
+    _hold_k2_on(kept)
     assert frames[0].shape == frames[1].shape == (10, 256, 256, 1)
     assert psnr(frames[1], frames[0], peak=255.0) >= 40.0
     # without devices: one replica on each visible card, "cuda" the
     # current one
-    r = Module2Renderer(*copy.deepcopy(nets), frame_batch=7, device="cuda",
-                        data_parallel=True)
+    r = _small_renderer("cuda", frame_batch=7, data_parallel=True)
     assert [d for _, _, d in r.replicas] == [
         torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     assert r.replicas[0][0] is r.g
+
+
+# GPipe of ResNet blocks against the blocks in sequence on the same
+# microbatches, over gloo (tests/test_torch_parallel.py's tolerance)
+GPIPE_TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("spread", ["one_card", "one_rank_a_card"])
+def test_gpipe_on_the_card(cuda_device, tmp_path, spread):
+    """``parallel.gpipe_apply`` of 9 ResNet blocks (16 channels at 32^2,
+    batch 6) as 3 stages of 3, at M = 3 and 6 microbatches, against the
+    blocks in sequence on the same microbatches: three gloo ranks on this
+    card within ``GPIPE_TOL``, or one rank a card over NCCL (up to 3
+    stages) bit for bit; each stage launches K2 twice a block a
+    microbatch, holds it to its plain version, and refuses a batch that
+    does not divide into its microbatches."""
+    from animateportrait_tpu_torch.models.gan import ResnetBlock
+    from animateportrait_tpu_torch.parallel import seq_apply
+    from animateportrait_tpu_torch.utils import distributed as ddp
+    from animateportrait_tpu_torch.utils.smoke import (
+        gpipe_run, jobs_rank, resnet_blocks)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if spread == "one_card":
+        devices = [cuda_device] * 3
+    else:
+        devices = _cards(cuda_device)
+    stages = min(3, len(devices))
+    blocks = resnet_blocks(16, 3 * stages, seed=5)
+    x = np.random.default_rng(6).standard_normal(
+        (6, 16, 32, 32)).astype(np.float32)
+    ddp.spawn(jobs_rank, devices, {"gpipe": (gpipe_run, (
+        blocks, x, [3, 6], stages))}, str(tmp_path), timeout=600)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt")["gpipe"]
+             for r in range(stages)]
+    mods = []
+    for sd in blocks:
+        b = ResnetBlock(x.shape[1])
+        b.load_state_dict(sd)
+        mods.append(b.to(cuda_device).eval())
+    xt = torch.as_tensor(x, device=cuda_device)
+    for m in (3, 6):
+        with torch.inference_mode():
+            want = torch.cat([seq_apply(mods, c) for c in xt.chunk(m)]).cpu()
+        for rec in ranks:
+            if spread == "one_card":
+                torch.testing.assert_close(rec["y"][m], want, **GPIPE_TOL)
+            else:
+                assert torch.equal(rec["y"][m], want)
+    for rec in ranks:
+        assert rec["backend"] == ("gloo" if spread == "one_card" else "nccl")
+        assert rec["launches"] == {3: 6 * 3, 6: 6 * 6}
+        assert rec["k2_err"] <= K2_ATOL
+        assert "not divisible" in (rec["indivisible"] or "")
+
+
+def test_dryrun_multichip_on_the_card(cuda_device):
+    """``multichip.dryrun_multichip``: a rank a card where there are two or
+    more (up to 4), else 2 ranks over gloo that share this card; each
+    rank's step launches K2 and K2b and holds K2 to its plain version."""
+    from animateportrait_tpu_torch.multichip import dryrun_multichip
+
+    n = min(torch.cuda.device_count(), 4)
+    n = n if n >= 2 else 2
+    for rec in dryrun_multichip(n):
+        st = rec["step"]
+        assert min(st["launches"].values()) > 0, st["launches"]
+        assert st["k2_err"] <= K2_ATOL
 
 
 # --- the multi-card paths one rank a card (NCCL) ---------------------------
@@ -1385,7 +2551,12 @@ def test_fsdp_step_one_rank_a_card_matches_dp(cuda_device, tmp_path):
     H100s), and rank 0's own slice of the batch alone (the fault the
     gather and reduce-scatter prevent) beyond it; each rank's sharded
     bytes 1/n of the unsharded ones, K2 and K2b launched and K2 against
-    its plain version on every rank."""
+    its plain version on every rank, every rank's parameters bit-equal
+    after both steps. The data-parallel ranks are held against one process
+    running the ranks' step (each rank's slice alone,
+    ``utils/smoke.py:decomposed_grads``) and the FSDP ranks against them
+    by ``_hold_against`` at bars from that process's own spread
+    (``_spread_bars``), and the fault beyond the gradient bars."""
     from animateportrait_tpu_torch.train import module2 as m2
     from animateportrait_tpu_torch.utils import distributed as ddp
     from animateportrait_tpu_torch.utils.smoke import (
@@ -1404,19 +2575,38 @@ def test_fsdp_step_one_rank_a_card_matches_dp(cuda_device, tmp_path):
               str(tmp_path), timeout=600)
     ranks = [torch.load(tmp_path / f"rank{r}.pt")["steps"] for r in range(n)]
     state = m2.init_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    noise = {net: in_cancelled_biases(getattr(state, net))
+             for net in ("g", "d")}
     alone = dp_step_run(cfg, {k: v[:4 // n] for k, v in batch.items()}, 1,
                         cuda_device)
+    single = dp_step_run(cfg, batch, 2, cuda_device, decompose=n)
+    again = [dp_step_run(cfg, batch, 2, cuda_device, decompose=n)]
+    torch.backends.cudnn.deterministic = True
+    try:
+        again.append(dp_step_run(cfg, batch, 2, cuda_device, decompose=n))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    bars = _spread_bars(again, single, noise)
     for net in ("g", "d"):
         fault = grad_parity(alone["grads"][0][net],
-                            ranks[0]["dp"]["grads"][0][net], None,
-                            in_cancelled_biases(getattr(state, net)))
+                            ranks[0]["dp"]["grads"][0][net], None, noise[net])
         assert max(fault.values()) > DP_LEAF_BAR, (net, max(fault.values()))
+        fault = grad_parity(alone["grads"][0][net], single["grads"][0][net],
+                            None, noise[net])
+        assert max(fault.values()) > bars[net], (net, max(fault.values()))
+    _hold_against(ranks[0]["dp"], single, bars, noise, cfg.lr)
+    _hold_against(ranks[0]["fsdp"], ranks[0]["dp"], bars, noise, cfg.lr)
     for rec in ranks:
         assert rec["backend"] == "nccl"
         dp, fs = rec["dp"], rec["fsdp"]
         for run in (dp, fs):
             assert min(run["launches"].values()) > 0, run["launches"]
             assert run["k2_err"] <= K2_ATOL
+            for net in ("g", "d"):
+                mode = "dp" if run is dp else "fsdp"
+                for k, v in run["params"][-1][net].items():
+                    assert torch.equal(
+                        v, ranks[0][mode]["params"][-1][net][k]), (net, k)
         b = fs["fsdp_bytes"]
         assert b["sharded"] * n == b["unsharded"] > 0
         for s in range(2):
@@ -1425,9 +2615,131 @@ def test_fsdp_step_one_rank_a_card_matches_dp(cuda_device, tmp_path):
                                            rtol=1e-4, err_msg=k)
         for net in ("g", "d"):
             errs = grad_parity(fs["grads"][0][net], dp["grads"][0][net],
-                               None, in_cancelled_biases(getattr(state, net)))
+                               None, noise[net])
             assert max(errs.values()) <= DP_LEAF_BAR, (
                 net, max(errs.values()))
+
+
+def test_train_cli_data_parallel_and_multihost_one_rank_a_card(
+        cuda_device, tmp_path):
+    """``train_cli.main --data_parallel n`` and ``--multihost`` as n
+    processes (``LOCAL_RANK`` picks each one's card), one rank a card over
+    NCCL, 2 steps at the small configuration: each step's losses against
+    one process running the ranks' step on the same global batches
+    (``decomposed_grads``; ``--data_parallel``'s rank 0 loads them from
+    ``default_rng(0)``, each ``--multihost`` process its slice from
+    ``default_rng(process id)``) within the larger of rtol 1e-4 and 3x
+    that process's own spread, and the first rank's share alone (the
+    fault) beyond that bar."""
+    import json
+    import subprocess
+    import sys
+
+    from animateportrait_tpu_torch import train_cli
+    from animateportrait_tpu_torch.data.umlvd_ifw import (
+        UMLVDIFWDataset, loader)
+    from animateportrait_tpu_torch.io.reference import load_frozen
+    from animateportrait_tpu_torch.train import module2 as m2
+    from animateportrait_tpu_torch.utils.distributed import free_port
+    from animateportrait_tpu_torch.utils.options import to_configs
+    from animateportrait_tpu_torch.utils.smoke import (
+        decomposed_grads, write_umlvd_tree)
+
+    devices = _cards(cuda_device)
+    n = len(devices)
+    tree = write_umlvd_tree(str(tmp_path / "data"), size=96, seed=0,
+                            png_filter=4)
+    base = ["--dataroot", tree, *TRAIN_CLI_SMALL, "--batch_size", "4",
+            "--max_steps", "2", "--frozen_dir", str(tmp_path / "none"),
+            "--name", "run"]
+
+    def records(ck):
+        with open(os.path.join(ck, "run", "metrics.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    runs = {}
+    ck = str(tmp_path / "ck_dp")
+    assert train_cli.main([*base, "--data_parallel", str(n),
+                           "--checkpoints_dir", ck]) is None
+    runs["dp"] = records(ck)
+    ck = str(tmp_path / "ck_mh")
+    argv = [*base, "--checkpoints_dir", ck, "--multihost", "1",
+            "--num_processes", str(n), "--coordinator_address",
+            f"127.0.0.1:{free_port()}"]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "animateportrait_tpu_torch.train_cli", *argv,
+         "--process_id", str(i)], cwd=repo, env=dict(
+            os.environ, LOCAL_RANK=str(i), PYTHONPATH=os.pathsep.join(
+                [repo, os.environ.get("PYTHONPATH", "")])),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"process {i}:\n{out[-3000:]}"
+    assert f"{n} ranks over nccl" in outs[0]
+    runs["multihost"] = records(ck)
+
+    args = train_cli.build_argparser().parse_args(argv + ["--process_id",
+                                                          "0"])
+    cfg, data_cfg = to_configs(args)
+    ds = UMLVDIFWDataset(data_cfg)
+    per = -(-max(4, n) // n)        # train_cli's slice a rank
+    streams = {"dp": [loader(ds, per * n, np.random.default_rng(0), 0,
+                             False)],
+               "multihost": [loader(ds, per, np.random.default_rng(i), 0,
+                                    False) for i in range(n)]}
+    frozen = load_frozen(args.frozen_dir, cfg,
+                         torch.Generator().manual_seed(1), cuda_device)
+    step = m2.build_train_step(cfg)
+
+    def losses(batches, fn):
+        """The losses of ``fn(state, batch, gen)`` from the trainer's
+        initial state over ``batches``, the pool drawn as train_cli draws
+        it."""
+        state = m2.init_state(cfg, torch.Generator().manual_seed(0),
+                              cuda_device)
+        return [{k: float(v) for k, v in fn(
+            state, {k: v.to(cuda_device) for k, v in b.items()},
+            torch.Generator(device=cuda_device).manual_seed(i)).items()}
+            for i, b in enumerate(batches)]
+
+    def ranks(state, b, gen):
+        grads = decomposed_grads(step, state, b, frozen, gen, n)
+        step.apply_grads(state, grads)
+        return grads.metrics
+
+    def first_alone(state, b, gen):
+        return step.step(state, {k: v[:per] for k, v in b.items()}, frozen,
+                         gen)
+
+    for mode in ("dp", "multihost"):
+        its = [iter(s) for s in streams[mode]]
+        batches = []
+        for _ in range(2):
+            parts = [next(it) for it in its]
+            batches.append({k: torch.cat([p[k] for p in parts])
+                            for k in parts[0]})
+        ref = losses(batches, ranks)
+        again = [losses(batches, ranks)]
+        torch.backends.cudnn.deterministic = True
+        try:
+            again.append(losses(batches, ranks))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        spread = [max(v) for v in zip(*(_loss_gaps(o, ref) for o in again))]
+        fault = _loss_gaps(losses(batches, first_alone), ref)
+        for got, bar, off in zip(_loss_gaps(runs[mode], ref), spread, fault):
+            bar = max(1e-4, 3 * bar)
+            assert got <= bar < off, (mode, got, bar, off)
 
 
 def test_tp_generator_one_rank_a_card_matches_one_card(cuda_device,
@@ -1439,7 +2751,7 @@ def test_tp_generator_one_rank_a_card_matches_one_card(cuda_device,
     from animateportrait_tpu_torch.models.gan import TridentGeneratorFullIFW
     from animateportrait_tpu_torch.multichip import tp_run
     from animateportrait_tpu_torch.utils import distributed as ddp
-    from animateportrait_tpu_torch.utils.smoke import init_random_, jobs_rank
+    from animateportrait_tpu_torch.utils.smoke import jobs_rank
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1479,7 +2791,7 @@ def test_sp_pos_one_rank_a_card_matches_one_card(cuda_device, tmp_path):
     from animateportrait_tpu_torch.multichip import (
         SP_ATOL, first_rank_alone, gain_attention, pos_inputs, sp_run)
     from animateportrait_tpu_torch.utils import distributed as ddp
-    from animateportrait_tpu_torch.utils.smoke import init_random_, jobs_rank
+    from animateportrait_tpu_torch.utils.smoke import jobs_rank
 
     torch.backends.cuda.matmul.allow_tf32 = False
     devices = _cards(cuda_device)
@@ -1507,27 +2819,17 @@ def test_render_dp_one_replica_a_card_is_bit_equal(cuda_device):
     against one replica on one card (frame batch 8), 20 frames, under
     cuDNN's deterministic algorithms: the same frames bit for bit, K2
     launched on each card with that card current."""
-    import copy
-
-    from animateportrait_tpu_torch.pipeline.render import Module2Renderer
-
     devices = _cards(cuda_device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    nets = _small_renderer_nets()
-    rng = np.random.default_rng(0)
-    photo = rng.uniform(-1, 1, (256, 256, 3)).astype(np.float32)
-    a68 = rng.uniform(70, 190, (68, 2)).astype(np.float32)
-    tb68 = a68 + rng.uniform(-2, 2, (20, 68, 2)).astype(np.float32)
+    photo, a68, tb68 = _render_inputs(20)
     frames = []
     torch.backends.cudnn.deterministic = True
     try:
         for devs in (None, devices):
-            r = Module2Renderer(*copy.deepcopy(nets),
-                                frame_batch=8 * (1 if devs is None
-                                                 else len(devs)),
-                                device=cuda_device, output_uint8=True,
-                                data_parallel=devs is not None, devices=devs)
+            r = _small_renderer(cuda_device, frame_batch=8 * (
+                1 if devs is None else len(devs)), output_uint8=True,
+                data_parallel=devs is not None, devices=devs)
             with torch.inference_mode():
                 frames.append(r(photo, a68, tb68))
     finally:

@@ -261,7 +261,8 @@ def test_resize_linear_matches_opencv(src):
                 cv2.resize(a, out[::-1], interpolation=cv2.INTER_LINEAR))
 
 
-# --- the committed fixtures of chip_smoke.py phase 11 --------------------
+# --- the committed fixtures (tests/torch_jpeg_fixtures.py), which
+# tests/test_torch_cuda.py decodes on the card machine ------------------
 
 
 def test_committed_fixtures_decode_to_their_hashes():

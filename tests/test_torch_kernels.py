@@ -2,9 +2,10 @@
 versions against the JAX package (XLA path and the Pallas kernel in
 interpret mode) and the wrappers' dispatch rules on the CPU; the kernels
 themselves are tested on the card by tests/test_torch_cuda.py. Also checks
-that the port and chip_smoke.py import nothing of JAX, Flax, Optax or
-Orbax, nor OpenCV, PIL or torchvision (the card machine has none of them),
-and no module of the JAX package at all."""
+that the port imports nothing of JAX, Flax, Optax or Orbax, nor OpenCV,
+PIL or torchvision (the card machine has none of them), and no module of
+the JAX package at all, and that ``utils/kernel_bench.py`` refuses to run
+without a card."""
 import os
 import subprocess
 import sys
@@ -242,7 +243,6 @@ import animateportrait_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
-import chip_smoke
 assert not any(blocked(k) for k in sys.modules)
 assert not any(k.split(".")[0] == "animateportrait_tpu" for k in sys.modules)
 assert "animateportrait_tpu_torch.utils.assets" in sys.modules
@@ -281,11 +281,14 @@ def test_port_imports_no_jax():
     assert int(out.stdout.strip()) >= 81
 
 
-def test_chip_smoke_refuses_without_cuda(tmp_path):
+def test_kernel_bench_refuses_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
-    out = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],
-                         cwd=REPO, capture_output=True, text=True, timeout=300)
+    out = subprocess.run(
+        [sys.executable, os.path.join(REPO, "animateportrait_tpu_torch",
+                                      "utils", "kernel_bench.py"),
+         "--root", REPO], cwd=REPO, capture_output=True, text=True,
+        timeout=300)
     assert out.returncode != 0
-    assert '"ok"' not in out.stdout
-
+    assert "kernel_bench: needs a CUDA device" in out.stderr
+    assert out.stdout == ""

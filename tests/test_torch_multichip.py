@@ -16,8 +16,9 @@ on the CPU over gloo ranks spawned on the CPU:
   cut into per-rank sequences would fail;
 - ``dryrun_multichip(2)`` and ``dryrun_multichip(4)`` on the CPU;
 - GPipe over 3 of 4 ranks, TP and SP in one spawn
-  (``utils/smoke.py:jobs_rank``), as ``chip_smoke.py`` phase 17 runs
-  them, against the modules in one process.
+  (``utils/smoke.py:jobs_rank``), as the one-rank-a-card tests of
+  ``tests/test_torch_cuda.py`` run them, against the modules in one
+  process.
 """
 import numpy as np
 import pytest

@@ -1,6 +1,8 @@
-"""Writes the JPEG fixtures that ``chip_smoke.py`` phase 11 decodes on a
-machine without a JPEG encoder, with PIL from a seeded synthetic 512^2
-photo, and the SHA-256 of PIL's and OpenCV's decodes of each:
+"""Writes the JPEG fixtures that ``tests/test_torch_cuda.py::
+test_committed_fixtures_on_the_card_machine`` decodes and encodes on a
+machine without a JPEG encoder (``tests/test_torch_jpeg.py`` here), with
+PIL from a seeded synthetic 512^2 photo, and the SHA-256 of PIL's and
+OpenCV's decodes of each:
 
     python tests/torch_jpeg_fixtures.py animateportrait_tpu_torch/assets
 
@@ -27,8 +29,8 @@ HASHES = "jpeg_fixtures.json"
 
 
 def synthetic_photo(size: int = 512, seed: int = 3) -> np.ndarray:
-    """Smooth colour ramps and a bright oval with seeded noise (the
-    photo of ``chip_smoke.py:write_photo``), (size, size, 3) uint8 RGB."""
+    """Smooth colour ramps and a bright oval with seeded noise, (size,
+    size, 3) uint8 RGB."""
     rng = np.random.default_rng(seed)
     y, x = np.mgrid[0:size, 0:size] / size
     face = ((x - 0.5) ** 2 / 0.08 + (y - 0.5) ** 2 / 0.13) < 1

@@ -1,6 +1,9 @@
-"""Writes the Motion-JPEG clip that ``chip_smoke.py`` phase 15 decodes on a
-machine without OpenCV, with OpenCV's ``VideoWriter`` from seeded synthetic
-frames, and the SHA-256 of each frame ``cv2.VideoCapture`` decodes:
+"""Writes the Motion-JPEG clip that ``tests/test_torch_cuda.py::
+test_committed_fixtures_on_the_card_machine`` decodes on a machine without
+OpenCV (``tests/test_torch_av2flau.py`` here, and
+``::test_av2flau_card_vs_host`` converts it on the card), with OpenCV's
+``VideoWriter`` from seeded synthetic frames, and the SHA-256 of each
+frame ``cv2.VideoCapture`` decodes:
 
     python tests/torch_video_fixtures.py animateportrait_tpu_torch/assets
 
