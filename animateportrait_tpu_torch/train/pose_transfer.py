@@ -15,17 +15,32 @@ fake on the running statistics it had before. Adam is torch's with L2
 weight decay in the gradient (the JAX ``_torch_adam``). NCHW; keypoints
 (N, K, 2) in (x, y) pixels.
 
+On one card with fp32 parameters the step replays one CUDA graph a batch
+layout (``_StepGraph``, up to ``MAX_GRAPHS``): the first call of a layout
+runs the step eagerly on a side stream, the second captures and replays
+it, later ones replay it. BatchNorm in training mode binds its statistics
+to new tensors on every call (``nn.py``), which a replay would not see:
+the graph's step ends by copying each module's new statistics into the
+tensors it held before and binding it to them again (``_StaticStats``).
+Adam is then ``capturable``. Anything else (the host, another dtype, a
+third layout, ``test``) runs the eager step.
+
 Spans (``utils/observe.py``, recorded only under a profiler): ``pt.step``
 (request id: the trainer's step count) holds ``pt.flow`` (keypoint maps,
 the frozen flow net, visibility, the image warp), ``pt.g_forward``,
 ``pt.g_loss`` (L1, VGG, GAN), ``pt.g_grad``, ``pt.d_loss``, ``pt.d_grad``
 and ``pt.adam``; the counter ``pt.feature_warps`` counts the
 ``warp_acc_flow`` calls (the image warp here, the skip warps in
-``DualUnetGenerator``).
+``DualUnetGenerator``). A replay runs no Python: the inner spans and
+``pt.feature_warps`` record the eager, warm-up and capture steps only,
+``pt.step`` every step. Counters ``pt.graph_capture`` and
+``pt.graph_replay`` count the graphs' captures and replays.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import warnings
 
 import torch
 import torch.nn as nn
@@ -83,12 +98,18 @@ _SHIFT_DELTA = ((0, 2, 4, 8, 16), (0, 2, 4, 8), (0, 2, 4), (0, 2), (0,))
 _CONTENT_W = (1.0 / 32, 1.0 / 16, 1.0 / 8, 1.0 / 4, 1.0)
 
 
+@functools.lru_cache(maxsize=None)
+def _imagenet_stats(device: torch.device, dtype: torch.dtype):
+    """ImageNet's mean and std as (1, 3, 1, 1) tensors, made once a device
+    and dtype: a copy from host memory on every call would keep the step
+    out of a CUDA graph."""
+    return tuple(torch.tensor(v, dtype=dtype, device=device).reshape(
+        1, 3, 1, 1) for v in ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225)))
+
+
 def _pt_normalize(x):
     """modules.VGGLoss.normalize (:339-347): [-1, 1] -> ImageNet stats."""
-    mean = torch.tensor([0.485, 0.456, 0.406], dtype=x.dtype,
-                        device=x.device).reshape(1, 3, 1, 1)
-    std = torch.tensor([0.229, 0.224, 0.225], dtype=x.dtype,
-                       device=x.device).reshape(1, 3, 1, 1)
+    mean, std = _imagenet_stats(x.device, x.dtype)
     return (x * 0.5 + 0.5 - mean) / std
 
 
@@ -247,6 +268,7 @@ class PoseTransferTrainer:
                           cfg.beta2, cfg.weight_decay_D) \
             if cfg.use_gan else None
         self.steps = 0
+        self._graphs = None
 
     @property
     def trained(self) -> nn.Module:
@@ -336,34 +358,63 @@ class PoseTransferTrainer:
 
     def step(self, batch: dict) -> dict[str, torch.Tensor]:
         """One optimize_parameters cycle; the gradients stay in the
-        parameters' ``.grad``. Span ``pt.step`` carries the step count as
-        its request id."""
-        cfg = self.cfg
+        parameters' ``.grad`` (a replayed step overwrites them in place).
+        Span ``pt.step`` carries the step count as its request id."""
         observe.request(self.steps)
         with observe.span("pt.step"):
-            out, m = self.g_losses(batch)
-            trained = [p for p in self.trained.parameters()]
-            with observe.span("pt.g_grad"):
-                grads = torch.autograd.grad(m["loss"], trained)
-            if cfg.use_gan:
-                with observe.span("pt.d_loss"):
-                    loss_d = self.d_loss(batch, out)
-                d_params = list(self.d.parameters())
-                with observe.span("pt.d_grad"):
-                    d_grads = torch.autograd.grad(
-                        loss_d * cfg.loss_weight_gan, d_params)
-                for p, g in zip(d_params, d_grads):
-                    p.grad = g
-                m["loss_D"] = loss_d
-            for p, g in zip(trained, grads):
-                p.grad = g
-            with observe.span("pt.adam"):
-                self.opt_g.step()
-                if cfg.use_gan:
-                    self.opt_d.step()
-            with torch.no_grad():
-                m["PSNR"] = psnr_ref(out["img_out"], batch["img_2"])
+            graph = self._graph(batch)
+            m = self._step(batch) if graph is None else graph.step(batch)
             self.steps += 1
+        return m
+
+    def _graph(self, batch: dict) -> "_StepGraph | None":
+        """The step's CUDA graph for ``batch``'s layout, made on the
+        layout's first call; None where the step runs eagerly: off the
+        card, parameters other than fp32, a batch value that is not a
+        tensor on the trainer's card, or past ``MAX_GRAPHS`` layouts.
+        Graphs of other nets, optimizers or optimizer settings are
+        dropped."""
+        dev = next(self.g.parameters()).device
+        if dev.type != "cuda" or not all(
+                isinstance(v, torch.Tensor) and v.device == dev
+                for v in batch.values()):
+            return None
+        graphs = self._graphs
+        if graphs is None or not graphs.holds(self):
+            self._graphs = None
+            nets = [n for n in (self.g, self.d, self.pw) if n is not None]
+            if not all(p.dtype == torch.float32 for n in nets
+                       for p in n.parameters()):
+                return None
+            graphs = self._graphs = _StepGraphs(self)
+        return graphs.get(batch)
+
+    def _step(self, batch: dict) -> dict[str, torch.Tensor]:
+        """The step's work, run eagerly: both forwards, both gradients
+        and both Adam updates; the detached losses."""
+        cfg = self.cfg
+        out, m = self.g_losses(batch)
+        trained = [p for p in self.trained.parameters()]
+        with observe.span("pt.g_grad"):
+            grads = torch.autograd.grad(m["loss"], trained)
+        if cfg.use_gan:
+            with observe.span("pt.d_loss"):
+                loss_d = self.d_loss(batch, out)
+            d_params = list(self.d.parameters())
+            with observe.span("pt.d_grad"):
+                d_grads = torch.autograd.grad(
+                    loss_d * cfg.loss_weight_gan, d_params)
+            for p, g in zip(d_params, d_grads):
+                p.grad = g
+            m["loss_D"] = loss_d
+        for p, g in zip(trained, grads):
+            p.grad = g
+        with observe.span("pt.adam"):
+            self.opt_g.step()
+            if cfg.use_gan:
+                self.opt_d.step()
+        with torch.no_grad():
+            m["PSNR"] = psnr_ref(out["img_out"], batch["img_2"])
         return {k: v.detach() for k, v in m.items()}
 
     @torch.no_grad()
@@ -372,3 +423,142 @@ class PoseTransferTrainer:
         out = self.forward(batch, train=False)
         return out, {"PSNR": psnr_ref(out["img_out"], batch["img_2"]),
                      "SSIM": ssim_ref(out["img_out"], batch["img_2"])}
+
+
+# batch layouts the train step captures, each its own CUDA graph; the step
+# runs eagerly on others
+MAX_GRAPHS = 2
+
+_STATS = ("running_mean", "running_var", "num_batches_tracked")
+
+
+class _StaticStats:
+    """The BatchNorm statistics of nets, kept in the tensors each module
+    held when this was made. In training mode the port's BatchNorm binds
+    its statistics to new tensors on every call (an eval-mode pass whose
+    autograd graph holds the old ones may still be differentiated), which
+    a replayed CUDA graph would not see: ``settle`` copies each module's
+    statistics into its held tensors and binds it to them again."""
+
+    def __init__(self, *nets: nn.Module | None):
+        self.held = [(m, [getattr(m, k) for k in _STATS])
+                     for net in nets if net is not None
+                     for m in net.modules() if isinstance(m, BatchNorm2d)]
+
+    def settle(self) -> None:
+        for m, held in self.held:
+            for k, t in zip(_STATS, held):
+                new = getattr(m, k)
+                if new is not t:
+                    t.copy_(new)
+                    setattr(m, k, t)
+
+
+class _StepGraphs:
+    """A trainer's step graphs, one a batch layout, for one set of nets,
+    optimizers and optimizer settings. Making it sets both Adams
+    ``capturable`` (their ``step`` counts move to the card) and records
+    the BatchNorm statistics of G, D and netPW (``_StaticStats``), which
+    every graph of the set reads and writes."""
+
+    def __init__(self, trainer: PoseTransferTrainer):
+        self.trainer = trainer
+        self.owner = self._owner(trainer)
+        for opt in self._opts(trainer):
+            for group in opt.param_groups:
+                group["capturable"] = True
+            for p, st in opt.state.items():
+                if "step" in st:
+                    st["step"] = st["step"].to(p.device)
+        self.settings = self._settings(trainer)
+        self.stats = _StaticStats(trainer.g, trainer.d, trainer.pw)
+        self.graphs: dict[tuple, _StepGraph] = {}
+
+    @staticmethod
+    def _opts(tr: PoseTransferTrainer) -> list:
+        return [o for o in (tr.opt_g, tr.opt_d) if o is not None]
+
+    @classmethod
+    def _owner(cls, tr: PoseTransferTrainer) -> tuple:
+        """What a graph holds fixed, by identity: the configuration, the
+        nets, the optimizers and their state and groups
+        (``load_state_dict`` replaces them)."""
+        opts = cls._opts(tr)
+        return (tr.cfg, tr.g, tr.d, tr.pw, tr.netf, tr.vgg, *opts,
+                *(o.state for o in opts), *(o.param_groups for o in opts))
+
+    @classmethod
+    def _settings(cls, tr: PoseTransferTrainer) -> list:
+        """What a capture takes in of the groups, by value: the learning
+        rate, the betas, the decay."""
+        return [{k: v for k, v in g.items() if k != "params"}
+                for o in cls._opts(tr) for g in o.param_groups]
+
+    def holds(self, tr: PoseTransferTrainer) -> bool:
+        owner = self._owner(tr)
+        return (len(owner) == len(self.owner)
+                and all(a is b for a, b in zip(owner, self.owner))
+                and self._settings(tr) == self.settings)
+
+    def get(self, batch: dict) -> _StepGraph | None:
+        key = tuple((k, v.shape, v.dtype) for k, v in batch.items())
+        graph = self.graphs.get(key)
+        if graph is None and len(self.graphs) < MAX_GRAPHS:
+            graph = self.graphs[key] = _StepGraph(self, batch)
+        return graph
+
+
+class _StepGraph:
+    """``PoseTransferTrainer.step`` as one CUDA graph, for one batch
+    layout. Its first call is the warm-up: the step that is captured, run
+    eagerly on a side stream, a real update. The second call captures it
+    and replays it, and every later call replays it. The step's body ends
+    by settling the BatchNorm statistics, so a replay reads and writes the
+    same tensors. Each call first settles them too (an eager step in
+    between binds new ones), copies the batch into the graph's inputs,
+    points the parameters' ``.grad`` at the graph's gradients after a
+    replay and returns a copy of the losses. Counters ``pt.graph_capture``
+    and ``pt.graph_replay`` (``utils/observe.py``)."""
+
+    def __init__(self, graphs: _StepGraphs, batch: dict):
+        self.graphs = graphs
+        self.batch = {k: v.clone() for k, v in batch.items()}
+        self.graph = self.losses = self.names = None
+        self.grads = []
+
+    def _body(self) -> torch.Tensor:
+        """The step on the graph's inputs, its statistics settled; the
+        losses stacked."""
+        tr = self.graphs.trainer
+        m = tr._step(self.batch)
+        self.graphs.stats.settle()
+        nets = [tr.trained] + ([tr.d] if tr.cfg.use_gan else [])
+        self.grads = [(p, p.grad) for n in nets for p in n.parameters()]
+        self.names = list(m)
+        return torch.stack(list(m.values()))
+
+    def step(self, batch: dict) -> dict[str, torch.Tensor]:
+        self.graphs.stats.settle()
+        torch._foreach_copy_(list(self.batch.values()),
+                             [batch[k] for k in self.batch])
+        if self.losses is None:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side), warnings.catch_warnings():
+                # Adam warns of a capturable step run outside a capture
+                warnings.filterwarnings("ignore", ".*capturable=True")
+                self.losses = self._body()
+            torch.cuda.current_stream().wait_stream(side)
+        elif self.graph is None:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self.losses = self._body()
+            self.graph = graph
+            observe.count("pt.graph_capture", 1)
+        if self.graph is not None:
+            self.graph.replay()
+            observe.count("pt.graph_replay", 1)
+            for p, g in self.grads:
+                if p.grad is not g:
+                    p.grad = g
+        return dict(zip(self.names, self.losses.clone().unbind()))

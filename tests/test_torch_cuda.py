@@ -29,6 +29,7 @@ not installed; the repo's conftest imports JAX, so on such a machine run
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
 import copy
+import functools
 import os
 
 import numpy as np
@@ -936,6 +937,273 @@ def test_checkpoint_of_a_graphed_state_resumes_anywhere(
     for k, v in outs[0].items():
         assert torch.equal(v, outs[1][k]), k
     assert card.step == state.step == 4
+
+
+# The graphed pose-transfer step against the eager step of a twin copied
+# from the state it started from, on the same batch, with cuDNN
+# deterministic and TF32 off: the losses, the BatchNorm statistics and
+# their update counts bit for bit (the forward is the same); each
+# parameter's gradient, both Adams' moments and each parameter's update as
+# their largest gap over the larger of their scale and the median leaf's.
+# What is left apart is the backward's atomic adds (the skip warps' grid
+# sampling), which the eager step also shows against itself. On an H100
+# over 12 steps (five runs): gradients and moments up to 5.8e-6 graphed
+# against eager and 2.4e-6 eager against eager; updates up to 1.65e-4 from
+# the second step on. At Adam's first step (the graph's warm-up, itself
+# the eager step) an update is lr g / (|g| + eps), and an element whose
+# gradient is near eps (1e-8) moves by a share of lr that its rounding
+# decides: 3.2e-2 and 8.4e-2 against the twin, 9.9e-3 to 4.3e-2 eager
+# against eager, on one conv weight; that step's updates are not compared.
+# A fault reads O(1): a stale input or a moment updated twice in the
+# moments, another learning rate or a lost update in the updates; a stale
+# batch or statistic also breaks the bit-for-bit checks.
+POSE_GRAPH_GRAD_RTOL = 1e-4
+POSE_GRAPH_UPDATE_RTOL = 1e-2
+
+
+@functools.lru_cache(maxsize=None)
+def _pose_nought_leaves() -> frozenset:
+    """The smoke pose trainer's leaves whose gradient is 0 in exact
+    arithmetic: under 1e-9 of their net's largest in a float64 step on
+    the host (the deepest downsample's BatchNorm shift, which the next
+    BatchNorm on batch statistics removes; the ``conv_a`` branches of the
+    two finest scales' visibility blocks, which take no gradient at these
+    weights and batch). In fp32 their gradients are rounding noise, which
+    Adam turns into steps of up to lr either way."""
+    from animateportrait_tpu_torch.utils.smoke import trainer_smoke
+
+    smoke = trainer_smoke("pose", "cpu", small=True, dtype=torch.float64)
+    smoke.run()
+    out = set()
+    for key in ("g", "d"):
+        grads = {n: float(p.grad.abs().max())
+                 for n, p in getattr(smoke.trainer, key).named_parameters()}
+        top = max(grads.values())
+        out |= {f"{key}.{n}" for n, v in grads.items() if v < 1e-9 * top}
+    return frozenset(out)
+
+
+def _pose_setup(device, sizes):
+    """The smoke pose trainer (``trainer_smoke("pose", small=True)``) and
+    a seeded batch of each size: noise images, the target the source
+    rolled down by 2 rows, and its keypoints moved with it."""
+    from animateportrait_tpu_torch.utils.smoke import trainer_smoke
+
+    tr = trainer_smoke("pose", device, small=True).trainer
+    size, joints = tr.cfg.size, tr.cfg.joint_nc
+    gen = torch.Generator().manual_seed(7)
+    batches = []
+    for n in sizes:
+        img = torch.rand((n, 3, size, size), generator=gen) * 2 - 1
+        kp = torch.rand((n, joints, 2), generator=gen) * (size - 16) + 8
+        batches.append({k: v.to(device) for k, v in (
+            ("img_1", img), ("img_2", img.roll(2, 2)), ("kp_1", kp),
+            ("kp_2", kp + torch.tensor([0.0, 2.0])))})
+    return tr, batches
+
+
+def _pose_twin(tr):
+    """An eager stand-in for ``tr``: its nets and optimizers deep-copied
+    together (the copies' groups hold the copied parameters), stepped by
+    ``_step``."""
+    twin = copy.copy(tr)
+    twin.g, twin.d, twin.opt_g, twin.opt_d = copy.deepcopy(
+        (tr.g, tr.d, tr.opt_g, tr.opt_d))
+    twin._graphs = None
+    return twin
+
+
+def _pose_norms(tr) -> list:
+    from animateportrait_tpu_torch.nn import BatchNorm2d
+
+    return [(f"{n}.{k}", m) for n in ("g", "d")
+            for k, m in getattr(tr, n).named_modules()
+            if isinstance(m, BatchNorm2d)]
+
+
+def _check_pose_step_against_twin(tr, twin, start, got, want) -> dict:
+    """The graphed step's losses ``got`` and the state it left in ``tr``
+    against the twin's eager step from ``start`` (the parameters both
+    began at): losses and BatchNorm statistics bit for bit; the worst
+    scaled gap of each net's updates, gradients and moments, with its
+    leaf. The biases a
+    BatchNorm on batch statistics follows carry no gradient in exact
+    arithmetic, and Adam turns their rounding noise into steps of up to
+    lr either way: they are left out, as are the other leaves whose
+    gradient is 0 in exact arithmetic (``_pose_nought_leaves``)."""
+    from animateportrait_tpu_torch.utils.smoke import cancelled_biases
+
+    assert got.keys() == want.keys()
+    for k in got:
+        assert torch.equal(got[k], want[k]), (k, float(got[k]),
+                                              float(want[k]))
+    for (name, m), (_, w) in zip(_pose_norms(tr), _pose_norms(twin)):
+        for k in ("running_mean", "running_var", "num_batches_tracked"):
+            assert torch.equal(getattr(m, k), getattr(w, k)), (name, k)
+    gaps = {}
+    for key, opt_t, opt_w in (("g", tr.opt_g, twin.opt_g),
+                              ("d", tr.opt_d, twin.opt_d)):
+        noise = cancelled_biases(getattr(tr, key)) | {
+            n.split(".", 1)[1] for n in _pose_nought_leaves()
+            if n.startswith(f"{key}.")}
+        ps_t = dict(getattr(tr, key).named_parameters())
+        ps_w = dict(getattr(twin, key).named_parameters())
+        names = [n for n in ps_t if n not in noise]
+        pairs = {
+            "update": ({n: ps_t[n].detach() - start[key][n] for n in names},
+                       {n: ps_w[n].detach() - start[key][n] for n in names}),
+            "grad": ({n: ps_t[n].grad for n in names},
+                     {n: ps_w[n].grad for n in names})}
+        for mom in ("exp_avg", "exp_avg_sq"):
+            pairs[mom] = ({n: opt_t.state[ps_t[n]][mom] for n in names},
+                          {n: opt_w.state[ps_w[n]][mom] for n in names})
+        for n in ps_t:
+            assert float(opt_t.state[ps_t[n]]["step"]) \
+                == float(opt_w.state[ps_w[n]]["step"])
+        for what, (a, b) in pairs.items():
+            leaf_gaps = _scaled_gaps(a, b)
+            leaf = max(leaf_gaps, key=leaf_gaps.get)
+            gaps[f"{key}.{what}"] = (leaf_gaps[leaf], leaf)
+    return gaps
+
+
+def _worse(worst: dict, gaps: dict) -> dict:
+    """The larger (gap, leaf) of each quantity."""
+    return {n: max(g, worst.get(n, (0.0, None)), key=lambda t: t[0])
+            for n, g in gaps.items()}
+
+
+def _assert_pose_gaps(gaps: dict) -> None:
+    for n, (gap, leaf) in gaps.items():
+        bar = POSE_GRAPH_UPDATE_RTOL if n.endswith(".update") \
+            else POSE_GRAPH_GRAD_RTOL
+        assert gap <= bar, (n, gap, leaf)
+
+
+def _pose_start(tr) -> dict:
+    return {key: {n: p.detach().clone()
+                  for n, p in getattr(tr, key).named_parameters()}
+            for key in ("g", "d")}
+
+
+def test_graphed_pose_step_matches_the_eager_step(cuda_device,
+                                                  deterministic_fp32):
+    """12 pose-transfer steps at the small width, batch 2, over three
+    batches with no synchronize between them: one warm-up, one capture,
+    then replays. Each is held against the eager step of a twin copied
+    from the state it started from, on its batch: the losses and every
+    BatchNorm statistic and update count bit for bit, the gradients and
+    Adam moments within POSE_GRAPH_GRAD_RTOL, the updates from the second
+    step on within POSE_GRAPH_UPDATE_RTOL. Every BatchNorm keeps its
+    statistics' tensors
+    from the warm-up on. A second eager twin of each step gives the eager
+    step's own spread."""
+    from animateportrait_tpu_torch.utils import observe
+
+    tr, batches = _pose_setup(cuda_device, (2, 2, 2))
+    worst, spread, held = {}, {}, None
+    with observe.profile_trace():
+        for k in range(12):
+            b = batches[k % 3]
+            twin, again = _pose_twin(tr), _pose_twin(tr)
+            start = _pose_start(tr)
+            got = tr.step(b)
+            want = twin._step(b)
+            gaps = _check_pose_step_against_twin(tr, twin, start, got, want)
+            if k == 0:      # Adam's first step: see POSE_GRAPH_GRAD_RTOL
+                gaps = {n: g for n, g in gaps.items()
+                        if not n.endswith(".update")}
+            worst = _worse(worst, gaps)
+            # the eager step against itself, from the same state
+            gaps = _check_pose_step_against_twin(again, twin, start,
+                                                 again._step(b), want)
+            spread = _worse(spread, gaps)
+            now = [[getattr(m, s) for s in ("running_mean", "running_var",
+                                             "num_batches_tracked")]
+                   for _, m in _pose_norms(tr)]
+            if held is not None:
+                assert all(t is u for x, y in zip(now, held)
+                           for t, u in zip(x, y))
+            held = now
+        counts = observe.counters()
+    print("graphed against eager, worst scaled gaps:", worst)
+    print("eager against eager, worst scaled gaps:", spread)
+    assert counts["pt.graph_capture"] == 1
+    assert counts["pt.graph_replay"] == 11
+    assert tr.steps == 12
+    _assert_pose_gaps(worst)
+
+
+def test_graphed_pose_step_takes_a_graph_per_batch_layout(
+        cuda_device, deterministic_fp32):
+    """Batches of 2 and 3 each capture a graph of their own; a batch of 4,
+    past ``MAX_GRAPHS``, steps eagerly and binds the BatchNorms to new
+    statistics. The next replay of the batch of 2 starts from those
+    statistics and leaves them in the tensors the graphs hold; it and the
+    replay of the batch of 3 are the eager step's from the same state,
+    their gradients left in ``.grad``."""
+    from animateportrait_tpu_torch.train import pose_transfer as pt
+    from animateportrait_tpu_torch.utils import observe
+
+    assert pt.MAX_GRAPHS == 2
+    tr, (b2, b3, b4) = _pose_setup(cuda_device, (2, 3, 4))
+
+    def stats():
+        return [getattr(m, s) for _, m in _pose_norms(tr)
+                for s in ("running_mean", "running_var",
+                          "num_batches_tracked")]
+
+    def replay_against_eager(b):
+        twin, start = _pose_twin(tr), _pose_start(tr)
+        got = tr.step(b)
+        gaps = _check_pose_step_against_twin(tr, twin, start, got,
+                                             twin._step(b))
+        _assert_pose_gaps(gaps)
+
+    with observe.profile_trace():
+        tr.step(b2)                                   # warm-up
+        held = stats()
+        for b in (b2, b2, b2, b3, b3):
+            tr.step(b)
+        assert all(t is u for t, u in zip(stats(), held))
+        replay_against_eager(b3)
+        for b in (b2, b4, b4):
+            tr.step(b)
+        assert not any(t is u for t, u in zip(stats(), held))
+        replay_against_eager(b2)
+        assert all(t is u for t, u in zip(stats(), held))
+        counts = observe.counters()
+    assert counts["pt.graph_capture"] == 2
+    # b2: the capture's and 4 more; b3: the capture's and 1 more
+    assert counts["pt.graph_replay"] == 5 + 2
+    assert tr.steps == 11
+    assert len(tr._graphs.graphs) == 2
+
+
+def test_graphed_pose_step_drops_its_graphs_for_a_new_learning_rate(
+        cuda_device, deterministic_fp32):
+    """A learning rate set between steps drops the graphs (a capture holds
+    the rate it saw): the next step is a warm-up at the new rate, the one
+    after a new capture."""
+    from animateportrait_tpu_torch.utils import observe
+
+    tr, (b2,) = _pose_setup(cuda_device, (2,))
+    with observe.profile_trace():
+        for _ in range(3):
+            tr.step(b2)
+        first = tr._graphs
+        for group in tr.opt_g.param_groups:
+            group["lr"] *= 0.5
+        twin, start = _pose_twin(tr), _pose_start(tr)
+        got = tr.step(b2)
+        assert tr._graphs is not first
+        gaps = _check_pose_step_against_twin(tr, twin, start, got,
+                                             twin._step(b2))
+        _assert_pose_gaps(gaps)
+        tr.step(b2)
+        counts = observe.counters()
+    assert counts["pt.graph_capture"] == 2
+    assert counts["pt.graph_replay"] == 2 + 1
 
 
 # train_cli's small configuration

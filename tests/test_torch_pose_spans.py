@@ -5,10 +5,12 @@ small=True)``: G_nf 8, 3 scales, 2 warp scales, 6 joints, 32^2, D on,
 batch 2): under a profiler each step records ``pt.step`` with its phases
 nested in it once each, and ``pt.feature_warps`` counts every
 ``warp_acc_flow`` call; with no profiler nothing is recorded, and the
-step computes bit for bit what it computes under one."""
+step computes bit for bit what it computes under one. On the host the
+step is the eager step, no CUDA graph and no ``pt.graph_*`` counter."""
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from animateportrait_tpu_torch.train import convergence as cv
 from animateportrait_tpu_torch.utils import observe
 from animateportrait_tpu_torch.utils.smoke import trainer_smoke
 
@@ -66,6 +68,41 @@ def test_without_a_profiler_nothing_is_recorded_and_the_step_is_the_same(
         assert torch.equal(got[k], want[k]), k
     for name in ("g", "d"):
         a, b = plain.nets[name], traced.nets[name]
+        for (k, p), (_, q) in zip(a.named_parameters(),
+                                  b.named_parameters()):
+            assert torch.equal(p, q) and torch.equal(p.grad, q.grad), k
+        for (k, p), (_, q) in zip(a.named_buffers(), b.named_buffers()):
+            assert torch.equal(p, q), k
+
+
+def test_on_the_host_the_step_is_the_eager_step():
+    """``step`` on the host against the eager step's body (``_step``) of a
+    twin, bit for bit over two steps: the losses, the parameters, their
+    gradients and the BatchNorm statistics, which each training-mode call
+    binds to new tensors, as the eager step does."""
+    smoke, twin = (trainer_smoke("pose", "cpu", small=True)
+                   for _ in range(2))
+    tr = smoke.trainer
+    bn = tr.d.model[3]
+    with fresh_session():
+        for _ in range(2):
+            before = bn.running_mean
+            got = smoke.run()
+            assert bn.running_mean is not before
+        counts = observe.counters()
+    assert tr._graphs is None and tr.steps == 2
+    assert not any(k.startswith("pt.graph") for k in counts)
+    # the smoke's batch (convergence.pose_batch, NCHW)
+    batch = {k: (torch.from_numpy(v).permute(0, 3, 1, 2).contiguous()
+                 if v.ndim == 4 else torch.from_numpy(v))
+             for k, v in cv.pose_batch(2, 32, 6).items()}
+    for _ in range(2):
+        want = twin.trainer._step(batch)
+    assert got.keys() == want.keys()
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
+    for name in ("g", "d"):
+        a, b = smoke.nets[name], twin.nets[name]
         for (k, p), (_, q) in zip(a.named_parameters(),
                                   b.named_parameters()):
             assert torch.equal(p, q) and torch.equal(p.grad, q.grad), k
