@@ -17,6 +17,11 @@ Module1/thirdparty/AdaptiveWingLoss/core/{dataloader,evaler}.py):
 - ``evaluate_fan``: the mean NME of evaler.py, the boundary channel
   dropped before decoding.
 
+Spans (``utils/observe.py``, recorded only under a profiler): ``fan.step``
+(request id: the steps taken before it) with ``fan.forward`` (the FAN's
+stacks), ``fan.loss`` (the weighted AWing loss), ``fan.grad`` and
+``fan.adam`` inside it.
+
 No kernel of the port lies on this path.
 """
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 from animateportrait_tpu_torch.models.fan import (
     FAN, adaptive_wing_map, fan_nme, gaussian_heatmaps)
 from animateportrait_tpu_torch.train.optim import AdamTrainer
+from animateportrait_tpu_torch.utils import observe
 from animateportrait_tpu_torch.utils.device import (
     DEFAULT_DEVICE, resolve_device)
 
@@ -139,6 +145,8 @@ class FANTrainer(AdamTrainer):
     -> {"loss"}: the weighted AWing loss over every stack, one Adam
     update."""
 
+    span_prefix = "fan"
+
     def __init__(self, cfg: FANTrainConfig, model: FAN | None = None,
                  device: torch.device | str = DEFAULT_DEVICE):
         super().__init__(model if model is not None else build_fan(cfg),
@@ -146,10 +154,12 @@ class FANTrainer(AdamTrainer):
         self.cfg = cfg
 
     def losses(self, images, gt, weights) -> dict[str, torch.Tensor]:
-        outputs, _ = self.model(images)
-        scale = weights * self.cfg.loss_w + 1.0
-        loss = sum(torch.mean(adaptive_wing_map(pred, gt) * scale)
-                   for pred in outputs)
+        with observe.span("fan.forward"):
+            outputs, _ = self.model(images)
+        with observe.span("fan.loss"):
+            scale = weights * self.cfg.loss_w + 1.0
+            loss = sum(torch.mean(adaptive_wing_map(pred, gt) * scale)
+                       for pred in outputs)
         return {"loss": loss}
 
 

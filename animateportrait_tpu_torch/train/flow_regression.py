@@ -98,6 +98,8 @@ class FlowRegTrainer(AdamTrainer):
     "epe"[, "flow_ss"]}: the joint-heatmap input type
     (flow_regression_model.py:94-129)."""
 
+    span_prefix = "flowreg"
+
     def __init__(self, cfg: FlowRegConfig, model: FlowUnet,
                  device: torch.device | str = DEFAULT_DEVICE):
         super().__init__(model, resolve_device(device), cfg.lr, cfg.beta1)

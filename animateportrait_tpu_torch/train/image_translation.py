@@ -34,6 +34,8 @@ class ImageTranslationTrainer(AdamTrainer):
     """step(image_in (N,6,H,W), image_out (N,3,H,W)) -> {"loss", "l1",
     "vgg", "style"}; the VGG (frozen, eval) only with ``cfg.use_vgg``."""
 
+    span_prefix = "imtrans"
+
     def __init__(self, cfg: ImageTranslationConfig, model: ResUnetGenerator,
                  vgg: Vgg19Features | None = None,
                  device: torch.device | str = DEFAULT_DEVICE):

@@ -62,6 +62,8 @@ class ContentConfig:
 class ContentTrainer(AdamTrainer):
     """step(fls (N,W,204), aus (N,W,80), face_id (1,204)) -> {"loss"}."""
 
+    span_prefix = "m1_content"
+
     def __init__(self, cfg: ContentConfig, model: Audio2landmarkContent,
                  device: torch.device | str = DEFAULT_DEVICE):
         super().__init__(model, resolve_device(device), cfg.lr)
@@ -104,6 +106,8 @@ class SpeakerAwareTrainer(AdamTrainer):
     without the frozen content net's residual path, as the JAX step. z is
     the unit normal draw of the speaker code's noise (drawn from
     ``generator`` when not given)."""
+
+    span_prefix = "m1_speaker"
 
     def __init__(self, cfg: SpeakerAwareConfig,
                  model: Audio2landmarkSpeakerAware,
